@@ -1,21 +1,37 @@
-"""Drive the torch port's main path once on one NVIDIA GPU.
+"""Drive the torch port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero):
 1. device: needs torch.cuda; prints the card's name and power limit;
 2. build: generates and compiles (nvcc, sm_90a) the line-buffer kernel of
-   every program and grid below, printing build seconds and ptxas lines;
-3. small grids: the six rank-3 corpus programs and two integer programs on
-   an aligned and two odd grids, through `soda_tpu_torch.backend.cuda.run`,
-   held against the plain PyTorch version on the card and against the NumPy
-   oracle over the whole grid; the kernel launch count must rise by
-   groups x iterate;
-4. the main path at full size: jacobi3d 512^3 f32, one sweep, with the
-   launch counter reset just before and read just after; held against the
-   plain version at 1e-4 over the whole grid, then both timed with CUDA
-   events (plain, kernel, kernel, plain); denoise3d, heat3d and
-   poisson3d_f64 at 256^3, and jacobi3d 1024^3 when the card has room.
+   every program and grid below, up to 32 nvcc processes at once, printing
+   build seconds and ptxas lines;
+3. small grids, rank 3: the six rank-3 corpus programs and two integer
+   programs on an aligned and two odd grids, through
+   `soda_tpu_torch.backend.cuda.run`, held against the plain PyTorch
+   version on the card and against the port's NumPy reference over the
+   whole grid; the kernel-1 launch count must rise by groups x iterate;
+4. kernel 1's main path at full size: jacobi3d 512^3 f32, one sweep, with
+   kernel 1's launch counter reset just before and read just after; held
+   against the plain version at 1e-4 over the whole grid, then both timed
+   with CUDA events (plain, kernel, kernel, plain) beside the bound (ideal
+   bytes over 3.35 TB/s) and `F.conv3d` (TF32 off); denoise3d, heat3d and
+   poisson3d_f64 at 256^3, and jacobi3d 1024^3 when the card has room;
+5. small grids, rank 2: the 22 rank-2 corpus programs of at most 64 bits
+   on (64, 256), (37, 45) and (7, 13), as in phase 3 with kernel 2's
+   count; integers and half bit for bit against the plain version;
+6. the CLI on blur 2048x4096 with no --device: it runs on the card,
+   checks against the NumPy reference and exits 0;
+7. kernel 2's main path at full size: blur 2048x4096 uint16 with kernel
+   2's launch counter reset just before and read just after, bit for bit
+   against the plain version over the whole grid; then blur and conv5x5
+   at 16384^2 (conv5x5 beside `F.conv2d`, TF32 off), accum64 and
+   poisson_f64 at 2048^2 and jacobi2d 2048^2 (iterate 8 as chained
+   calls), each checked against the plain version over the whole grid
+   and timed with CUDA events in turns (plain, kernel, kernel, plain)
+   beside its bound; the profiler's device time of the kernel alone is
+   printed too.
 
 The line before the last is the kernel summary as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -36,7 +52,13 @@ SMALL_SHAPES = ((32, 64, 128), (13, 37, 45), (7, 11, 13))
 AT_SIZE = (("jacobi3d", (512, 512, 512)), ("denoise3d", (256, 256, 256)),
            ("heat3d", (256, 256, 256)), ("poisson3d_f64", (256, 256, 256)))
 BIG = ("jacobi3d", (1024, 1024, 1024))
-KERNEL_TOL = 1e-4  # f32 kernel vs plain (the same IEEE operations, no FMA)
+SMALL_SHAPES_2D = ((64, 256), (37, 45), (7, 13))
+AT_SIZE_2D = (("blur", (2048, 4096)), ("blur", (16384, 16384)),
+              ("conv5x5", (16384, 16384)), ("accum64", (2048, 2048)),
+              ("poisson_f64", (2048, 2048)), ("jacobi2d", (2048, 2048)))
+MAIN_2D = AT_SIZE_2D[0]
+KERNEL_TOL = 1e-4   # f32 kernel vs plain (the same IEEE operations, no FMA)
+LIBRARY_TOL = 1e-4  # the library call vs the kernel (another summation order)
 
 
 def log(*a) -> None:
@@ -55,8 +77,68 @@ def events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled_kernel_ms(fn, reps: int, name: str) -> float:
+    """Device time of the kernels whose name holds `name`, per call, from
+    `torch.profiler`."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if name in e.key) / reps / 1e3
+
+
 def max_abs_err(a: dict, b: dict) -> float:
     return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+
+def device_gate(p, got: dict, want: dict, exact: bool) -> bool:
+    """`compare_outputs` on the card: integers (and, with `exact`, every
+    output) bit for bit; floats at the program's tolerance."""
+    import torch
+
+    from soda_tpu_torch.utils.testing import tolerance
+
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    for k in want:
+        t = p.tensors[k].type
+        if exact or not t.is_float:
+            # integers as int64, floats as their bit patterns
+            a, b = ((got[k].view(bits[got[k].element_size()]),
+                     want[k].view(bits[want[k].element_size()])) if t.is_float
+                    else (got[k].to(torch.int64), want[k].to(torch.int64)))
+            if not torch.equal(a, b):
+                return False
+        elif not torch.allclose(got[k].double(), want[k].double(),
+                                rtol=tolerance(p), atol=tolerance(p)):
+            return False
+    return True
+
+
+def device_inputs(p, shape, gen, dev) -> dict:
+    """Random inputs made on the card from `gen`, in the distributions of
+    `rand_inputs` (uint16 in [0, 250), int64 in [-2^40, 2^40), floats
+    standard normal)."""
+    import torch
+
+    from soda_tpu_torch.ir.dtypes import torch_dtype
+
+    ins = {}
+    for n in p.input_names:
+        t = p.tensors[n].type
+        dt = torch_dtype(t)
+        if t.is_float:
+            ins[n] = torch.randn(shape, generator=gen, device=dev, dtype=dt)
+        elif t.kind == "int" and t.width > 32:
+            ins[n] = torch.randint(-(1 << 40), 1 << 40, shape, generator=gen,
+                                   device=dev, dtype=dt)
+        else:
+            ins[n] = torch.randint(0, 250, shape, generator=gen, device=dev,
+                                   dtype=torch.int32).to(dt)
+    return ins
 
 
 def main() -> int:
@@ -68,15 +150,21 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(HERE))
     import numpy as np
+    import torch.nn.functional as F
 
-    from soda_tpu_torch.backend import cuda, eager, linebuffer
+    from soda_tpu_torch.backend import cuda, eager, linebuffer, linebuffer2d
     from soda_tpu_torch.backend.io import to_numpy, to_torch
+    from soda_tpu_torch.cli import sodac
     from soda_tpu_torch.frontend.parser import parse, parse_file
     from soda_tpu_torch.plan.planner import plan
     from soda_tpu_torch.utils import report
     from soda_tpu_torch.utils.testing import (CORPUS, INT3D_SOURCES,
-                                              RANK3_CORPUS, compare_outputs,
-                                              oracle, rand_inputs)
+                                              RANK2_CORPUS, RANK3_CORPUS,
+                                              compare_outputs, oracle,
+                                              rand_inputs)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     # ---- 1. device ---------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -88,27 +176,36 @@ def main() -> int:
 
     programs = {n: parse_file(CORPUS / f"{n}.soda") for n in RANK3_CORPUS}
     programs.update({n: parse(s) for n, s in INT3D_SOURCES.items()})
+    programs2 = {n: parse_file(CORPUS / f"{n}.soda") for n in RANK2_CORPUS}
 
     # ---- 2. build -------------------------------------------------------------
     jobs = {}
+
+    def add_jobs(p, shape):
+        wrapper = cuda.WRAPPERS[p.rank]
+        for g in plan(p, shape).groups:
+            k = wrapper(p, g)
+            jobs[k.source] = k
+
     for n, p in programs.items():
         for shape in SMALL_SHAPES:
-            for g in plan(p, shape).groups:
-                k = linebuffer.GroupKernel(p, g)
-                jobs[k.source] = k
+            add_jobs(p, shape)
     for n, shape in AT_SIZE + (BIG,):
-        for g in plan(programs[n], shape).groups:
-            k = linebuffer.GroupKernel(programs[n], g)
-            jobs[k.source] = k
+        add_jobs(programs[n], shape)
+    for n, p in programs2.items():
+        for shape in SMALL_SHAPES_2D:
+            add_jobs(p, shape)
+    for n, shape in AT_SIZE_2D:
+        add_jobs(programs2[n], shape)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=min(len(jobs), 32)) as pool:
         built = list(pool.map(lambda k: (k, k.build()), jobs.values()))
     wall = time.perf_counter() - t0
     for k, b in built:
         ptxas = [ln.strip() for ln in b.log.splitlines()
                  if re.search(r"registers|spill|smem", ln)]
         log(f"build {b.path.name}: {b.seconds:.1f} s "
-            f"(tile {k.group.tile}, bz {k.group.bz}, smem {k.group.smem_bytes} B)")
+            f"(tile {k.group.tile}, chunk {k.group.bz}, smem {k.group.smem_bytes} B)")
         for ln in ptxas:
             log(f"  {ln}")
     log(f"build: {len(built)} kernels in {wall:.1f} s wall")
@@ -164,6 +261,7 @@ def main() -> int:
         ok = compare_outputs(p, to_numpy(p, got), to_numpy(p, plain), 0)
         if n == "jacobi3d":
             ok = ok and err <= KERNEL_TOL and launches >= 1
+        kept = got if n == "jacobi3d" else None
         del got, plain
         torch.cuda.empty_cache()
 
@@ -185,13 +283,15 @@ def main() -> int:
         log(f"at-size {n} {shape}: max|kernel-plain| {err:.3g} "
             f"({'ok' if ok else 'MISMATCH'}); ms/sweep kernel {k_ms:.4f} "
             f"[{t[1]:.4f}, {t[2]:.4f}]/{sweeps} plain {p_ms:.4f} "
-            f"[{t[0]:.4f}, {t[3]:.4f}]/{sweeps}; {r['achieved_gbps_at_ideal_bytes']:.1f} "
+            f"[{t[0]:.4f}, {t[3]:.4f}]/{sweeps}; bound {rep.bound_ms:.4f}; "
+            f"{r['achieved_gbps_at_ideal_bytes']:.1f} "
             f"GB/s at {rep.ideal_bytes_per_cell:g} B/cell = "
             f"{100 * r['share_of_3350_gbps']:.1f}% of 3.35 TB/s; plan "
             f"{rep.plan_bytes_per_cell:.3f} B/cell; card {card}")
         if not ok:
             log(f"FAILED at-size check: {n} {shape}")
             return 1
+        lib_ms = None
         if n == "jacobi3d":
             # where the time goes: host enqueue per call vs device kernel time
             t0 = time.perf_counter()
@@ -199,17 +299,31 @@ def main() -> int:
                 run_kernel()
             host_ms = (time.perf_counter() - t0) / reps * 1e3
             torch.cuda.synchronize()
-            acts = [torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                for _ in range(reps):
-                    run_kernel()
-                torch.cuda.synchronize()
-            dev_ms = sum(e.device_time_total for e in prof.key_averages()
-                         if "soda_lb3d" in e.key) / reps / 1e3
+            dev_ms = profiled_kernel_ms(run_kernel, reps, "soda_lb3d")
             log(f"at-size {n} {shape}: host {host_ms:.4f} ms per call "
                 f"(enqueue, no sync); profiler device time of the kernel "
                 f"{dev_ms:.4f} ms per sweep")
-        summary[n] = dict(err=err, ms=k_ms, plain_ms=p_ms, launches=launches)
+            # the library yardstick: one 3-D convolution with the 7 taps
+            w = torch.zeros((1, 1, 3, 3, 3), device=dev)
+            c = float(np.float32(0.142857))
+            for dz, dy, dx in [(1, 1, 1), (1, 1, 2), (1, 1, 0), (1, 2, 1),
+                               (1, 0, 1), (2, 1, 1), (0, 1, 1)]:
+                w[0, 0, dz, dy, dx] = c
+            x5 = ins["t0"][None, None]
+
+            def run_library():
+                return F.conv3d(x5, w, padding=1)
+
+            lib_err = float((run_library()[0, 0] - kept["t1"]).abs().max())
+            lib_ms = (events_ms(run_library, reps) + events_ms(run_library, reps)) / 2
+            log(f"at-size {n} {shape}: library F.conv3d (TF32 off) {lib_ms:.4f} ms, "
+                f"max|library-kernel| {lib_err:.3g}")
+            if lib_err > LIBRARY_TOL:
+                log(f"FAILED library check: {n} {shape}")
+                return 1
+            del kept, x5
+        summary[n] = dict(err=err, ms=k_ms, plain_ms=p_ms, launches=launches,
+                          bound_ms=rep.bound_ms, library_ms=lib_ms)
         del ins, pars, fn
         torch.cuda.empty_cache()
 
@@ -232,13 +346,143 @@ def main() -> int:
     else:
         log(f"at-size {n} {shape}: skipped, {free / 2**30:.1f} GiB free")
 
-    j = summary["jacobi3d"]
+    # ---- 5. small grids, rank 2: kernel 2 vs plain on the card vs oracle -----
+    for n, p in programs2.items():
+        exact = any(t.type.is_float and t.type.width == 16 for t in p.tensors.values())
+        for shape in SMALL_SHAPES_2D:
+            ins, ps = rand_inputs(p, shape, np.random.default_rng(0))
+            the_plan = plan(p, shape)
+            before = linebuffer2d.LAUNCHES
+            got = cuda.run(p, ins, ps)
+            torch.cuda.synchronize()
+            launched = linebuffer2d.LAUNCHES - before
+            want = len(the_plan.groups) * max(p.iterate, 1)
+            plain = eager.run(p, ins, ps)
+            ok_plain = device_gate(p, got, plain, exact)
+            ok_oracle = compare_outputs(p, to_numpy(p, got), oracle(p, ins, ps), 0)
+            err = max_abs_err(got, plain)
+            ok = ok_plain and ok_oracle and launched == want
+            log(f"small {n} {shape}: {len(the_plan.groups)} group(s), launches "
+                f"{launched}/{want}, max|kernel-plain| {err:.3g}, plain "
+                f"{'ok' if ok_plain else 'MISMATCH'}"
+                f"{' (bit for bit)' if exact else ''}, oracle "
+                f"{'ok' if ok_oracle else 'MISMATCH'}")
+            if not ok:
+                failures.append(f"{n} {shape}")
+    if failures:
+        log(f"FAILED rank-2 small-grid checks: {failures}")
+        return 1
+
+    # ---- 6. the CLI, on the card by default ------------------------------------
+    before = linebuffer2d.LAUNCHES
+    rc = sodac.main([str(CORPUS / "blur.soda"), "--grid-shape", "2048,4096", "--run"])
+    torch.cuda.synchronize()
+    launched = linebuffer2d.LAUNCHES - before
+    log(f"cli: sodac blur.soda --grid-shape 2048,4096 --run (no --device): rc {rc}, "
+        f"kernel-2 launches {launched}")
+    if rc != 0 or launched < 1:
+        log("FAILED cli check")
+        return 1
+
+    # ---- 7. kernel 2 at full size ---------------------------------------------
+    summary2 = {}
+    for n, shape in AT_SIZE_2D:
+        p = programs2[n]
+        exact = all(not t.type.is_float for t in p.tensors.values())
+        params = {pp.name: np.random.default_rng(1).standard_normal(pp.shape).astype(
+            pp.type.np_dtype()) for pp in p.params.values()}
+        ins, pars = to_torch(p, device_inputs(p, shape, gen, dev), params, dev)
+        fn = cuda.build_fn(p, grid_shape=shape)
+        main_path = (n, shape) == MAIN_2D
+        if main_path:
+            linebuffer2d.LAUNCHES = 0
+            got = cuda.run(p, ins, pars)
+            torch.cuda.synchronize()
+            launches = linebuffer2d.LAUNCHES
+        else:
+            got = fn(ins, pars)
+            launches = None
+        plain = eager.run(p, ins, pars)
+        err = max_abs_err(got, plain)
+        ok = device_gate(p, got, plain, exact)
+        if main_path:
+            ok = ok and launches == len(fn.plan.groups)
+        del plain
+        torch.cuda.empty_cache()
+
+        def run_kernel():
+            fn(ins, pars)
+
+        def run_plain():
+            eager.run(p, ins, pars)
+
+        run_kernel(), run_plain()
+        torch.cuda.synchronize()
+        big = shape[0] * shape[1] > 2**26
+        reps = 5 if big else 20
+        t = [events_ms(run_plain, reps), events_ms(run_kernel, reps),
+             events_ms(run_kernel, reps), events_ms(run_plain, reps)]
+        sweeps = max(p.iterate, 1)
+        k_ms, p_ms = (t[1] + t[2]) / 2 / sweeps, (t[0] + t[3]) / 2 / sweeps
+        dev_ms = profiled_kernel_ms(run_kernel, reps, "soda_lb2d") / sweeps
+        rep = report.analyze(fn.plan)
+        r = report.rates(rep, k_ms / 1e3, card)
+        log(f"at-size {n} {shape}: {len(fn.plan.groups)} group(s) x {sweeps} sweep(s); "
+            f"max|kernel-plain| {err:.3g} ({'ok' if ok else 'MISMATCH'}"
+            f"{', bit for bit' if exact else ''}); ms/sweep kernel {k_ms:.4f} "
+            f"[{t[1]:.4f}, {t[2]:.4f}]/{sweeps} (profiler, kernel alone "
+            f"{dev_ms:.4f}) plain {p_ms:.4f} [{t[0]:.4f}, {t[3]:.4f}]/{sweeps}; "
+            f"bound {rep.bound_ms:.4f}; {r['achieved_gbps_at_ideal_bytes']:.1f} GB/s at "
+            f"{rep.ideal_bytes_per_cell:g} B/cell = "
+            f"{100 * r['share_of_3350_gbps']:.1f}% of 3.35 TB/s; plan "
+            f"{rep.plan_bytes_per_cell:.3f} B/cell; {fn.plan.groups[0].describe()}; "
+            f"card {card}")
+        if not ok:
+            log(f"FAILED at-size check: {n} {shape}")
+            return 1
+        lib_ms = None
+        if n == "conv5x5":
+            x4 = ins["src"][None, None]
+            w = pars["coef"][None, None]
+
+            def run_library():
+                return F.conv2d(x4, w, padding=2)
+
+            lib = run_library()[0, 0]
+            lib_ok = torch.allclose(lib, got["dst"], rtol=LIBRARY_TOL, atol=LIBRARY_TOL)
+            lib_err = float((lib - got["dst"]).abs().max())
+            del lib
+            lib_ms = (events_ms(run_library, reps) + events_ms(run_library, reps)) / 2
+            log(f"at-size {n} {shape}: library F.conv2d (TF32 off) {lib_ms:.4f} ms, "
+                f"max|library-kernel| {lib_err:.3g}")
+            if not lib_ok:
+                log(f"FAILED library check: {n} {shape}")
+                return 1
+            del x4
+        elif n == "blur":
+            log(f"at-size {n} {shape}: library none (no one PyTorch call computes "
+                f"a uint16 divide-by-3 stencil)")
+        summary2[(n, shape)] = dict(err=err, ms=k_ms, plain_ms=p_ms, dev_ms=dev_ms,
+                                    launches=launches, bound_ms=rep.bound_ms,
+                                    library_ms=lib_ms)
+        del got, ins, pars, fn
+        torch.cuda.empty_cache()
+
+    j, b = summary["jacobi3d"], summary2[MAIN_2D]
+    log(card)
     log(json.dumps({"kernels": [{
         "name": "linebuffer3d", "route": "cuda",
         "source": "soda_tpu_torch/csrc/linebuffer3d.cuh",
         "replaces": "soda_tpu/backend/_linebuffer.py:309",
         "launches": j["launches"], "max_abs_err": j["err"],
-        "ms": j["ms"], "plain_ms": j["plain_ms"]}]}))
+        "ms": j["ms"], "plain_ms": j["plain_ms"], "bound_ms": j["bound_ms"],
+        "bound_by": "bytes", "library_ms": j["library_ms"]}, {
+        "name": "linebuffer2d", "route": "cuda",
+        "source": "soda_tpu_torch/csrc/linebuffer2d.cuh",
+        "replaces": "soda_tpu/backend/_linebuffer.py:106",
+        "launches": b["launches"], "max_abs_err": b["err"],
+        "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+        "bound_by": "bytes", "library_ms": b["library_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -5,7 +5,7 @@ The counterpart of Mosaic compilation and `soda_tpu`'s `.jax_cache`.  Each
 use with nvcc into a shared library with a plain C interface and loaded
 with ctypes.  Outputs live under `build/cuda/` in the checkout (listed in
 `.gitignore`), keyed by a hash of the source, the header and the flags, so
-a second process reuses them.
+a second process reuses them.  The key covers every header in `csrc/`.
 
 `--fmad=false` and no fast-math: docs/SEMANTICS.md promises no
 reassociation and no contraction.  The same source also builds with the
@@ -78,11 +78,11 @@ def build(name: str, source: str, *, emulate: bool = False) -> Built:
 
     emulate=False: nvcc for sm_90a (the card).  emulate=True: the host C++
     compiler with -DSODA_HOST_EMULATION (the CPU tests)."""
-    header = (CSRC / "linebuffer3d.cuh").read_text()
+    headers = "\0".join(h.read_text() for h in sorted(CSRC.glob("*.cuh")))
     cmd = (["g++"] + HOST_FLAGS if emulate
            else [nvcc_path()] + NVCC_FLAGS)
     key = hashlib.sha256(
-        "\0".join([source, header, " ".join(cmd[1:])]).encode()).hexdigest()[:16]
+        "\0".join([source, headers, " ".join(cmd[1:])]).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}_{'host' if emulate else 'sm90a'}_{key}.so"
     if out in _loaded:
         return _loaded[out]

@@ -6,10 +6,13 @@ chained one-sweep calls, the first output feeding the first input and the
 auxiliary inputs carried over, with two sets of output buffers used in
 turn (ping-pong).  Outputs are tensors in the declared dtypes.
 
-The device is explicit.  On CPU tensors every group runs its plain version
-(`linebuffer.group_plain`); on CUDA tensors every group runs its kernel or
-raises.  The CUDA path takes rank-3 programs only for now; ranks 1 and 2
-run on the CPU (`eager.py`).
+The entry point runs on the card unless the caller asks for the CPU
+(`device="cpu"`); without a card it raises `NoCudaDevice`.  On CPU tensors
+every group runs its plain version (`linebuffer.group_plain`); on CUDA
+tensors every group runs its kernel or raises: kernel 1 (the 3-D z-march,
+`linebuffer.py`) for rank 3, kernel 2 (the 2-D row-march,
+`linebuffer2d.py`) for rank 2.  Rank 1 waits for kernel 4 and runs on the
+CPU path only.
 """
 
 from __future__ import annotations
@@ -18,16 +21,15 @@ from typing import Mapping
 
 import torch
 
-from soda_tpu.ir.program import StencilProgram
-
 from ..ir.dtypes import check_types_supported
-from ..plan.planner import RANK_ROADMAP, Plan
+from ..ir.program import StencilProgram
+from ..plan.planner import RANK1_ROADMAP, Plan
 from ..plan.planner import plan as make_plan
 from ..utils.device import resolve
-from . import eager
-from .cuda_codegen import check_device_types
+from . import eager, linebuffer, linebuffer2d
 from .io import finalize_outputs, to_torch
-from .linebuffer import GroupKernel
+
+WRAPPERS = {3: linebuffer.GroupKernel, 2: linebuffer2d.GroupKernel}
 
 
 def build_fn(program: StencilProgram, the_plan: Plan | None = None,
@@ -49,7 +51,7 @@ def build_fn(program: StencilProgram, the_plan: Plan | None = None,
         raise ValueError(
             f"plan fuses {depth} sweeps per call, which does not divide the "
             f"executed iterate {it}; re-plan with iterate={it} or pick a divisor")
-    kernels = [GroupKernel(program, g) for g in the_plan.groups]
+    kernels = [WRAPPERS[program.rank](program, g) for g in the_plan.groups]
     chunks = it // depth
     in0, out0 = program.input_names[0], program.output_names[0]
 
@@ -74,20 +76,17 @@ def build_fn(program: StencilProgram, the_plan: Plan | None = None,
 
 
 def run(program: StencilProgram, inputs: Mapping, params: Mapping | None = None,
-        *, device, iterate: int | None = None, the_plan: Plan | None = None,
-        **plan_kwargs) -> dict[str, torch.Tensor]:
-    """Run `program` on `device` ("cpu" or "cuda"); inputs and params may be
-    numpy arrays or tensors.  Returns tensors on `device` in the declared
-    storage dtypes."""
+        *, device="cuda", iterate: int | None = None,
+        the_plan: Plan | None = None, **plan_kwargs) -> dict[str, torch.Tensor]:
+    """Run `program` on `device` ("cuda", the default, or "cpu"); inputs
+    and params may be numpy arrays or tensors.  Returns tensors on
+    `device` in the declared storage dtypes."""
     dev = resolve(device)
-    if program.rank != 3:
+    if program.rank == 1:
         if dev.type == "cuda":
             raise NotImplementedError(
-                f"program {program.name!r} has rank {program.rank}: the CUDA "
-                f"path runs rank-3 programs only ({RANK_ROADMAP})")
+                f"program {program.name!r} has rank 1: {RANK1_ROADMAP}")
         return eager.run(program, inputs, params, device=dev, iterate=iterate)
-    if dev.type == "cuda":
-        check_device_types(program)
     ins, pars = to_torch(program, inputs, params, dev)
     grid_shape = tuple(next(iter(ins.values())).shape)
     fn = build_fn(program, the_plan, grid_shape, iterate=iterate, **plan_kwargs)

@@ -3,7 +3,7 @@
 Counterpart of `soda_tpu/backend/xla.py` (`shifted_jnp`, `_sweep`,
 `build_fn`, `run`).  It is the port's CPU path and the plain version that
 the CUDA kernel is held against.  Every stage is evaluated over the whole
-grid by the shared evaluator with the torch namespace
+grid by the evaluator (`interp/evaluator.py`) with the torch namespace
 (`interp/torch_xp.py`): zero-fill taps, int64 accumulators, C division,
 masking at stores -- the oracle's semantics operation for operation.
 """
@@ -14,10 +14,10 @@ from typing import Mapping
 
 import torch
 
-from soda_tpu.interp.evaluator import EvalContext, eval_expr, store_cast
-from soda_tpu.ir.program import StencilProgram
-
+from ..interp.evaluator import EvalContext, eval_expr, store_cast
 from ..interp.torch_xp import TorchXP, plain
+from ..ir.program import StencilProgram
+from ..utils.device import resolve
 from .io import finalize_outputs, to_torch
 
 
@@ -61,12 +61,12 @@ def sweep(program: StencilProgram, arrays: dict, params: Mapping,
 
 
 def run(program: StencilProgram, inputs: Mapping, params: Mapping | None = None,
-        *, device, iterate: int | None = None) -> dict[str, torch.Tensor]:
-    """Run the program (all sweeps) on `device`; outputs are tensors in the
-    declared storage dtypes.  For iterate > 1 the first output feeds the
+        *, device="cuda", iterate: int | None = None) -> dict[str, torch.Tensor]:
+    """Run the program (all sweeps) on `device` ("cuda", the default, or
+    "cpu"); outputs are tensors in the declared storage dtypes.  For iterate > 1 the first output feeds the
     first input each sweep; other inputs carry over; other outputs take
     their final-sweep values."""
-    device = torch.device(device)
+    device = resolve(device)
     ins, pars = to_torch(program, inputs, params, device)
     it = max(program.iterate if iterate is None else iterate, 1)
     arrays = dict(ins)

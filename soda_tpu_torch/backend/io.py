@@ -14,9 +14,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from soda_tpu.ir.program import StencilProgram
-
 from ..ir.dtypes import check_types_supported, torch_dtype
+from ..ir.program import StencilProgram
 
 
 def check_io(program: StencilProgram, inputs: Mapping, params: Mapping) -> None:

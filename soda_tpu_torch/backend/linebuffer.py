@@ -9,10 +9,10 @@ grids by the plain PyTorch path; `GroupKernel` is the wrapper.
 
 The kernel computes every stage with the oracle's zero-fill semantics: an
 input read outside the grid is zero, and so is an intermediate stage's
-value there.  It therefore matches `numpy_interp` on the whole grid, for
-multi-stage groups too.  (The TPU kernel evaluates stages at constant
-extent from zero-filled inputs, which differs from the oracle only inside
-the rim, `docs/SEMANTICS.md`.)
+value there.  It therefore matches the oracle (`interp/numpy_ref.py`) on
+the whole grid, for multi-stage groups too.  (The TPU kernel evaluates
+stages at constant extent from zero-filled inputs, which differs from the
+oracle only inside the rim, `docs/SEMANTICS.md`.)
 """
 
 from __future__ import annotations
@@ -22,19 +22,81 @@ from typing import Mapping
 
 import torch
 
-from soda_tpu.ir.program import StencilProgram
-
 from ..ir.dtypes import torch_dtype
+from ..ir.program import StencilProgram
 from ..plan.planner import NTHREADS, GroupPlan
 from . import _build
-from .cuda_codegen import DeviceGen, ring_var
+from .cuda_codegen import DeviceGen, ring_var, storage_ctype
 
 # kernel launches made through GroupKernel (the CPU plain path never counts)
 LAUNCHES = 0
 
 
 def _ctype_store(program: StencilProgram, name: str) -> str:
-    return program.tensors[name].type.cpp_type()
+    return storage_ctype(program.tensors[name].type)
+
+
+def kernel_args(program: StencilProgram, g: GroupPlan) -> tuple[list[str], list[str]]:
+    """Declarations and names of a generated kernel's pointer arguments:
+    the group's external inputs, params and outputs, in that order (the
+    order `GroupKernel.launch` passes them)."""
+    args = [f"const {_ctype_store(program, n)}* __restrict__ {n}_g"
+            for n in g.external_inputs]
+    args += [f"const {storage_ctype(program.params[n].type)}* __restrict__ {n}_p"
+             for n in g.params]
+    args += [f"{_ctype_store(program, n)}* __restrict__ {n}_g" for n in g.outputs]
+    names = ([f"{n}_g" for n in g.external_inputs] + [f"{n}_p" for n in g.params]
+             + [f"{n}_g" for n in g.outputs])
+    return args, names
+
+
+def stage_value(gen: DeviceGen, program: StencilProgram, n: str, indent: str,
+                renames: Mapping[str, str] | None = None) -> list[str]:
+    """Stage `n`'s value at the current cell, stored into `v` in its
+    declared type; `renames` rewrites names in the expression."""
+    t = program.tensors[n].type
+    body, bt = gen.emit(program.tensors[n].expr)
+    for a, b in (renames or {}).items():
+        body = body.replace(a, b)
+    store = gen.cast_to("__v", bt, t)
+    return [f"{indent}const {gen.ctype(bt)} __v = {body};",
+            f"{indent}v = ({storage_ctype(t)})({store});"]
+
+
+def entry_points(kernel: str, decl: str, call: str, block: str, grid: str,
+                 host_loops: list[str]) -> list[str]:
+    """The `__global__` kernel and the C entry `soda_launch` of a generated
+    source; under SODA_HOST_EMULATION, `soda_launch` runs `soda_body` for
+    every CTA in turn on one thread (`host_loops`)."""
+    return ["#ifndef SODA_HOST_EMULATION",
+            f'extern "C" __global__ void __launch_bounds__(NT) {kernel}(',
+            f"    {decl}) {{",
+            "  extern __shared__ __align__(16) unsigned char soda_smem[];",
+            f"  soda_body({block}, soda_smem,",
+            f"            {call});",
+            "}",
+            "",
+            f'extern "C" int soda_launch({decl}, void* stream) {{',
+            "  if (SMEM_BYTES > 48 * 1024) {",
+            f"    cudaError_t e = cudaFuncSetAttribute({kernel}, "
+            "cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);",
+            "    if (e != cudaSuccess) return (int)e;",
+            "  }",
+            f"  const dim3 grid({grid});",
+            f"  {kernel}<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(",
+            f"      {call});",
+            "  return (int)cudaGetLastError();",
+            "}",
+            "#else",
+            "#include <vector>",
+            f'extern "C" int soda_launch({decl}, void* stream) {{',
+            "  (void)stream;",
+            "  std::vector<unsigned char> smem(SMEM_BYTES + 16);",
+            *host_loops,
+            f"      {call});",
+            "  return 0;",
+            "}",
+            "#endif", ""]
 
 
 def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
@@ -43,14 +105,7 @@ def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
     ring_names = [r.name for r in g.rings]
     gen = DeviceGen(program, set(ring_names))
     out_set = set(g.outputs)
-
-    args = [f"const {_ctype_store(program, n)}* __restrict__ {n}_g"
-            for n in g.external_inputs]
-    args += [f"const {program.params[n].type.cpp_type()}* __restrict__ {n}_p"
-             for n in g.params]
-    args += [f"{_ctype_store(program, n)}* __restrict__ {n}_g" for n in g.outputs]
-    names = ([f"{n}_g" for n in g.external_inputs] + [f"{n}_p" for n in g.params]
-             + [f"{n}_g" for n in g.outputs])
+    args, names = kernel_args(program, g)
     dims = "int64_t d0, int64_t d1, int64_t d2"
 
     L = [f"// generated by soda_tpu_torch for kernel `{program.name}`, "
@@ -91,13 +146,6 @@ def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
               "    }"]
     L.append("    SODA_SYNC();")
 
-    def stage_value(n: str, indent: str) -> list[str]:
-        t = program.tensors[n].type
-        body, bt = gen.emit(program.tensors[n].expr)
-        store = gen.cast_to("__v", bt, t)
-        return [f"{indent}const {gen.ctype(bt)} __v = {body};",
-                f"{indent}v = ({t.cpp_type()})({store});"]
-
     # 2. the leading plane of every ring stage, in topological order
     for n in g.stages:
         if n not in ring_names:
@@ -115,7 +163,7 @@ def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
               f"          {st} v = {st}(0);",
               "          if (p >= 0 && p < d0 && gy >= 0 && gy < d1 && gx >= 0 "
               "&& gx < d2) {"]
-        L += stage_value(n, "            ")
+        L += stage_value(gen, program, n, "            ")
         if n in out_set:
             L += ["            if (p >= z0 && p < zend && ly >= 0 && ly < TY "
                   "&& lx >= 0 && lx < TX)",
@@ -134,49 +182,22 @@ def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
         for n in direct:
             L += [f"          {{  // output {n}",
                   f"            {_ctype_store(program, n)} v;"]
-            L += stage_value(n, "            ")
+            L += stage_value(gen, program, n, "            ")
             L += [f"            {n}_g[(p * d1 + gy) * d2 + gx] = v;",
                   "          }"]
         L += ["        }", "      }", "    }", "    SODA_SYNC();"]
     L += ["  }", "}", ""]
 
     call = ", ".join(names + ["d0", "d1", "d2"])
-    L += ["#ifndef SODA_HOST_EMULATION",
-          "extern \"C\" __global__ void __launch_bounds__(NT) soda_lb3d_kernel(",
-          "    " + ", ".join(args + [dims]) + ") {",
-          "  extern __shared__ __align__(16) unsigned char soda_smem[];",
-          "  soda_body(blockIdx.x, blockIdx.y, blockIdx.z, threadIdx.x, "
-          "blockDim.x, soda_smem,",
-          f"            {call});",
-          "}",
-          "",
-          "extern \"C\" int soda_launch(" + ", ".join(args + [dims])
-          + ", void* stream) {",
-          "  if (SMEM_BYTES > 48 * 1024) {",
-          "    cudaError_t e = cudaFuncSetAttribute(soda_lb3d_kernel, "
-          "cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);",
-          "    if (e != cudaSuccess) return (int)e;",
-          "  }",
-          "  const dim3 grid((unsigned)((d2 + TX - 1) / TX), "
-          "(unsigned)((d1 + TY - 1) / TY), (unsigned)((d0 + BZ - 1) / BZ));",
-          "  soda_lb3d_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(",
-          f"      {call});",
-          "  return (int)cudaGetLastError();",
-          "}",
-          "#else",
-          "#include <vector>",
-          "extern \"C\" int soda_launch(" + ", ".join(args + [dims])
-          + ", void* stream) {",
-          "  (void)stream;",
-          "  std::vector<unsigned char> smem(SMEM_BYTES + 16);",
-          "  for (int bzi = 0; bzi < (int)((d0 + BZ - 1) / BZ); ++bzi)",
-          "    for (int by = 0; by < (int)((d1 + TY - 1) / TY); ++by)",
-          "      for (int bx = 0; bx < (int)((d2 + TX - 1) / TX); ++bx)",
-          "        soda_body(bx, by, bzi, 0, 1, smem.data(),",
-          f"                  {call});",
-          "  return 0;",
-          "}",
-          "#endif", ""]
+    L += entry_points(
+        "soda_lb3d_kernel", ", ".join(args + [dims]), call,
+        "blockIdx.x, blockIdx.y, blockIdx.z, threadIdx.x, blockDim.x",
+        "(unsigned)((d2 + TX - 1) / TX), (unsigned)((d1 + TY - 1) / TY), "
+        "(unsigned)((d0 + BZ - 1) / BZ)",
+        ["  for (int bzi = 0; bzi < (int)((d0 + BZ - 1) / BZ); ++bzi)",
+         "    for (int by = 0; by < (int)((d1 + TY - 1) / TY); ++by)",
+         "      for (int bx = 0; bx < (int)((d2 + TX - 1) / TX); ++bx)",
+         "        soda_body(bx, by, bzi, 0, 1, smem.data(),"])
     return "\n".join(L)
 
 
@@ -194,25 +215,38 @@ def group_plain(program: StencilProgram, g: GroupPlan,
 
 
 class GroupKernel:
-    """Wrapper of one group's kernel.
+    """Wrapper of one group's kernel (kernel 1, rank 3).
 
     Called on CPU tensors it runs `group_plain`.  Called on CUDA tensors it
     builds the kernel (once), checks every tensor, allocates the outputs
     (unless `out` provides them) and launches on the current stream; it
-    never falls back.  `LAUNCHES` counts the launches."""
+    never falls back.  `LAUNCHES` counts the launches.
+
+    `linebuffer2d.GroupKernel` (kernel 2, rank 2) is this wrapper with its
+    own source, rank and count."""
+
+    rank = 3
+    prefix = "lb3d"
 
     def __init__(self, program: StencilProgram, g: GroupPlan):
         self.program = program
         self.group = g
-        self.name = f"lb3d_{program.name}"
+        self.name = f"{self.prefix}_{program.name}"
         self._source: str | None = None
         self._entry = None          # the loaded C entry, after the first build
+
+    def _generate(self) -> str:
+        return kernel_source(self.program, self.group)
+
+    def _count(self) -> None:
+        global LAUNCHES
+        LAUNCHES += 1
 
     @property
     def source(self) -> str:
         # generated at first use: the CPU path never needs it
         if self._source is None:
-            self._source = kernel_source(self.program, self.group)
+            self._source = self._generate()
         return self._source
 
     def build(self, emulate: bool = False) -> _build.Built:
@@ -220,7 +254,7 @@ class GroupKernel:
         fn = built.lib.soda_launch
         n_ptr = (len(self.group.external_inputs) + len(self.group.params)
                  + len(self.group.outputs))
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * 3
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * self.rank
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         if not emulate:
@@ -248,14 +282,13 @@ class GroupKernel:
         rc = entry(*ptrs, *shape, stream)
         if rc != 0:
             raise RuntimeError(
-                f"line-buffer kernel for {self.program.name!r} failed to "
+                f"{self.prefix} kernel for {self.program.name!r} failed to "
                 f"launch: cudaError {rc}")
 
     def __call__(self, values: Mapping[str, torch.Tensor],
                  params: Mapping[str, torch.Tensor],
                  out: Mapping[str, torch.Tensor] | None = None
                  ) -> dict[str, torch.Tensor]:
-        global LAUNCHES
         g, p = self.group, self.program
         operands = [values[n] for n in g.external_inputs] + [params[n] for n in g.params]
         devices = {t.device for t in operands}
@@ -267,8 +300,9 @@ class GroupKernel:
         if device.type != "cuda":
             raise ValueError(f"the line-buffer kernel runs on CUDA tensors, got {device}")
         shape = tuple(values[g.external_inputs[0]].shape)
-        if len(shape) != 3 or min(shape) == 0:
-            raise ValueError(f"the line-buffer kernel takes a non-empty 3-D grid, got {shape}")
+        if len(shape) != self.rank or min(shape) == 0:
+            raise ValueError(f"the {self.prefix} kernel takes a non-empty "
+                             f"{self.rank}-D grid, got {shape}")
         for n in g.external_inputs:
             self._check(n, values[n], torch_dtype(p.tensors[n].type), shape, device)
         for n in g.params:
@@ -289,5 +323,5 @@ class GroupKernel:
         with torch.cuda.device(device):
             self.launch(self._entry, values, params, outs,
                         torch.cuda.current_stream(device).cuda_stream)
-        LAUNCHES += 1
+        self._count()
         return outs

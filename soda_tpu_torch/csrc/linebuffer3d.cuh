@@ -4,10 +4,9 @@
 // build_linebuffer_group_fn (both its emit_pipeline and mosaic engines):
 // one fused group of a rank-3, single-sweep stencil program over the whole
 // grid.  backend/linebuffer.py generates one kernel per (program, group,
-// plan) from the IR; this header holds the parts every generated kernel
-// shares: the C semantics helpers of the golden runner
-// (soda_tpu/backend/cpp.py _HEADER) as __host__ __device__ functions, the
-// math overloads the generated expressions call, and the plane loader.
+// plan) from the IR; this header holds the march's plane loader, and
+// soda_common.cuh the C semantics, math overloads and `soda_half` that
+// every generated kernel shares.
 //
 // What bounds it on the H100: device-memory bytes.  jacobi3d does about 8
 // flops for every 8 bytes (one f32 read and one f32 write per cell) against
@@ -25,73 +24,12 @@
 // Expressions are compiled with --fmad=false and without fast-math: the
 // evaluation order of the IR is kept exactly, as docs/SEMANTICS.md promises.
 //
-// Built with -DSODA_HOST_EMULATION the same source compiles as host C++:
-// every CTA runs on one thread (tid 0 of 1), so each phase between two
-// barriers runs whole before the next, which is what the barrier
-// guarantees on the card.  The CPU tests use that to check the march.
+// Built with -DSODA_HOST_EMULATION the same source compiles as host C++
+// (soda_common.cuh), which is how the CPU tests check the march.
 
 #pragma once
 
-#include <cmath>
-#include <cstddef>
-#include <cstdint>
-
-// SODA_HD: arithmetic shared by host and device code.  SODA_BODY: the
-// per-CTA march, which synchronizes the block and so is device-only.
-#ifdef SODA_HOST_EMULATION
-#define SODA_HD inline
-#define SODA_BODY inline
-#define SODA_SYNC() ((void)0)
-#else
-#include <cuda_runtime.h>
-#define SODA_HD __host__ __device__ __forceinline__
-#define SODA_BODY __device__ __forceinline__
-#define SODA_SYNC() __syncthreads()
-#endif
-
-// ---- C semantics of the DSL (as in the C++ golden runner) ------------------
-
-SODA_HD int64_t mask_int(int64_t v, int width, bool is_signed) {
-  if (width >= 64) return v;
-  uint64_t m = (uint64_t(1) << width) - 1;
-  uint64_t u = uint64_t(v) & m;
-  if (is_signed) {
-    uint64_t sign = uint64_t(1) << (width - 1);
-    if (u & sign) return int64_t(u) - (int64_t(1) << width);
-  }
-  return int64_t(u);
-}
-template <typename T> SODA_HD T c_div(T a, T b) { return a / b; }  // C trunc
-template <typename T> SODA_HD T c_mod(T a, T b) { return a % b; }
-template <typename T> SODA_HD T c_abs(T a) { return a < 0 ? T(-a) : a; }
-
-// The golden runner's std:: calls, as overloads that device code can call:
-// the emitted expressions say dm::sqrt(x) where the runner says
-// std::sqrt(x), and overload resolution picks the float or double function
-// exactly as it does for std::.
-namespace dm {
-template <typename T> SODA_HD T min(T a, T b) { return (b < a) ? b : a; }
-template <typename T> SODA_HD T max(T a, T b) { return (a < b) ? b : a; }
-SODA_HD int64_t abs(int64_t a) { return c_abs(a); }
-SODA_HD float abs(float a) { return ::fabsf(a); }
-SODA_HD double abs(double a) { return ::fabs(a); }
-#define SODA_MATH1(fn)                                  \
-  SODA_HD float fn(float a) { return ::fn##f(a); }      \
-  SODA_HD double fn(double a) { return ::fn(a); }
-#define SODA_MATH2(fn)                                           \
-  SODA_HD float fn(float a, float b) { return ::fn##f(a, b); }   \
-  SODA_HD double fn(double a, double b) { return ::fn(a, b); }
-SODA_MATH1(sqrt) SODA_MATH1(exp) SODA_MATH1(exp2) SODA_MATH1(log)
-SODA_MATH1(log2) SODA_MATH1(log10) SODA_MATH1(sin) SODA_MATH1(cos)
-SODA_MATH1(tan) SODA_MATH1(tanh) SODA_MATH1(floor) SODA_MATH1(ceil)
-SODA_MATH1(fabs) SODA_MATH1(round) SODA_MATH1(trunc) SODA_MATH1(atan)
-SODA_MATH1(asin) SODA_MATH1(acos) SODA_MATH1(sinh) SODA_MATH1(cosh)
-SODA_MATH1(expm1) SODA_MATH1(log1p)
-SODA_MATH2(pow) SODA_MATH2(atan2) SODA_MATH2(copysign) SODA_MATH2(hypot)
-SODA_MATH2(fmod)
-#undef SODA_MATH1
-#undef SODA_MATH2
-}  // namespace dm
+#include "soda_common.cuh"
 
 // ---- the march --------------------------------------------------------------
 

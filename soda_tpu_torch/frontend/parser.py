@@ -20,9 +20,9 @@ import pathlib
 import re
 from typing import Any
 
-from soda_tpu.ir import expr as ir
-from soda_tpu.ir.program import Param, StencilProgram, Tensor
-from soda_tpu.ir.types import ScalarType
+from ..ir import expr as ir
+from ..ir.program import Param, StencilProgram, Tensor
+from ..ir.types import ScalarType
 
 # ---- lexer -------------------------------------------------------------------
 

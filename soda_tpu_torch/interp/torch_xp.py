@@ -1,6 +1,7 @@
-"""A torch array namespace for the shared evaluator.
+"""A torch array namespace for the evaluator.
 
-`soda_tpu/interp/evaluator.py` builds a stage's computation in whatever
+The evaluator (`interp/evaluator.py`, the port's copy of
+`soda_tpu/interp/evaluator.py`) builds a stage's computation in whatever
 array language `EvalContext.xp` names.  It calls numpy-style functions on
 the namespace (`xp.asarray(v, dtype=)`, `xp.floor_divide`, `xp.arctan2`,
 ...) and `.astype(dtype)` on values, with dtypes that are either the
@@ -9,11 +10,11 @@ namespace's own attributes (`xp.int64`) or numpy dtypes
 so values are `XTensor`s: a tensor subclass that adds it.
 
 Integers use the oracle's 64-bit accumulator (`int_width=64`), the same
-contract as the C++ golden runner (`soda_tpu/backend/cpp.py::_Gen`), so
+contract as the C++ golden runner's printer (`backend/cpp_gen.py::_Gen`), so
 the plain path and the CUDA kernel agree bit for bit on integer programs.
 For f32 atan/asin/acos/atan2/sinh/cosh/expm1 the evaluator routes every
-non-numpy namespace through the composed formulas of
-`soda_tpu/interp/mathfns.py`; everything those call is here.
+non-numpy namespace through the composed formulas of `interp/mathfns.py`;
+everything those call is here.
 """
 
 from __future__ import annotations

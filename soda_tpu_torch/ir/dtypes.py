@@ -5,8 +5,6 @@ Counterpart of `soda_tpu/ir/types.py::np_dtype`, `jnp_dtype` and
 are stored in their DECLARED storage dtype (`ScalarType.np_dtype`): no
 container remapping and no f16 bit patterns.  Integers compute in the
 signed int64 accumulator of the oracle (`EvalContext.int_width == 64`).
-
-`ScalarType` and `promote` are shared with `soda_tpu` by import.
 """
 
 from __future__ import annotations
@@ -14,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from soda_tpu.ir.types import ScalarType, promote  # noqa: F401  (re-export)
+from .types import ScalarType, UnsupportedTypeError
 
 _NP_TO_TORCH = {
     np.dtype(np.bool_): torch.bool,
@@ -30,10 +28,6 @@ _NP_TO_TORCH = {
     np.dtype(np.uint32): torch.uint32,
     np.dtype(np.uint64): torch.uint64,
 }
-
-
-class UnsupportedTypeError(NotImplementedError):
-    """A DSL type the torch port does not carry yet (see ROADMAP.md)."""
 
 
 def from_numpy_dtype(dt) -> torch.dtype:

@@ -1,8 +1,9 @@
 """Resolve the `device` argument of the port's entry points.
 
-Counterpart of `soda_tpu/utils/backend_probe.py`.  The device is always
-explicit: "cpu" runs the plain PyTorch path; "cuda" (or "cuda:N") needs a
-card and raises without one -- it never falls back to the CPU.
+Counterpart of `soda_tpu/utils/backend_probe.py`.  The entry points run on
+the card ("cuda", their default, or "cuda:N"), which raises `NoCudaDevice`
+without a card -- it never falls back to the CPU; "cpu" runs the plain
+PyTorch path.
 """
 
 from __future__ import annotations
@@ -14,9 +15,7 @@ class NoCudaDevice(RuntimeError):
     """A CUDA device was asked for on a machine without one."""
 
 
-def resolve(device) -> torch.device:
-    if device is None:
-        raise ValueError("pass device='cpu' or device='cuda' explicitly")
+def resolve(device="cuda") -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

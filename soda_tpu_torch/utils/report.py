@@ -2,11 +2,15 @@
 
 Counterpart of `soda_tpu/utils/report.py::analyze`.  The analytic ideal is
 hardware-independent: every input read once and every output written once
-per sweep, in storage dtypes (8 B/cell for f32 jacobi3d).  `analyze` adds
-the plan's own bytes (tile halos and z warm-up included).  Given a time
-measured on the card, `rates` gives the achieved GB/s at the ideal bytes
-and its share of the H100's published 3.35 TB/s, with the card's name and
-power limit beside it: a card set below 700 W runs slower under load.
+per sweep, in storage dtypes (8 B/cell for f32 jacobi3d, 4 B/cell for
+uint16 blur), for ranks 2 and 3 alike.  `analyze` adds the plan's own bytes
+(tile halos and warm-up included) and the bound: the least time the H100
+could take for one sweep, the ideal bytes over its published 3.35 TB/s
+(the stencils do far fewer operations per byte than the card's peak
+rates allow, so bytes bound them).  Given a time measured on the card,
+`rates` gives the achieved GB/s at the ideal bytes and its share of
+3.35 TB/s, with the card's name and power limit beside it: a card set
+below 700 W runs slower under load.
 """
 
 from __future__ import annotations
@@ -28,6 +32,11 @@ class PlanReport:
     ideal_bytes_per_cell: float          # per sweep
     plan_bytes_per_cell: float           # per sweep, incl. halos and warm-up
     cells: int
+
+    @property
+    def bound_ms(self) -> float:
+        """Ideal bytes of one sweep over 3.35 TB/s, in ms."""
+        return self.ideal_bytes_per_cell * self.cells / (H100_SXM_PEAK_GBPS * 1e9) * 1e3
 
 
 def analyze(plan: Plan) -> PlanReport:

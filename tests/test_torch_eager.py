@@ -20,6 +20,7 @@ from soda_tpu.frontend.parser import parse_file
 from soda_tpu.interp import numpy_interp
 from soda_tpu.utils.testing import compare_outputs, rand_inputs
 from soda_tpu_torch.backend import eager
+from soda_tpu_torch.frontend.parser import parse_file as port_parse_file
 from soda_tpu_torch.backend.io import to_numpy, to_torch
 from soda_tpu_torch.interp.torch_xp import TorchXP
 from soda_tpu_torch.ir.dtypes import UnsupportedTypeError
@@ -42,14 +43,14 @@ def _max_diff(got, gold):
 
 @pytest.mark.parametrize("path", CORPUS, ids=lambda p: p.stem)
 def test_eager_matches_oracle(path):
-    p = parse_file(path)
+    p = port_parse_file(path)
     ins, ps = _io(p)
     if path.stem == "accum128":
         with pytest.raises(UnsupportedTypeError, match="wider than 64 bits"):
             eager.run(p, ins, ps, device="cpu")
         return
     got = to_numpy(p, eager.run(p, ins, ps, device="cpu"))
-    gold = numpy_interp.run(p, ins, ps)
+    gold = numpy_interp.run(parse_file(path), ins, ps)
     for k in gold:
         assert got[k].dtype == gold[k].dtype and got[k].shape == gold[k].shape
     assert compare_outputs(p, got, gold, 0), _max_diff(got, gold)
@@ -58,24 +59,24 @@ def test_eager_matches_oracle(path):
 @pytest.mark.parametrize("path", [c for c in CORPUS if c.stem != "accum128"],
                          ids=lambda p: p.stem)
 def test_eager_matches_xla_backend(path):
-    p = parse_file(path)
+    p = port_parse_file(path)
     ins, ps = _io(p, seed=1)
     got = to_numpy(p, eager.run(p, ins, ps, device="cpu"))
-    ref = xla_backend.run(p, ins, ps)
+    ref = xla_backend.run(parse_file(path), ins, ps)
     assert compare_outputs(p, got, ref, p.valid_rim()), _max_diff(got, ref)
 
 
 def test_iterate_override_feeds_first_output_back():
-    p = parse_file(SODA / "heat3d.soda")
+    p = port_parse_file(SODA / "heat3d.soda")
     ins, _ = _io(p)
     for it in (1, 3):
         got = to_numpy(p, eager.run(p, ins, {}, device="cpu", iterate=it))
-        gold = numpy_interp.run(p, ins, {}, iterate=it)
+        gold = numpy_interp.run(parse_file(SODA / "heat3d.soda"), ins, {}, iterate=it)
         assert np.array_equal(got["heat_out"], gold["heat_out"])
 
 
 def test_to_torch_checks_names_ranks_and_param_shapes():
-    p = parse_file(SODA / "conv5x5.soda")
+    p = port_parse_file(SODA / "conv5x5.soda")
     ins, ps = _io(p)
     with pytest.raises(ValueError, match="missing input"):
         to_torch(p, {}, ps, "cpu")

@@ -1,4 +1,5 @@
-"""The line-buffer kernel on the card against its plain version.
+"""The line-buffer kernels (1: 3-D z-march, 2: 2-D row-march) on the card
+against their plain version.
 
 Marked `gpu`; each test asks the `cuda_device` fixture for a card and skips
 without one.  This file imports neither jax nor soda_tpu's TPU backends, so
@@ -6,16 +7,18 @@ it runs on the card's machine, which has no jax:
 
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_gpu.py
 
-Gates: integers bit-exact; floats through `compare_outputs` (f32 1e-4,
-f32 libm 2e-3) against the plain PyTorch version on the card and against
-the NumPy oracle, on the whole grid.
+Gates: integers bit-exact; half bit-exact against the plain version (one
+correctly rounded operation at a time on both sides); floats through
+`compare_outputs` (f32 1e-4, f32 libm 2e-3, f64 1e-4) against the plain
+PyTorch version on the card and against the port's NumPy reference, on
+the whole grid.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from soda_tpu_torch.backend import cuda, eager, linebuffer
+from soda_tpu_torch.backend import cuda, eager, linebuffer, linebuffer2d
 from soda_tpu_torch.backend.io import to_numpy, to_torch
 from soda_tpu_torch.frontend.parser import parse, parse_file
 from soda_tpu_torch.plan.planner import plan
@@ -93,3 +96,36 @@ def test_iterate_ping_pong_keeps_the_feedback_input(cuda_device):
     assert torch.equal(tins["heat_in"], keep)
     gold = oracle(p, ins, {}, iterate=5)
     assert compare_outputs(p, got, gold, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["blur", "smooth_half", "accum64", "mathfn_f64"])
+@pytest.mark.parametrize("shape", [(64, 256), (37, 45), (7, 13)])
+def test_row_march_matches_plain_and_oracle(cuda_device, name, shape):
+    p = _program(name)
+    ins, ps = rand_inputs(p, shape, np.random.default_rng(15))
+    before = linebuffer2d.LAUNCHES
+    got_t = cuda.run(p, ins, ps, device=cuda_device)
+    torch.cuda.synchronize()
+    assert (linebuffer2d.LAUNCHES - before
+            == len(plan(p, shape).groups) * max(p.iterate, 1))
+    plain_t = eager.run(p, ins, ps, device=cuda_device)
+    got, plain = to_numpy(p, got_t), to_numpy(p, plain_t)
+    for k in got:
+        if p.tensors[k].type.is_int or p.tensors[k].type.width == 16:
+            assert np.array_equal(got[k].view(np.uint8), plain[k].view(np.uint8)), k
+    assert compare_outputs(p, got, plain, 0)
+    assert compare_outputs(p, got, oracle(p, ins, ps), 0)
+
+
+@pytest.mark.gpu
+def test_row_march_on_many_strips_and_chunks(cuda_device):
+    p = _program("sobel2d")
+    shape = (301, 1003)
+    the_plan = plan(p, shape, tile=(2, 32), bz=8)
+    assert the_plan.groups[0].grid[0] * the_plan.groups[0].grid[1] > 1000
+    ins, ps = rand_inputs(p, shape, np.random.default_rng(16))
+    got = to_numpy(p, cuda.run(p, ins, ps, device=cuda_device, the_plan=the_plan))
+    plain = to_numpy(p, eager.run(p, ins, ps, device=cuda_device))
+    assert np.array_equal(got["mag"], plain["mag"])
+    assert np.array_equal(got["mag"], oracle(p, ins, ps)["mag"])

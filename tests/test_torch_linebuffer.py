@@ -20,21 +20,26 @@ import numpy as np
 import pytest
 import torch
 
-from soda_tpu.frontend.parser import parse, parse_file
+from soda_tpu.frontend import parser as lark_parser
 from soda_tpu.interp import numpy_interp
 from soda_tpu.utils.testing import compare_outputs, rand_inputs
 from soda_tpu_torch.backend import linebuffer
 from soda_tpu_torch.backend.cuda_codegen import DeviceGen
 from soda_tpu_torch.backend.io import to_numpy, to_torch
-from soda_tpu_torch.ir.dtypes import UnsupportedTypeError, torch_dtype
+from soda_tpu_torch.frontend.parser import parse
+from soda_tpu_torch.ir.dtypes import torch_dtype
 from soda_tpu_torch.plan.planner import plan
 from soda_tpu_torch.utils.testing import INT3D_SOURCES, RANK3_CORPUS
 
 torch.set_num_threads(1)
 
 SODA = pathlib.Path(__file__).parent / "soda"
-PROGRAMS = {n: parse_file(SODA / f"{n}.soda") for n in RANK3_CORPUS}
-PROGRAMS.update({n: parse(s) for n, s in INT3D_SOURCES.items()})
+SOURCES = {n: (SODA / f"{n}.soda").read_text() for n in RANK3_CORPUS}
+SOURCES.update(INT3D_SOURCES)
+# the port's functions take the port parser's programs, soda_tpu's the lark
+# parser's
+PROGRAMS = {n: parse(s) for n, s in SOURCES.items()}
+REF = {n: lark_parser.parse(s) for n, s in SOURCES.items()}
 
 
 
@@ -70,13 +75,21 @@ def test_denoise3d_source_rings_every_tapped_stage():
 
 
 def test_half_is_refused_on_the_device_path():
+    # half is carried on the device now: as soda_half, rounded after every
+    # operation as the golden runner's _Float16 is
     p = parse("kernel: k\ninput half: a(8, 8, *)\n"
-              "output half: b(0, 0, 0) = a(0, 0, 1) * 0.5f\n")
-    with pytest.raises(UnsupportedTypeError, match="half"):
-        DeviceGen(p, {"a"})
+              "output half: b(0, 0, 0) = (a(0, 0, 1) + a(0, 0, 0)) * half(0.5f)\n")
+    code, t = DeviceGen(p, {"a"}).emit(p.tensors["b"].expr)
+    assert str(t) == "half" and "_Float16" not in code
+    # the product and the sum each round to half; both taps read the ring
+    assert code.startswith("(soda_half)(((soda_half)((")
+    assert code.count("((soda_half)(a_r[") == 2
+    src = linebuffer.kernel_source(p, plan(p, (8, 8, 32)).groups[0])
+    assert "const soda_half* __restrict__ a_g" in src and "_Float16" not in src
 
 
-def _emulate(p, shape, seed, **plan_kw):
+def _emulate(name, shape, seed, **plan_kw):
+    p = PROGRAMS[name]
     ins, ps = rand_inputs(p, shape, np.random.default_rng(seed))
     tins, tps = to_torch(p, ins, ps, "cpu")
     values = dict(tins)
@@ -88,7 +101,7 @@ def _emulate(p, shape, seed, **plan_kw):
         k.launch(entry, values, tps, outs, 0)
         values.update(outs)
     got = to_numpy(p, {o: values[o] for o in p.output_names})
-    return got, numpy_interp.run(p, ins, ps, iterate=1)
+    return got, numpy_interp.run(REF[name], ins, ps, iterate=1)
 
 
 @pytest.mark.parametrize("name", list(PROGRAMS))
@@ -98,7 +111,7 @@ def _emulate(p, shape, seed, **plan_kw):
 ])
 def test_host_emulated_kernel_matches_oracle_on_whole_grid(gxx, name, shape, plan_kw):
     p = PROGRAMS[name]
-    got, gold = _emulate(p, shape, seed=5, **plan_kw)
+    got, gold = _emulate(name, shape, seed=5, **plan_kw)
     if p.uses_libm_transcendentals():
         assert compare_outputs(p, got, gold, 0)
     else:
@@ -108,7 +121,7 @@ def test_host_emulated_kernel_matches_oracle_on_whole_grid(gxx, name, shape, pla
 
 def test_host_emulated_split_groups_match_oracle(gxx):
     p = PROGRAMS["denoise3d"]
-    got, gold = _emulate(p, (9, 20, 40), seed=6, smem_budget=16 * 1024,
+    got, gold = _emulate("denoise3d", (9, 20, 40), seed=6, smem_budget=16 * 1024,
                          tile=(8, 32), bz=8)
     assert compare_outputs(p, got, gold, 0)
 
@@ -124,7 +137,7 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
     assert linebuffer.LAUNCHES == before
     plain = linebuffer.group_plain(p, g, tins, tps)
     assert torch.equal(out["unew"], plain["unew"])
-    gold = numpy_interp.run(p, ins, ps)
+    gold = numpy_interp.run(REF["denoise3d"], ins, ps)
     assert compare_outputs(p, to_numpy(p, out), gold, 0)
 
 

@@ -13,12 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from soda_tpu.frontend.parser import parse, parse_file
+from soda_tpu.frontend import parser as lark_parser
 from soda_tpu.interp import numpy_interp
 from soda_tpu.plan.planner import plan as jax_plan
 from soda_tpu.utils.testing import compare_outputs, rand_inputs
 from soda_tpu_torch.backend import cuda
 from soda_tpu_torch.backend.io import to_numpy
+from soda_tpu_torch.frontend.parser import parse, parse_file
 from soda_tpu_torch.plan import planner
 
 torch.set_num_threads(1)
@@ -33,7 +34,7 @@ RANK3 = ["jacobi3d", "denoise3d", "gradmag3d", "orient3d", "heat3d",
 def test_grouping_equals_jax_planner(name, shape):
     p = parse_file(SODA / f"{name}.soda")
     ours = planner.plan(p, shape)
-    ref = jax_plan(p, shape)
+    ref = jax_plan(lark_parser.parse_file(SODA / f"{name}.soda"), shape)
     assert ([(g.stages, g.external_inputs, g.outputs) for g in ours.groups]
             == [(g.stages, g.external_inputs, g.outputs) for g in ref.groups])
     assert all(g.sweeps == 1 for g in ours.groups)
@@ -83,7 +84,8 @@ def test_small_budget_splits_into_chained_groups_that_still_match():
     assert all(g.smem_bytes <= 16 * 1024 for g in pl.groups)
     ins, ps = rand_inputs(p, (12, 20, 40), np.random.default_rng(3))
     got = to_numpy(p, cuda.run(p, ins, ps, device="cpu", the_plan=pl))
-    assert compare_outputs(p, got, numpy_interp.run(p, ins, ps), 0)
+    gold = numpy_interp.run(lark_parser.parse_file(SODA / "denoise3d.soda"), ins, ps)
+    assert compare_outputs(p, got, gold, 0)
 
 
 def test_stage_that_cannot_fit_is_refused():
@@ -93,23 +95,25 @@ def test_stage_that_cannot_fit_is_refused():
 
 
 def test_rank_two_is_refused_naming_the_roadmap():
-    p = parse_file(SODA / "jacobi2d.soda")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        planner.plan(p, (64, 64))
+    # rank 2 plans now (kernel 2); rank 1 waits for kernel 4
+    assert planner.plan(parse_file(SODA / "jacobi2d.soda"), (64, 64)).rank == 2
+    p = parse_file(SODA / "smooth1d.soda")
+    with pytest.raises(NotImplementedError, match="kernel 4.*ROADMAP.md"):
+        planner.plan(p, (256,))
 
 
 def test_sweeps_nondivisor_adjusted_not_underexecuted():
     """Requested sweeps that don't divide iterate are planned as a divisor,
     never silently under-executing sweeps (iterate=10, sweeps=3 -> 9 bug)."""
-    p = parse(
-        "kernel: t\niterate: 10\ninput float: a(16, 16, *)\n"
-        "output float: b(0, 0, 0) = (a(-1, 0, 0) + a(0, 0, 0) + a(0, 1, 1)) / 3.0f\n")
+    src = ("kernel: t\niterate: 10\ninput float: a(16, 16, *)\n"
+           "output float: b(0, 0, 0) = (a(-1, 0, 0) + a(0, 0, 0) + a(0, 1, 1)) / 3.0f\n")
+    p = parse(src)
     pl = planner.plan(p, (10, 12, 40), sweeps=3)
     assert 10 % pl.groups[0].sweeps == 0
     assert any("requested sweeps 3" in n for n in pl.notes)
     x = np.random.default_rng(4).standard_normal((10, 12, 40)).astype(np.float32)
     got = to_numpy(p, cuda.run(p, {"a": x}, device="cpu", the_plan=pl))
-    gold = numpy_interp.run(p, {"a": x})
+    gold = numpy_interp.run(lark_parser.parse(src), {"a": x})
     assert np.array_equal(got["b"], gold["b"])
 
 
@@ -122,3 +126,38 @@ def test_build_fn_rejects_non_divisor_plan():
     cuda.build_fn(p, the_plan=pl)
     with pytest.raises(ValueError, match="does not divide"):
         cuda.build_fn(p, the_plan=pl, iterate=6)
+
+
+def test_blur_row_rings_follow_the_group_spans():
+    p = parse_file(SODA / "blur.soda")
+    g = planner.plan(p, (64, 256), tile=(8, 128), bz=16).groups[0]
+    assert g.kernel == "linebuffer2d"
+    # input is tapped at x 0..2 by blur_x, which blur_y taps at y -1..1:
+    # both rings span 3 rows; 3 + RB rows round up to 16
+    rings = {r.name: (r.depth, r.rows, r.cols) for r in g.rings}
+    assert rings == {"input": (16, 1, 130), "blur_x": (16, 1, 128)}
+    assert g.warm == 2 and g.grid == (2, 4, 1)
+    assert g.smem_bytes == sum(-(-r.nbytes // 16) * 16 for r in g.rings)
+
+
+def test_row_march_bytes_count_strip_halos_and_warmup():
+    p = parse_file(SODA / "blur.soda")
+    g = planner.plan(p, (64, 256), tile=(8, 128), bz=16).groups[0]
+    rows = 17 + 18 + 18 + 17      # four chunks of 16 rows, halo 1 each side, clipped
+    cols = 130 + 128              # two strips of 128 columns, x halo 2 on the right
+    assert g.hbm_bytes_per_call == rows * cols * 2 + 64 * 256 * 2
+    assert g.useful_cells_per_call == 64 * 256
+
+
+@pytest.mark.parametrize("name,shape", [("blur", (2048, 4096)),
+                                        ("blur", (16384, 16384)),
+                                        ("conv5x5", (16384, 16384)),
+                                        ("mathfn_f64", (2048, 2048))])
+def test_at_size_row_plans_fill_the_card_within_shared_memory(name, shape):
+    p = parse_file(SODA / f"{name}.soda")
+    pl = planner.plan(p, shape)
+    for g in pl.groups:
+        assert g.smem_bytes <= planner.SMEM_BUDGET
+        assert np.prod(g.grid) >= 2 * planner.NUM_SMS
+    plan_b = sum(g.hbm_bytes_per_call for g in pl.groups) / np.prod(shape)
+    assert plan_b < pl.ideal_bytes_per_cell * 1.08
