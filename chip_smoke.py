@@ -30,17 +30,42 @@ Phases (any failure exits nonzero):
    poisson_f64 at 2048^2 and jacobi2d 2048^2 (iterate 8 as chained
    calls), each checked against the plain version over the whole grid
    and timed with CUDA events in turns (plain, kernel, kernel, plain)
-   beside its bound; the profiler's device time of the kernel alone is
-   printed too.
+   beside its bound; the kernels' device time alone (`device_ms`) is
+   printed too;
+8. small grids, fused sweeps: the six `iterate` corpus programs (rank 2:
+   jacobi2d, seidel2d, residual2d, denoise2p, jacobi2d_i64; rank 3:
+   heat3d) on the small grids of phases 3 and 5, at the planner's depth
+   and at the deepest depth that fits, through `cuda.run`: the fused
+   kernel's launch count must rise by groups x iterate / nf, every output
+   must equal the chained one-sweep kernels (`sweeps=1`) bit for bit, pass
+   `device_gate` against the plain version and `compare_outputs` against
+   the port's NumPy reference on the whole grid;
+9. fused sweeps at size: the main path jacobi2d 2048^2 iterate 8 with the
+   fused kernel's launch counter reset just before and read just after
+   (8 / nf launches, nf > 1); then jacobi2d 16384^2 iterate 8 (1 GiB per
+   array, beyond L2), jacobi2d_i64 2048^2 iterate 20, residual2d and
+   denoise2p 8192^2, heat3d 256^3 and 512^3 iterate 4, each checked as in
+   phase 8 (the NumPy reference on the whole grid too) and timed with CUDA
+   events three ways in turns (fused, chained, plain, plain, chained,
+   fused), beside the device time of the fused kernel alone and of the
+   chained kernels alone (`device_ms`), its bound per call (and what
+   bounds it), the planned bytes per cell-update, and the card's name and
+   power limit;
+10. the depth sweep: every row of phase 9 at every fused depth that fits
+   (and 1), in ms per sweep beside the planner's modeled time, each
+   output equal to the chained kernels bit for bit.
 
-The line before the last is the kernel summary as JSON; the last line is
-{"ok": true, "device": {...}}.
+Phases 4 and 7 run their programs one sweep per call (`sweeps=1`), so
+they time kernels 1 and 2; phases 8-10 time the fused cascades
+(`backend/sweeps.py`).  The line before the last is the kernel summary
+as JSON; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import json
+import math
 import pathlib
 import re
 import sys
@@ -57,8 +82,18 @@ AT_SIZE_2D = (("blur", (2048, 4096)), ("blur", (16384, 16384)),
               ("conv5x5", (16384, 16384)), ("accum64", (2048, 2048)),
               ("poisson_f64", (2048, 2048)), ("jacobi2d", (2048, 2048)))
 MAIN_2D = AT_SIZE_2D[0]
+ITERATE_CORPUS = ("jacobi2d", "seidel2d", "residual2d", "denoise2p",
+                  "jacobi2d_i64", "heat3d")
+AT_SIZE_SWEEPS = (("jacobi2d", (2048, 2048)), ("jacobi2d", (16384, 16384)),
+                  ("jacobi2d_i64", (2048, 2048)), ("residual2d", (8192, 8192)),
+                  ("denoise2p", (8192, 8192)), ("heat3d", (256, 256, 256)),
+                  ("heat3d", (512, 512, 512)))
+MAIN_SWEEPS = AT_SIZE_SWEEPS[0]
+DEPTH_SWEEP = AT_SIZE_SWEEPS   # every fused row at every depth that fits
 KERNEL_TOL = 1e-4   # f32 kernel vs plain (the same IEEE operations, no FMA)
 LIBRARY_TOL = 1e-4  # the library call vs the kernel (another summation order)
+SLEEP_CYCLES = 3_000_000   # at most 1.98 GHz: at least 1.5 ms
+SLEEP_COVERS_S = 1e-3
 
 
 def log(*a) -> None:
@@ -77,18 +112,36 @@ def events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled_kernel_ms(fn, reps: int, name: str) -> float:
-    """Device time of the kernels whose name holds `name`, per call, from
-    `torch.profiler`."""
+def device_ms(fn, reps: int) -> float | None:
+    """Device time of the kernels one `fn()` enqueues, in ms (the mean of
+    `reps`), by CUDA events: a sleep kernel holds the stream while the host
+    enqueues the start event, `fn`'s kernels and the end event, so no host
+    gap is timed.  None ("not measured") where the host took longer to
+    enqueue than the sleep lasts.  (torch.profiler on the card's machine
+    dropped kernel records after a few profiles in one process.)"""
     import torch
 
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    total = 0.0
+    for _ in range(reps):
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if name in e.key) / reps / 1e3
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if host_s > SLEEP_COVERS_S:
+            log(f"device time: the host enqueued for {host_s * 1e3:.3f} ms, longer "
+                f"than the sleep; not measured")
+            return None
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def fmt(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def max_abs_err(a: dict, b: dict) -> float:
@@ -116,6 +169,22 @@ def device_gate(p, got: dict, want: dict, exact: bool) -> bool:
                                 rtol=tolerance(p), atol=tolerance(p)):
             return False
     return True
+
+
+def bitwise_equal(a: dict, b: dict) -> bool:
+    """Every output of `a` equal to `b`'s bit for bit (floats by pattern)."""
+    import torch
+
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return all(torch.equal(a[k].view(bits[a[k].element_size()]),
+                           b[k].view(bits[b[k].element_size()])) for k in a)
+
+
+def launch_count() -> int:
+    """Launches of every kernel wrapper of the port."""
+    from soda_tpu_torch.backend import linebuffer, linebuffer2d, sweeps
+
+    return linebuffer.LAUNCHES + linebuffer2d.LAUNCHES + sweeps.LAUNCHES
 
 
 def device_inputs(p, shape, gen, dev) -> dict:
@@ -152,11 +221,11 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from soda_tpu_torch.backend import cuda, eager, linebuffer, linebuffer2d
+    from soda_tpu_torch.backend import cuda, eager, linebuffer, linebuffer2d, sweeps
     from soda_tpu_torch.backend.io import to_numpy, to_torch
     from soda_tpu_torch.cli import sodac
     from soda_tpu_torch.frontend.parser import parse, parse_file
-    from soda_tpu_torch.plan.planner import plan
+    from soda_tpu_torch.plan.planner import fused_depths, plan
     from soda_tpu_torch.utils import report
     from soda_tpu_torch.utils.testing import (CORPUS, INT3D_SOURCES,
                                               RANK2_CORPUS, RANK3_CORPUS,
@@ -181,22 +250,39 @@ def main() -> int:
     # ---- 2. build -------------------------------------------------------------
     jobs = {}
 
-    def add_jobs(p, shape):
-        wrapper = cuda.WRAPPERS[p.rank]
-        for g in plan(p, shape).groups:
-            k = wrapper(p, g)
+    def add_jobs(p, shape, **kw):
+        for g in plan(p, shape, **kw).groups:
+            k = cuda.group_kernel(p, g)
             jobs[k.source] = k
 
+    allp = {**programs, **programs2}
+    small_depths = {}    # (name, shape) -> fused depths phase 8 runs
+    for n in ITERATE_CORPUS:
+        p = allp[n]
+        for shape in SMALL_SHAPES if p.rank == 3 else SMALL_SHAPES_2D:
+            small_depths[(n, shape)] = sorted({plan(p, shape).groups[0].sweeps,
+                                               max(fused_depths(p, shape))})
+    sweep_depths = {(n, shape): [1] + fused_depths(allp[n], shape)
+                    for n, shape in DEPTH_SWEEP}
     for n, p in programs.items():
         for shape in SMALL_SHAPES:
             add_jobs(p, shape)
     for n, shape in AT_SIZE + (BIG,):
-        add_jobs(programs[n], shape)
+        add_jobs(programs[n], shape, sweeps=1)
     for n, p in programs2.items():
         for shape in SMALL_SHAPES_2D:
             add_jobs(p, shape)
     for n, shape in AT_SIZE_2D:
-        add_jobs(programs2[n], shape)
+        add_jobs(programs2[n], shape, sweeps=1)
+    for (n, shape), depths in small_depths.items():
+        for d in [1] + depths:
+            add_jobs(allp[n], shape, sweeps=d)
+    for n, shape in AT_SIZE_SWEEPS:
+        add_jobs(allp[n], shape)
+        add_jobs(allp[n], shape, sweeps=1)
+    for (n, shape), depths in sweep_depths.items():
+        for d in depths:
+            add_jobs(allp[n], shape, sweeps=d)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(max_workers=min(len(jobs), 32)) as pool:
         built = list(pool.map(lambda k: (k, k.build()), jobs.values()))
@@ -216,11 +302,11 @@ def main() -> int:
         for shape in SMALL_SHAPES:
             ins, ps = rand_inputs(p, shape, np.random.default_rng(0))
             the_plan = plan(p, shape)
-            before = linebuffer.LAUNCHES
+            before = launch_count()
             got = cuda.run(p, ins, ps, device=dev)
             torch.cuda.synchronize()
-            launched = linebuffer.LAUNCHES - before
-            want = len(the_plan.groups) * max(p.iterate, 1)
+            launched = launch_count() - before
+            want = len(the_plan.groups) * max(p.iterate, 1) // the_plan.groups[0].sweeps
             plain = eager.run(p, ins, ps, device=dev)
             got_np, plain_np = to_numpy(p, got), to_numpy(p, plain)
             ok_plain = compare_outputs(p, got_np, plain_np, 0)
@@ -246,7 +332,8 @@ def main() -> int:
             dt = {32: torch.float32, 64: torch.float64}[p.tensors[i].type.width]
             ins[i] = torch.randn(shape, generator=gen, device=dev, dtype=dt)
         ins, pars = to_torch(p, ins, {}, dev)
-        fn = cuda.build_fn(p, grid_shape=shape)
+        # one sweep per call: kernel 1's rows (heat3d as chained calls)
+        fn = cuda.build_fn(p, grid_shape=shape, sweeps=1)
         if n == "jacobi3d":
             linebuffer.LAUNCHES = 0
             got = cuda.run(p, ins, {}, device=dev)
@@ -276,14 +363,14 @@ def main() -> int:
         reps = 20 if n == "jacobi3d" else 5
         t = [events_ms(run_plain, reps), events_ms(run_kernel, reps),
              events_ms(run_kernel, reps), events_ms(run_plain, reps)]
-        sweeps = max(p.iterate, 1)
-        k_ms, p_ms = (t[1] + t[2]) / 2 / sweeps, (t[0] + t[3]) / 2 / sweeps
+        calls = max(p.iterate, 1)
+        k_ms, p_ms = (t[1] + t[2]) / 2 / calls, (t[0] + t[3]) / 2 / calls
         rep = report.analyze(fn.plan)
         r = report.rates(rep, k_ms / 1e3, card)
         log(f"at-size {n} {shape}: max|kernel-plain| {err:.3g} "
             f"({'ok' if ok else 'MISMATCH'}); ms/sweep kernel {k_ms:.4f} "
-            f"[{t[1]:.4f}, {t[2]:.4f}]/{sweeps} plain {p_ms:.4f} "
-            f"[{t[0]:.4f}, {t[3]:.4f}]/{sweeps}; bound {rep.bound_ms:.4f}; "
+            f"[{t[1]:.4f}, {t[2]:.4f}]/{calls} plain {p_ms:.4f} "
+            f"[{t[0]:.4f}, {t[3]:.4f}]/{calls}; bound {rep.bound_ms:.4f}; "
             f"{r['achieved_gbps_at_ideal_bytes']:.1f} "
             f"GB/s at {rep.ideal_bytes_per_cell:g} B/cell = "
             f"{100 * r['share_of_3350_gbps']:.1f}% of 3.35 TB/s; plan "
@@ -299,10 +386,10 @@ def main() -> int:
                 run_kernel()
             host_ms = (time.perf_counter() - t0) / reps * 1e3
             torch.cuda.synchronize()
-            dev_ms = profiled_kernel_ms(run_kernel, reps, "soda_lb3d")
+            dev_ms = device_ms(run_kernel, reps)
             log(f"at-size {n} {shape}: host {host_ms:.4f} ms per call "
-                f"(enqueue, no sync); profiler device time of the kernel "
-                f"{dev_ms:.4f} ms per sweep")
+                f"(enqueue, no sync); device time of the kernel alone "
+                f"{fmt(dev_ms)} ms per sweep")
             # the library yardstick: one 3-D convolution with the 7 taps
             w = torch.zeros((1, 1, 3, 3, 3), device=dev)
             c = float(np.float32(0.142857))
@@ -323,7 +410,8 @@ def main() -> int:
                 return 1
             del kept, x5
         summary[n] = dict(err=err, ms=k_ms, plain_ms=p_ms, launches=launches,
-                          bound_ms=rep.bound_ms, library_ms=lib_ms)
+                          bound_ms=rep.bound_ms, bound_by=rep.bound_by,
+                          library_ms=lib_ms)
         del ins, pars, fn
         torch.cuda.empty_cache()
 
@@ -333,15 +421,19 @@ def main() -> int:
         p = programs[n]
         x = torch.randn(shape, generator=gen, device=dev)
         got = cuda.run(p, {"t0": x}, {}, device=dev)
-        torch.cuda.synchronize()
-        t = events_ms(lambda: cuda.run(p, {"t0": x}, {}, device=dev), 3)
         err = max_abs_err(got, eager.run(p, {"t0": x}, {}, device=dev))
-        log(f"at-size {n} {shape}: max|kernel-plain| {err:.3g}; kernel "
-            f"{t:.3f} ms/sweep; card {card}")
+        # timed once the 4 GiB output's block is back in the allocator's
+        # cache: a fresh one would time cudaMalloc, not the kernel
+        del got
+        fn = cuda.build_fn(p, grid_shape=shape)
+        fn({"t0": x}, {})
+        t = device_ms(lambda: fn({"t0": x}, {}), 3)
+        log(f"at-size {n} {shape}: max|kernel-plain| {err:.3g}; kernel alone "
+            f"{fmt(t)} ms/sweep; card {card}")
         if err > KERNEL_TOL:
             log(f"FAILED at-size check: {n} {shape}")
             return 1
-        del got, x
+        del fn, x
         torch.cuda.empty_cache()
     else:
         log(f"at-size {n} {shape}: skipped, {free / 2**30:.1f} GiB free")
@@ -352,11 +444,11 @@ def main() -> int:
         for shape in SMALL_SHAPES_2D:
             ins, ps = rand_inputs(p, shape, np.random.default_rng(0))
             the_plan = plan(p, shape)
-            before = linebuffer2d.LAUNCHES
+            before = launch_count()
             got = cuda.run(p, ins, ps)
             torch.cuda.synchronize()
-            launched = linebuffer2d.LAUNCHES - before
-            want = len(the_plan.groups) * max(p.iterate, 1)
+            launched = launch_count() - before
+            want = len(the_plan.groups) * max(p.iterate, 1) // the_plan.groups[0].sweeps
             plain = eager.run(p, ins, ps)
             ok_plain = device_gate(p, got, plain, exact)
             ok_oracle = compare_outputs(p, to_numpy(p, got), oracle(p, ins, ps), 0)
@@ -392,11 +484,12 @@ def main() -> int:
         params = {pp.name: np.random.default_rng(1).standard_normal(pp.shape).astype(
             pp.type.np_dtype()) for pp in p.params.values()}
         ins, pars = to_torch(p, device_inputs(p, shape, gen, dev), params, dev)
-        fn = cuda.build_fn(p, grid_shape=shape)
+        # one sweep per call: kernel 2's rows (jacobi2d as chained calls)
+        fn = cuda.build_fn(p, grid_shape=shape, sweeps=1)
         main_path = (n, shape) == MAIN_2D
         if main_path:
             linebuffer2d.LAUNCHES = 0
-            got = cuda.run(p, ins, pars)
+            got = cuda.run(p, ins, pars, sweeps=1)
             torch.cuda.synchronize()
             launches = linebuffer2d.LAUNCHES
         else:
@@ -422,16 +515,17 @@ def main() -> int:
         reps = 5 if big else 20
         t = [events_ms(run_plain, reps), events_ms(run_kernel, reps),
              events_ms(run_kernel, reps), events_ms(run_plain, reps)]
-        sweeps = max(p.iterate, 1)
-        k_ms, p_ms = (t[1] + t[2]) / 2 / sweeps, (t[0] + t[3]) / 2 / sweeps
-        dev_ms = profiled_kernel_ms(run_kernel, reps, "soda_lb2d") / sweeps
+        calls = max(p.iterate, 1)
+        k_ms, p_ms = (t[1] + t[2]) / 2 / calls, (t[0] + t[3]) / 2 / calls
+        dev_ms = device_ms(run_kernel, reps)
+        dev_ms = None if dev_ms is None else dev_ms / calls
         rep = report.analyze(fn.plan)
         r = report.rates(rep, k_ms / 1e3, card)
-        log(f"at-size {n} {shape}: {len(fn.plan.groups)} group(s) x {sweeps} sweep(s); "
+        log(f"at-size {n} {shape}: {len(fn.plan.groups)} group(s) x {calls} sweep(s); "
             f"max|kernel-plain| {err:.3g} ({'ok' if ok else 'MISMATCH'}"
             f"{', bit for bit' if exact else ''}); ms/sweep kernel {k_ms:.4f} "
-            f"[{t[1]:.4f}, {t[2]:.4f}]/{sweeps} (profiler, kernel alone "
-            f"{dev_ms:.4f}) plain {p_ms:.4f} [{t[0]:.4f}, {t[3]:.4f}]/{sweeps}; "
+            f"[{t[1]:.4f}, {t[2]:.4f}]/{calls} (kernel alone "
+            f"{fmt(dev_ms)}) plain {p_ms:.4f} [{t[0]:.4f}, {t[3]:.4f}]/{calls}; "
             f"bound {rep.bound_ms:.4f}; {r['achieved_gbps_at_ideal_bytes']:.1f} GB/s at "
             f"{rep.ideal_bytes_per_cell:g} B/cell = "
             f"{100 * r['share_of_3350_gbps']:.1f}% of 3.35 TB/s; plan "
@@ -464,11 +558,149 @@ def main() -> int:
                 f"a uint16 divide-by-3 stencil)")
         summary2[(n, shape)] = dict(err=err, ms=k_ms, plain_ms=p_ms, dev_ms=dev_ms,
                                     launches=launches, bound_ms=rep.bound_ms,
-                                    library_ms=lib_ms)
+                                    bound_by=rep.bound_by, library_ms=lib_ms)
         del got, ins, pars, fn
         torch.cuda.empty_cache()
 
-    j, b = summary["jacobi3d"], summary2[MAIN_2D]
+    # ---- 8. small grids, fused sweeps: fused vs chained vs plain vs oracle ----
+    for (n, shape), depths in small_depths.items():
+        p = allp[n]
+        it = max(p.iterate, 1)
+        ins, ps = rand_inputs(p, shape, np.random.default_rng(0))
+        chained = cuda.run(p, ins, ps, sweeps=1)
+        plain = eager.run(p, ins, ps)
+        gold = oracle(p, ins, ps)
+        for d in depths:
+            the_plan = plan(p, shape, sweeps=d)
+            nf = the_plan.groups[0].sweeps
+            before = sweeps.LAUNCHES
+            got = cuda.run(p, ins, ps, sweeps=d)
+            torch.cuda.synchronize()
+            launched = sweeps.LAUNCHES - before
+            want = len(the_plan.groups) * it // nf
+            ok_bits = bitwise_equal(got, chained)
+            ok_plain = device_gate(p, got, plain, False)
+            ok_oracle = compare_outputs(p, to_numpy(p, got), gold, 0)
+            ok = nf > 1 and launched == want and ok_bits and ok_plain and ok_oracle
+            log(f"fused small {n} {shape} nf {nf}: launches {launched}/{want}, "
+                f"chained {'bit for bit' if ok_bits else 'MISMATCH'}, max|fused-plain| "
+                f"{max_abs_err(got, plain):.3g} plain {'ok' if ok_plain else 'MISMATCH'}, "
+                f"oracle {'ok' if ok_oracle else 'MISMATCH'}")
+            if not ok:
+                failures.append(f"fused {n} {shape} nf {d}")
+    if failures:
+        log(f"FAILED fused small-grid checks: {failures}")
+        return 1
+
+    # ---- 9. fused sweeps at size: fused vs chained vs plain, timed ------------
+    summary3 = {}
+    for n, shape in AT_SIZE_SWEEPS:
+        p = allp[n]
+        it = max(p.iterate, 1)
+        ins = device_inputs(p, shape, gen, dev)
+        fused = cuda.build_fn(p, grid_shape=shape)
+        chained = cuda.build_fn(p, grid_shape=shape, sweeps=1)
+        nf = fused.plan.groups[0].sweeps
+        main_path = (n, shape) == MAIN_SWEEPS
+        if main_path:
+            sweeps.LAUNCHES = 0
+            got = cuda.run(p, ins, {})
+            torch.cuda.synchronize()
+            launches = sweeps.LAUNCHES
+        else:
+            got = fused(ins, {})
+            launches = None
+        ok_bits = bitwise_equal(got, chained(ins, {}))
+        plain = eager.run(p, ins, {})
+        err = max_abs_err(got, plain)
+        ok_plain = device_gate(p, got, plain, False)
+        del plain
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ok_oracle = compare_outputs(p, to_numpy(p, got),
+                                    oracle(p, {k: v.cpu().numpy() for k, v in ins.items()}, {}), 0)
+        oracle_s = time.perf_counter() - t0
+        ok = nf > 1 and ok_bits and ok_plain and ok_oracle
+        if main_path:
+            ok = ok and launches == it // nf
+        del got
+
+        def run_fused():
+            fused(ins, {})
+
+        def run_chained():
+            chained(ins, {})
+
+        def run_plain():
+            eager.run(p, ins, {})
+
+        run_fused(), run_chained(), run_plain()
+        torch.cuda.synchronize()
+        big = math.prod(shape) > 2**26
+        reps = 2 if big else 10
+        t = [events_ms(f, reps) for f in (run_fused, run_chained, run_plain,
+                                          run_plain, run_chained, run_fused)]
+        f_ms, c_ms, p_ms = ((t[0] + t[5]) / 2 / it, (t[1] + t[4]) / 2 / it,
+                            (t[2] + t[3]) / 2 / it)
+        dev_ms, dev_c = device_ms(run_fused, reps), device_ms(run_chained, reps)
+        dev_ms = None if dev_ms is None else dev_ms / it
+        dev_c = None if dev_c is None else dev_c / it
+        rep = report.analyze(fused.plan)
+        r = report.rates(rep, f_ms * nf / 1e3, card)
+        log(f"fused at-size {n} {shape}: iterate {it}, nf {nf}, {it // nf} call(s)"
+            f"{f', launches {launches}' if main_path else ''}; chained "
+            f"{'bit for bit' if ok_bits else 'MISMATCH'}, max|fused-plain| {err:.3g} "
+            f"plain {'ok' if ok_plain else 'MISMATCH'}, oracle "
+            f"{'ok' if ok_oracle else 'MISMATCH'} ({oracle_s:.1f} s on the host); "
+            f"ms/sweep fused {f_ms:.4f} [{t[0]:.4f}, {t[5]:.4f}]/{it} (kernel alone "
+            f"{fmt(dev_ms)}) chained {c_ms:.4f} [{t[1]:.4f}, {t[4]:.4f}]/{it} (kernels "
+            f"alone {fmt(dev_c)}) "
+            f"plain {p_ms:.4f} [{t[2]:.4f}, {t[3]:.4f}]/{it}; bound per call "
+            f"{rep.bound_ms:.4f} ({rep.bound_by}; {rep.bound_ms / nf:.4f} per sweep, "
+            f"program {rep.program_bound_ms:.4f}); {100 * r['share_of_bound']:.1f}% "
+            f"of the bound; plan {rep.plan_bytes_per_cell_update:.3f} B/cell-update; "
+            f"{fused.plan.groups[0].describe()}; card {card}")
+        if not ok:
+            log(f"FAILED fused at-size check: {n} {shape}")
+            return 1
+        summary3[(n, shape)] = dict(err=err, ms=f_ms, chained_ms=c_ms, plain_ms=p_ms,
+                                    dev_ms=dev_ms, chained_dev_ms=dev_c, launches=launches,
+                                    bound_ms=rep.bound_ms / nf, bound_by=rep.bound_by)
+        del ins, fused, chained
+        torch.cuda.empty_cache()
+
+    # ---- 10. the depth sweep: ms per sweep at every depth that fits ----------
+    for (n, shape), depths in sweep_depths.items():
+        p = allp[n]
+        it = max(p.iterate, 1)
+        ins = device_inputs(p, shape, gen, dev)
+        ref = cuda.build_fn(p, grid_shape=shape, sweeps=1)(ins, {})
+        chosen = plan(p, shape).groups[0].sweeps
+        measured = {}
+        for d in depths:
+            fn = cuda.build_fn(p, grid_shape=shape, sweeps=d)
+            got = fn(ins, {})
+            ok = bitwise_equal(got, ref)
+            del got
+            fn(ins, {})
+            torch.cuda.synchronize()
+            ms = (events_ms(lambda: fn(ins, {}), 2) + events_ms(lambda: fn(ins, {}), 2)) / 2 / it
+            g = fn.plan.groups[0]
+            measured[d] = ms
+            log(f"depth sweep {n} {shape} nf {d}: {ms:.4f} ms/sweep measured, "
+                f"{g.modeled_seconds / d * 1e3:.4f} modeled; "
+                f"{'bit for bit' if ok else 'MISMATCH'} vs chained; tile {g.tile}, "
+                f"chunk {g.bz}, smem {g.smem_bytes} B; card {card}")
+            if not ok:
+                log(f"FAILED depth sweep: {n} {shape} nf {d}")
+                return 1
+        best = min(measured, key=measured.get)
+        log(f"depth sweep {n} {shape}: fastest nf {best}, the planner chose nf "
+            f"{chosen} ({measured[chosen] / measured[best]:.3f}x the fastest)")
+        del ins, ref
+        torch.cuda.empty_cache()
+
+    j, b, f = summary["jacobi3d"], summary2[MAIN_2D], summary3[MAIN_SWEEPS]
     log(card)
     log(json.dumps({"kernels": [{
         "name": "linebuffer3d", "route": "cuda",
@@ -476,13 +708,21 @@ def main() -> int:
         "replaces": "soda_tpu/backend/_linebuffer.py:309",
         "launches": j["launches"], "max_abs_err": j["err"],
         "ms": j["ms"], "plain_ms": j["plain_ms"], "bound_ms": j["bound_ms"],
-        "bound_by": "bytes", "library_ms": j["library_ms"]}, {
+        "bound_by": j["bound_by"], "library_ms": j["library_ms"]}, {
         "name": "linebuffer2d", "route": "cuda",
         "source": "soda_tpu_torch/csrc/linebuffer2d.cuh",
         "replaces": "soda_tpu/backend/_linebuffer.py:106",
         "launches": b["launches"], "max_abs_err": b["err"],
         "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
-        "bound_by": "bytes", "library_ms": b["library_ms"]}]}))
+        "bound_by": b["bound_by"], "library_ms": b["library_ms"]}, {
+        # ms, plain_ms, chained_ms and bound_ms per sweep of jacobi2d 2048^2 x 8
+        "name": "sweeps", "route": "cuda",
+        "source": "soda_tpu_torch/backend/sweeps.py",
+        "replaces": "soda_tpu/backend/pallas.py:634",
+        "launches": f["launches"], "max_abs_err": f["err"],
+        "ms": f["ms"], "plain_ms": f["plain_ms"], "chained_ms": f["chained_ms"],
+        "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+        "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

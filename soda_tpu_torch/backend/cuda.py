@@ -11,8 +11,9 @@ The entry point runs on the card unless the caller asks for the CPU
 every group runs its plain version (`linebuffer.group_plain`); on CUDA
 tensors every group runs its kernel or raises: kernel 1 (the 3-D z-march,
 `linebuffer.py`) for rank 3, kernel 2 (the 2-D row-march,
-`linebuffer2d.py`) for rank 2.  Rank 1 waits for kernel 4 and runs on the
-CPU path only.
+`linebuffer2d.py`) for rank 2, and for a plan that fuses nf > 1 sweeps the
+fused cascade (`sweeps.py`, kernel 3's counterpart), `iterate / nf` calls
+of it.  Rank 1 waits for kernel 4 and runs on the CPU path only.
 """
 
 from __future__ import annotations
@@ -23,13 +24,21 @@ import torch
 
 from ..ir.dtypes import check_types_supported
 from ..ir.program import StencilProgram
-from ..plan.planner import RANK1_ROADMAP, Plan
+from ..plan.planner import RANK1_ROADMAP, GroupPlan, Plan
 from ..plan.planner import plan as make_plan
 from ..utils.device import resolve
-from . import eager, linebuffer, linebuffer2d
+from . import eager, linebuffer, linebuffer2d, sweeps
 from .io import finalize_outputs, to_torch
 
 WRAPPERS = {3: linebuffer.GroupKernel, 2: linebuffer2d.GroupKernel}
+
+
+def group_kernel(program: StencilProgram, g: GroupPlan) -> linebuffer.GroupKernel:
+    """The wrapper of one planned group: the fused cascade when the group
+    fuses sweeps, else the line-buffer kernel of the program's rank."""
+    if g.sweeps > 1:
+        return sweeps.GroupKernel(program, g)
+    return WRAPPERS[program.rank](program, g)
 
 
 def build_fn(program: StencilProgram, the_plan: Plan | None = None,
@@ -51,7 +60,7 @@ def build_fn(program: StencilProgram, the_plan: Plan | None = None,
         raise ValueError(
             f"plan fuses {depth} sweeps per call, which does not divide the "
             f"executed iterate {it}; re-plan with iterate={it} or pick a divisor")
-    kernels = [WRAPPERS[program.rank](program, g) for g in the_plan.groups]
+    kernels = [group_kernel(program, g) for g in the_plan.groups]
     chunks = it // depth
     in0, out0 = program.input_names[0], program.output_names[0]
 

@@ -24,9 +24,12 @@ import torch
 
 from ..ir.dtypes import torch_dtype
 from ..ir.program import StencilProgram
-from ..plan.planner import NTHREADS, GroupPlan
+from ..plan.planner import NTHREADS, SMEM_PER_SM, GroupPlan
 from . import _build
-from .cuda_codegen import DeviceGen, ring_var, storage_ctype
+from .cuda_codegen import RunGen, column_run, offset_tag, ring_var, run_rows, storage_ctype
+
+# rows a column run may take (the most whose taps fit the registers)
+RUN_ROWS = (1, 2, 4, 8)
 
 # kernel launches made through GroupKernel (the CPU plain path never counts)
 LAUNCHES = 0
@@ -50,26 +53,25 @@ def kernel_args(program: StencilProgram, g: GroupPlan) -> tuple[list[str], list[
     return args, names
 
 
-def stage_value(gen: DeviceGen, program: StencilProgram, n: str, indent: str,
-                renames: Mapping[str, str] | None = None) -> list[str]:
-    """Stage `n`'s value at the current cell, stored into `v` in its
-    declared type; `renames` rewrites names in the expression."""
-    t = program.tensors[n].type
-    body, bt = gen.emit(program.tensors[n].expr)
-    for a, b in (renames or {}).items():
-        body = body.replace(a, b)
-    store = gen.cast_to("__v", bt, t)
-    return [f"{indent}const {gen.ctype(bt)} __v = {body};",
-            f"{indent}v = ({storage_ctype(t)})({store});"]
+def min_blocks(g: GroupPlan, nthreads: int) -> int:
+    """CTAs per SM the registers must allow (`__launch_bounds__`): as many
+    as shared memory lets share an SM, while each thread keeps at least 64
+    registers.  Measured on the H100 against no bound and a bound of 24
+    warps an SM (PERF.md, Findings): no slower on any row, and it stops the
+    compiler from taking registers that would leave CTAs idle."""
+    by_smem = SMEM_PER_SM // max(g.smem_bytes + 1024, 1)
+    return max(1, min(by_smem, 65536 // (nthreads * 64)))
 
 
 def entry_points(kernel: str, decl: str, call: str, block: str, grid: str,
-                 host_loops: list[str]) -> list[str]:
+                 host_loops: list[str], ctas_per_sm: int) -> list[str]:
     """The `__global__` kernel and the C entry `soda_launch` of a generated
     source; under SODA_HOST_EMULATION, `soda_launch` runs `soda_body` for
-    every CTA in turn on one thread (`host_loops`)."""
+    every CTA in turn on one thread (`host_loops`).  `ctas_per_sm` CTAs
+    must fit an SM's registers (`__launch_bounds__`)."""
+    bounds = "NT" if ctas_per_sm <= 1 else f"NT, {ctas_per_sm}"
     return ["#ifndef SODA_HOST_EMULATION",
-            f'extern "C" __global__ void __launch_bounds__(NT) {kernel}(',
+            f'extern "C" __global__ void __launch_bounds__({bounds}) {kernel}(',
             f"    {decl}) {{",
             "  extern __shared__ __align__(16) unsigned char soda_smem[];",
             f"  soda_body({block}, soda_smem,",
@@ -99,16 +101,20 @@ def entry_points(kernel: str, decl: str, call: str, block: str, grid: str,
             "#endif", ""]
 
 
-def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
-    """CUDA C++ for one group under one plan (tile, chunk, rings)."""
+def kernel_source(program: StencilProgram, g: GroupPlan,
+                  kernel: str = "soda_lb3d_kernel", note: str = "") -> str:
+    """CUDA C++ for one group under one plan (tile, chunk, rings); the
+    `__global__` is named `kernel`, and `note` (comment lines) heads the
+    source."""
     ty, tx = g.tile
     ring_names = [r.name for r in g.rings]
-    gen = DeviceGen(program, set(ring_names))
+    gen = RunGen(program, set(ring_names))
     out_set = set(g.outputs)
     args, names = kernel_args(program, g)
     dims = "int64_t d0, int64_t d1, int64_t d2"
 
-    L = [f"// generated by soda_tpu_torch for kernel `{program.name}`, "
+    L = [*note.splitlines(),
+         f"// generated by soda_tpu_torch for kernel `{program.name}`, "
          f"stages {g.stages}",
          '#include "linebuffer3d.cuh"', "",
          "namespace {",
@@ -134,6 +140,11 @@ def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
     L += ["  const int64_t y0 = (int64_t)by * TY, x0 = (int64_t)bx * TX;",
           "  const int64_t z0 = (int64_t)bzi * BZ;",
           "  const int64_t zend = z0 + BZ < d0 ? z0 + BZ : d0;",
+          "  // the grid in tile-local rows and columns (32-bit)",
+          "  const int64_t big = (int64_t)1 << 30;",
+          "  const int ylo_l = (int)-(y0 < big ? y0 : big), xlo_l = (int)-(x0 < big ? x0 : big);",
+          "  const int yhi_l = (int)(d1 - y0 < big ? d1 - y0 : big);",
+          "  const int xhi_l = (int)(d2 - x0 < big ? d2 - x0 : big);",
           "  for (int64_t z = z0 - WARM; z < zend; ++z) {"]
     # 1. the leading plane of every input ring
     for n in g.external_inputs:
@@ -146,58 +157,75 @@ def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
               "    }"]
     L.append("    SODA_SYNC();")
 
-    # 2. the leading plane of every ring stage, in topological order
+    # 2. the leading plane of every ring stage, in topological order: a
+    # thread takes a column and a run of rows of the plane (the last run
+    # of a column overlaps the one before it) and computes them from taps
+    # it loads from the rings once per run
+    def load(q: str, key: tuple[int, ...]) -> str:
+        oz, k, ox = key
+        return (f"{ring_var(q)}[__s_{q}_{offset_tag(oz)} * {q}_PS + (pb + ({k}) - "
+                f"{q}_YLO) * {q}_C + (lx + ({ox}) - {q}_XLO)]")
+
+    def slots(loads) -> list[str]:
+        return [f"const int __s_{q}_{offset_tag(oz)} = soda_slot(p + ({oz}), "
+                f"z0 + {q}_ZLO, {q}_D);"
+                for q, oz in sorted({(q, key[0]) for q, key in loads.values()})]
+
     for n in g.stages:
         if n not in ring_names:
             continue
         st = _ctype_store(program, n)
-        L += [f"    {{  // stage {n} (ring)",
+        rows = next(r.rows for r in g.rings if r.name == n)
+        after = {n: ["  if (p >= z0 && p < zend && ly >= 0 && ly < TY && lx >= 0 && lx < TX)",
+                     f"    {n}_g[(p * d1 + (y0 + ly)) * d2 + (x0 + lx)] = v;"]
+                 } if n in out_set else {}
+        rs = run_rows(gen, [n], [c for c in RUN_ROWS if c <= rows], {})
+        run = column_run(gen, [n], rs, "ly", "xin && ly >= ylo_l && ly < yhi_l",
+                         {}, after, load)
+        L += [f"    {{  // stage {n} (ring), runs of {rs} row(s)",
               f"      const int64_t p = z + {n}_ZHI;",
               f"      if (p >= z0 + {n}_ZLO) {{",
+              "        const bool zin = p >= 0 && p < d0;",
+              *("        " + ln for ln in slots(gen.loads)),
               f"        {st}* dst = {ring_var(n)} + soda_slot(p, z0 + {n}_ZLO, "
               f"{n}_D) * {n}_PS;",
-              f"        for (int i = tid; i < {n}_PS; i += nt) {{",
-              f"          const int ly = i / {n}_C + {n}_YLO, "
-              f"lx = i % {n}_C + {n}_XLO;",
-              "          const int64_t gy = y0 + ly, gx = x0 + lx;",
-              f"          {st} v = {st}(0);",
-              "          if (p >= 0 && p < d0 && gy >= 0 && gy < d1 && gx >= 0 "
-              "&& gx < d2) {"]
-        L += stage_value(gen, program, n, "            ")
-        if n in out_set:
-            L += ["            if (p >= z0 && p < zend && ly >= 0 && ly < TY "
-                  "&& lx >= 0 && lx < TX)",
-                  f"              {n}_g[(p * d1 + gy) * d2 + gx] = v;"]
-        L += ["          }", "          dst[i] = v;", "        }", "      }",
-              "    }", "    SODA_SYNC();"]
+              f"        for (int i = tid; i < {n}_C * {-(-rows // rs)}; i += nt) {{",
+              f"          const int c = i % {n}_C, s = i / {n}_C;",
+              f"          const int r0 = s * {rs} < {n}_R - {rs} ? s * {rs} : {n}_R - {rs};",
+              f"          const int lx = c + {n}_XLO, pb = r0 + {n}_YLO;",
+              "          const bool xin = zin && lx >= xlo_l && lx < xhi_l;",
+              *("          " + ln for ln in run),
+              *(f"          dst[(r0 + {r}) * {n}_C + c] = v_{n}_{r};" for r in range(rs)),
+              "        }", "      }", "    }", "    SODA_SYNC();"]
     # 3. outputs no stage of the group reads: straight to device memory
     direct = [n for n in g.outputs if n not in ring_names]
     if direct:
-        L += ["    if (z >= z0) {",
+        after = {n: [f"  {n}_g[(p * d1 + (y0 + ly)) * d2 + (x0 + lx)] = v;"] for n in direct}
+        rs = run_rows(gen, direct, [c for c in RUN_ROWS if c <= ty], {})
+        run = column_run(gen, direct, rs, "ly", "xin && ly < yhi_l", {}, after, load)
+        L += [f"    if (z >= z0) {{  // outputs {direct}, runs of {rs} row(s)",
               "      const int64_t p = z;",
-              "      for (int i = tid; i < TY * TX; i += nt) {",
-              "        const int ly = i / TX, lx = i % TX;",
-              "        const int64_t gy = y0 + ly, gx = x0 + lx;",
-              "        if (gy < d1 && gx < d2) {"]
-        for n in direct:
-            L += [f"          {{  // output {n}",
-                  f"            {_ctype_store(program, n)} v;"]
-            L += stage_value(gen, program, n, "            ")
-            L += [f"            {n}_g[(p * d1 + gy) * d2 + gx] = v;",
-                  "          }"]
-        L += ["        }", "      }", "    }", "    SODA_SYNC();"]
+              *("      " + ln for ln in slots(gen.loads)),
+              f"      for (int i = tid; i < TX * {-(-ty // rs)}; i += nt) {{",
+              "        const int c = i % TX, s = i / TX;",
+              f"        const int r0 = s * {rs} < TY - {rs} ? s * {rs} : TY - {rs};",
+              "        const int lx = c, pb = r0;",
+              "        const bool xin = lx < xhi_l;",
+              *("        " + ln for ln in run),
+              "      }", "    }", "    SODA_SYNC();"]
     L += ["  }", "}", ""]
 
     call = ", ".join(names + ["d0", "d1", "d2"])
     L += entry_points(
-        "soda_lb3d_kernel", ", ".join(args + [dims]), call,
+        kernel, ", ".join(args + [dims]), call,
         "blockIdx.x, blockIdx.y, blockIdx.z, threadIdx.x, blockDim.x",
         "(unsigned)((d2 + TX - 1) / TX), (unsigned)((d1 + TY - 1) / TY), "
         "(unsigned)((d0 + BZ - 1) / BZ)",
         ["  for (int bzi = 0; bzi < (int)((d0 + BZ - 1) / BZ); ++bzi)",
          "    for (int by = 0; by < (int)((d1 + TY - 1) / TY); ++by)",
          "      for (int bx = 0; bx < (int)((d2 + TX - 1) / TX); ++bx)",
-         "        soda_body(bx, by, bzi, 0, 1, smem.data(),"])
+         "        soda_body(bx, by, bzi, 0, 1, smem.data(),"],
+        min_blocks(g, NTHREADS))
     return "\n".join(L)
 
 
@@ -222,8 +250,9 @@ class GroupKernel:
     (unless `out` provides them) and launches on the current stream; it
     never falls back.  `LAUNCHES` counts the launches.
 
-    `linebuffer2d.GroupKernel` (kernel 2, rank 2) is this wrapper with its
-    own source, rank and count."""
+    `linebuffer2d.GroupKernel` (kernel 2, rank 2) and `sweeps.GroupKernel`
+    (fused sweeps, ranks 2 and 3) are this wrapper with their own source,
+    rank, plain version and count."""
 
     rank = 3
     prefix = "lb3d"
@@ -241,6 +270,9 @@ class GroupKernel:
     def _count(self) -> None:
         global LAUNCHES
         LAUNCHES += 1
+
+    def _plain(self, values, params) -> dict[str, torch.Tensor]:
+        return group_plain(self.program, self.group, values, params)
 
     @property
     def source(self) -> str:
@@ -296,7 +328,7 @@ class GroupKernel:
             raise ValueError(f"operands on several devices: {sorted(map(str, devices))}")
         device = devices.pop()
         if device.type == "cpu":
-            return group_plain(p, g, values, params)
+            return self._plain(values, params)
         if device.type != "cuda":
             raise ValueError(f"the line-buffer kernel runs on CUDA tensors, got {device}")
         shape = tuple(values[g.external_inputs[0]].shape)

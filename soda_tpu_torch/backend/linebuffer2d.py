@@ -14,6 +14,14 @@ order, then the RB output rows that no stage of the group reads, with a
 barrier after each phase.  Steps before the chunk's first row only fill
 the rings (the warm-up).
 
+A stage is computed in column runs (`column_run`): a thread takes one
+column and a run of consecutive rows of the step, loads every tap of the
+run from the rings into registers once (a row that neighbouring rows
+also read is loaded once), and computes the rows with 32-bit row and
+column arithmetic.  The CTA has a thread for every column of its widest
+stage row (`threads`), so a step's runs of a stage go in one pass; a
+stage that calls libm runs one row at a time (`run_rows`).
+
 The kernel computes every stage with the oracle's zero-fill semantics: an
 input read outside the grid is zero, and so is an intermediate stage's
 value there.  It therefore matches `interp/numpy_ref.py` on the whole
@@ -25,10 +33,10 @@ from __future__ import annotations
 import math
 
 from ..ir.program import StencilProgram
-from ..plan.planner import NTHREADS, GroupPlan
+from ..plan.planner import GroupPlan
 from . import linebuffer
-from .cuda_codegen import DeviceGen, ring_var, storage_ctype
-from .linebuffer import entry_points, kernel_args, stage_value
+from .cuda_codegen import RunGen, column_run, ring_var, run_rows, storage_ctype
+from .linebuffer import entry_points, kernel_args, min_blocks
 from .linebuffer import group_plain  # noqa: F401  (the plain version)
 
 # kernel launches made through GroupKernel (the CPU plain path never counts)
@@ -39,11 +47,49 @@ LAUNCHES = 0
 PARAM_REGS_MAX = 64
 
 
-def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
-    """CUDA C++ for one rank-2 group under one plan (RB, TX, BY, rings)."""
+def _widest(g: GroupPlan) -> int:
+    """The widest row a stage computes (a ring stage's ring width, or the
+    strip for outputs no stage reads), in whole warps."""
+    stage_rings = [r.cols for r in g.rings if r.name in g.stages]
+    return -(-max(stage_rings + [g.tile[1]]) // 32) * 32
+
+
+def threads(g: GroupPlan) -> int:
+    """Threads per CTA: a multiple of the widest row of at least 256, so
+    that a step's column runs of a stage go in one pass."""
+    w = _widest(g)
+    return min(1024, w * -(-256 // w))
+
+
+def _segments(gen: RunGen, stages: list[str], width: int, rb: int, nt: int,
+              in_regs: dict[str, str]) -> int:
+    """Rows per column run of a step's RB rows: as many as leave one run
+    per thread (a step's runs of the stage in one pass of NT threads) and
+    whose taps fit the registers (`run_rows`)."""
+    runs = max(1, min(rb, nt // width))
+    while rb % runs:
+        runs -= 1
+    return run_rows(gen, stages, [d for d in range(1, rb // runs + 1)
+                                  if rb % d == 0], in_regs)
+
+
+def _item(width: str, runs: int) -> list[str]:
+    """Column `c` and run `s` of work item `i`; with one run per column the
+    run is 0 at compile time, so a run's row arithmetic depends on the step
+    alone."""
+    if runs == 1:
+        return ["        const int c = i, s = 0;"]
+    return [f"        const int c = i % {width}, s = i / {width};"]
+
+
+def kernel_source(program: StencilProgram, g: GroupPlan,
+                  kernel: str = "soda_lb2d_kernel", note: str = "") -> str:
+    """CUDA C++ for one rank-2 group under one plan (RB, TX, BY, rings);
+    the `__global__` is named `kernel`, and `note` (comment lines) heads
+    the source."""
     rb, tx = g.tile
     ring_names = [r.name for r in g.rings]
-    gen = DeviceGen(program, set(ring_names))
+    gen = RunGen(program, set(ring_names))
     out_set = set(g.outputs)
 
     def ct(n: str) -> str:
@@ -52,7 +98,8 @@ def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
     args, names = kernel_args(program, g)
     dims = "int64_t d0, int64_t d1"
 
-    L = [f"// generated by soda_tpu_torch for kernel `{program.name}`, "
+    L = [*note.splitlines(),
+         f"// generated by soda_tpu_torch for kernel `{program.name}`, "
          f"stages {g.stages}",
          '#include "linebuffer2d.cuh"', "",
          "namespace {",
@@ -60,7 +107,7 @@ def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
          "#ifdef SODA_HOST_EMULATION",
          "constexpr int NT = 1;  // one thread per CTA",
          "#else",
-         f"constexpr int NT = {NTHREADS};",
+         f"constexpr int NT = {threads(g)};",
          "#endif",
          "constexpr int WSTEPS = (WARM + RB - 1) / RB;  // warm-up steps per chunk",
          f"constexpr size_t SMEM_BYTES = {g.smem_bytes};"]
@@ -87,6 +134,12 @@ def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
                   f"  for (int k = 0; k < {size}; ++k) {n}_v[k] = {n}_p[k];"]
     L += ["  const int64_t y0 = (int64_t)by * BY, x0 = (int64_t)bx * TX;",
           "  const int64_t yend = y0 + BY < d0 ? y0 + BY : d0;",
+          "  // the grid in chunk-local rows and strip-local columns (32-bit)",
+          "  const int64_t big = (int64_t)1 << 30;",
+          "  const int ylo_l = (int)-(y0 < big ? y0 : big), xlo_l = (int)-(x0 < big ? x0 : big);",
+          "  const int yhi_l = (int)(d0 - y0 < big ? d0 - y0 : big);",
+          "  const int xhi_l = (int)(d1 - x0 < big ? d1 - x0 : big);",
+          "  const int ylen = (int)(yend - y0);",
           "  for (int64_t y = y0 - WSTEPS * RB; y < yend; y += RB) {"]
     # 1. the RB leading rows of every input ring
     for n in g.external_inputs:
@@ -94,53 +147,60 @@ def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
                  f"y0 + {n}_YLO, {n}_D, x0 + {n}_XLO, d0, d1, tid);")
     L.append("    SODA_SYNC();")
 
-    # 2. the RB leading rows of every ring stage, in topological order
+    # 2. the RB leading rows of every ring stage, in topological order: a
+    # thread takes a column and computes its RB rows from taps it loads
+    # from the rings once per run
+    def load(q: str, key: tuple[int, ...]) -> str:
+        k, ox = key
+        return (f"{ring_var(q)}[((pb + ({k}) - {q}_YLO) & ({q}_D - 1)) * {q}_C "
+                f"+ (lx + ({ox}) - {q}_XLO)]")
+
+    nt = threads(g)
     for n in g.stages:
         if n not in ring_names:
             continue
-        L += [f"    {{  // stage {n} (ring)",
-              f"      for (int i = tid; i < RB * {n}_C; i += NT) {{",
-              f"        const int64_t p = y + {n}_YHI + i / {n}_C;",
-              f"        const int lx = i % {n}_C + {n}_XLO;",
-              f"        if (p < y0 + {n}_YLO) continue;",
-              "        const int pl = (int)(p - y0);",
-              "        const int64_t gx = x0 + lx;",
-              f"        {ct(n)} v = {ct(n)}(0);",
-              "        if (p >= 0 && p < d0 && gx >= 0 && gx < d1) {"]
-        L += stage_value(gen, program, n, "          ", in_regs)
-        if n in out_set:
-            L += ["          if (p >= y0 && p < yend && lx >= 0 && lx < TX)",
-                  f"            {n}_g[p * d1 + gx] = v;"]
-        L += ["        }",
-              f"        {ring_var(n)}[((pl - {n}_YLO) & ({n}_D - 1)) * {n}_C "
-              f"+ (lx - {n}_XLO)] = v;",
-              "      }", "    }", "    SODA_SYNC();"]
+        after = {n: [f"  if (p >= 0 && p < ylen && lx >= 0 && lx < TX)",
+                     f"    {n}_g[(y0 + p) * d1 + (x0 + lx)] = v;"]
+                 } if n in out_set else {}
+        width = next(r.cols for r in g.rings if r.name == n)
+        rs = _segments(gen, [n], width, rb, nt, in_regs)
+        L += [f"    {{  // stage {n} (ring), runs of {rs} row(s)",
+              f"      for (int i = tid; i < {n}_C * {rb // rs}; i += NT) {{",
+              *_item(f"{n}_C", rb // rs),
+              f"        const int lx = c + {n}_XLO;",
+              "        const bool xin = lx >= xlo_l && lx < xhi_l;",
+              f"        const int pb = (int)(y - y0) + {n}_YHI + s * {rs};"]
+        L += ["        " + ln for ln in column_run(
+            gen, [n], rs, "p", f"xin && p >= ylo_l && p < yhi_l && p >= {n}_YLO",
+            in_regs, after, load)]
+        L += [f"        if (pb + {r} >= {n}_YLO) {ring_var(n)}"
+              f"[((pb + {r} - {n}_YLO) & ({n}_D - 1)) * {n}_C + c] = v_{n}_{r};"
+              for r in range(rs)]
+        L += ["      }", "    }", "    SODA_SYNC();"]
     # 3. outputs no stage of the group reads: straight to device memory
     direct = [n for n in g.outputs if n not in ring_names]
     if direct:
-        L += ["    if (y >= y0) {",
-              "      for (int i = tid; i < RB * TX; i += NT) {",
-              "        const int64_t p = y + i / TX;",
-              "        const int pl = (int)(p - y0), lx = i % TX;",
-              "        const int64_t gx = x0 + lx;",
-              "        if (p < yend && gx < d1) {"]
-        for n in direct:
-            L += [f"          {{  // output {n}",
-                  f"            {ct(n)} v;"]
-            L += stage_value(gen, program, n, "            ", in_regs)
-            L += [f"            {n}_g[p * d1 + gx] = v;",
-                  "          }"]
-        L += ["        }", "      }", "    }", "    SODA_SYNC();"]
+        after = {n: [f"  {n}_g[(y0 + p) * d1 + (x0 + lx)] = v;"] for n in direct}
+        rs = _segments(gen, direct, tx, rb, nt, in_regs)
+        L += [f"    if (y >= y0) {{  // outputs {direct}, runs of {rs} row(s)",
+              f"      for (int i = tid; i < TX * {rb // rs}; i += NT) {{",
+              *_item("TX", rb // rs),
+              "        const int lx = c;",
+              "        const bool xin = lx < xhi_l;",
+              f"        const int pb = (int)(y - y0) + s * {rs};"]
+        L += ["        " + ln for ln in column_run(
+            gen, direct, rs, "p", "xin && p < ylen", in_regs, after, load)]
+        L += ["      }", "    }", "    SODA_SYNC();"]
     L += ["  }", "}", ""]
 
     call = ", ".join(names + ["d0", "d1"])
     L += entry_points(
-        "soda_lb2d_kernel", ", ".join(args + [dims]), call,
+        kernel, ", ".join(args + [dims]), call,
         "blockIdx.x, blockIdx.y, threadIdx.x",
         "(unsigned)((d1 + TX - 1) / TX), (unsigned)((d0 + BY - 1) / BY)",
         ["  for (int by = 0; by < (int)((d0 + BY - 1) / BY); ++by)",
          "    for (int bx = 0; bx < (int)((d1 + TX - 1) / TX); ++bx)",
-         "      soda_body(bx, by, 0, smem.data(),"])
+         "      soda_body(bx, by, 0, smem.data(),"], min_blocks(g, threads(g)))
     return "\n".join(L)
 
 

@@ -10,7 +10,10 @@ Exit code 1 when the check fails.
     python -m soda_tpu_torch.cli.sodac tests/soda/blur.soda \\
         --grid-shape 2048,4096 --run
 
-The JAX CLI's other flags are not ported yet (ROADMAP.md queue 1).
+`--sweeps N` asks for N fused sweeps per kernel call of an `iterate`
+program (as the JAX CLI's flag); the printed plan shows the depth
+(`sweeps=`).  The JAX CLI's other flags are not ported yet (ROADMAP.md
+queue 1).
 """
 
 from __future__ import annotations
@@ -41,6 +44,10 @@ def make_parser() -> argparse.ArgumentParser:
                     help="full grid shape, e.g. 64,64,128 (default: from the "
                          "input's tile sizes, '*' dims as 128)")
     ap.add_argument("--iterate", type=int, default=None)
+    ap.add_argument("--sweeps", type=int, default=None,
+                    help="fused sweeps per kernel call for iterate programs "
+                         "(default: the planner's choice; 1 = one sweep per "
+                         "call; a non-divisor of iterate is snapped to one)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default: the card, never a fallback) or 'cpu'")
@@ -71,14 +78,17 @@ def main(argv=None) -> int:
     program = parse_file(args.soda_src, overrides)
     shape = _grid_shape(program, args)
     print(program.describe())
+    if args.sweeps is not None and args.sweeps < 1:
+        raise SystemExit(f"--sweeps wants a positive count, got {args.sweeps}")
+    plan_kw = {} if args.sweeps is None else {"sweeps": args.sweeps}
     try:
-        print(plan(program, shape).describe())
+        print(plan(program, shape, **plan_kw).describe())
     except NotImplementedError as e:  # rank 1: no CUDA kernel yet
         print(f"no CUDA plan: {e}")
     if not args.run:
         return 0
     ins, ps = rand_inputs(program, shape, np.random.default_rng(args.seed))
-    got = to_numpy(program, cuda.run(program, ins, ps, device=args.device))
+    got = to_numpy(program, cuda.run(program, ins, ps, device=args.device, **plan_kw))
     gold = oracle(program, ins, ps)
     for n in program.output_names:
         diff = np.abs(got[n].astype(np.float64) - gold[n].astype(np.float64))

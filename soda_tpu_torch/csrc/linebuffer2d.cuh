@@ -31,7 +31,13 @@
 // A simple kernel first: plain loads (no cp.async, no TMA) and a barrier
 // after each phase of a step.  The loader issues all of a thread's loads
 // of a step before it stores any, so that several loads are in flight per
-// thread (2-byte elements move little per load).
+// thread (2-byte elements move little per load).  The generated stages
+// compute in column runs: a thread takes a column and several rows of
+// the step, loads each tap of the run from the ring into a register once
+// and computes the rows with 32-bit index arithmetic, which cuts the
+// shared-memory loads and index instructions per cell that bound the
+// march (backend/linebuffer2d.py).  The same march runs the cascades of
+// fused iterate sweeps (backend/sweeps.py), one ring per sweep copy.
 //
 // Built with -DSODA_HOST_EMULATION the same source compiles as host C++
 // (soda_common.cuh), which is how the CPU tests check the march.

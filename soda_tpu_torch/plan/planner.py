@@ -6,18 +6,36 @@ stage grouping and the window arithmetic are the port's copies
 Mosaic-calibrated constants are replaced by a model of one CUDA thread
 block.  Both kernels march one axis and keep a ring in shared memory for
 every tensor the group reads at an offset (the external inputs, and the
-stages consumed by another stage of the group); a tensor's ring depth
-and halo come from its span relative to the output cell (`group_spans`):
+stages consumed by another stage of the group); a tensor's halo comes
+from its span relative to the output cell (`group_spans`), its ring depth
+from its lag (below):
 
 - rank 3, kernel 1 (`csrc/linebuffer3d.cuh`): a CTA owns a (TY, TX)
   column tile of the (Y, X) plane and a z-chunk of BZ planes, and
-  marches z one plane at a time; a ring holds (z span) planes of the
+  marches z one plane at a time; a ring holds (lag + 1) planes of the
   tile and its y/x halo;
 - rank 2, kernel 2 (`csrc/linebuffer2d.cuh`): a CTA owns a strip of TX
   columns of the contiguous last axis and a chunk of BY rows, and
   marches the rows RB at a time; a ring holds a power of two of at least
-  (y span + RB) rows, each TX + x halo wide.  `tile` is (RB, TX) and
-  `bz` is BY.
+  (lag + RB) rows, each TX + x halo wide.  `tile` is (RB, TX) and `bz`
+  is BY.
+
+A ring's lag is how far its leading plane (its span's hi along the
+marched axis) runs ahead of the lowest plane any consumer in the group
+reads at the same step: min over consumers c of (c's span hi + c's lowest
+offset on it).  The ring keeps exactly the planes still read.
+
+Fused sweeps (TPU kernel 3, `backend/sweeps.py`): an `iterate` program
+with fused depth nf is planned as the group of `unroll_iterate(program,
+nf)`, a cascade of nf sweep copies in which copy k reads copy k-1 through
+a ring, so that every sweep between the first read and the last write
+stays in shared memory.  nf divides the executed `iterate`; with
+`sweeps=None` it is the divisor up to `AUTO_SWEEPS_MAX[rank]` with the
+least modeled time per sweep (`GroupPlan.modeled_seconds`) among the
+cascades that fit the budget, preferring those that fill the card.  A
+fused group holds the whole sweep chain; when no depth above 1 fits, or
+the program's feedback types differ, each call runs one sweep and the
+stage DAG may split into chained groups as for any program.
 
 Shared memory per CTA is at most 227 KB on the H100; the planner keeps
 under `smem_budget` so that several CTAs share an SM, and prefers plans
@@ -26,31 +44,45 @@ with at least two CTAs per SM.
 `hbm_bytes_per_call` counts every byte the kernel moves: each input cell
 a CTA loads, with its tile halo across the marched axis (re-read by the
 neighbouring tiles) and the warm-up of each chunk along it, clipped to
-the grid; plus one write per output cell.  Each call runs one sweep;
-`iterate` runs as chained calls.
+the grid; plus one write per output cell.  `cell_ops_per_call` counts the
+operations the kernel computes: every stage over its whole ring width and
+its chunk's warm-up (the cascade's trapezoid), clipped to the grid, times
+its f32-equivalent operations per cell (`utils/opcount.py::typed_ops`).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
 from ..ir import expr as ir
 from ..ir.program import StencilProgram
+from ..optimize.unroll import FeedbackTypeError, unroll_iterate
+from ..utils.opcount import H100_SXM_PEAK_TFLOPS, ops_per_cell, typed_ops
 from .spans import _group_io, group_spans
 
 Span = tuple[tuple[int, int], ...]
 
 SMEM_PER_BLOCK_MAX = 232_448        # H100: 227 KB of dynamic shared memory
+SMEM_PER_SM = 233_472               # H100: 228 KB an SM gives its CTAs
 SMEM_BUDGET = 96 * 1024             # default: at least two CTAs per SM
 NUM_SMS = 132                       # H100 SXM
 NTHREADS = 256                      # threads per CTA
 MAX_GRID_YZ = 65_535                # CUDA limit on gridDim.y and gridDim.z
+H100_SXM_PEAK_GBPS = 3350.0         # published HBM3 bandwidth at 700 W
 TILE_CANDIDATES = ((32, 64), (16, 64), (32, 32), (16, 32), (8, 32))  # (TY, TX)
-BZ_CANDIDATES = (64, 32, 16, 8)
+BZ_CANDIDATES = (256, 128, 64, 32, 16, 8)
 ROW_TILE_CANDIDATES = ((8, 256), (4, 256), (8, 128), (4, 128), (2, 128),
                        (1, 128), (1, 64), (1, 32))                   # (RB, TX)
-BY_CANDIDATES = (512, 256, 128, 64, 32, 16, 8)
+BY_CANDIDATES = (2048, 1024, 512, 256, 128, 64, 32, 16, 8)
+# chunks longer than 64 planes / 512 rows only where the warm-up asks for
+# them (a fused cascade): at most one warm-up per CHUNK_PER_WARM planes
+CHUNK_BASE_MAX = {3: 64, 2: 512}
+CHUNK_PER_WARM = 16
+# the deepest depth `sweeps=None` picks, per rank: deeper cascades ran
+# slower on the H100 than the model predicts (PERF.md, the depth sweeps)
+AUTO_SWEEPS_MAX = {2: 8, 3: 2}
 
 RANK1_ROADMAP = ("rank 1 runs through the windows kernel (kernel 4, "
                  "ROADMAP.md queue 1), which is not ported to CUDA yet; "
@@ -93,15 +125,24 @@ class GroupPlan:
     warm: int                            # marched-axis warm-up before a chunk's first output
     smem_bytes: int
     hbm_bytes_per_call: int
-    useful_cells_per_call: int
-    sweeps: int = 1
+    useful_cells_per_call: int           # cells x sweeps x outputs
+    sweeps: int = 1                      # fused sweeps per call (a cascade when > 1)
     kernel: str = "linebuffer3d"
+    cell_ops_per_call: float = 0.0       # computed cells x ops, trapezoid included
+
+    @property
+    def modeled_seconds(self) -> float:
+        """Modeled time of one call on the H100: the larger of its planned
+        bytes over 3.35 TB/s and its computed operations over 67 TFLOP/s."""
+        return max(self.hbm_bytes_per_call / (H100_SXM_PEAK_GBPS * 1e9),
+                   self.cell_ops_per_call / (H100_SXM_PEAK_TFLOPS * 1e12))
 
     def describe(self) -> str:
         chunk = "bz" if self.kernel == "linebuffer3d" else "by"
         return (
-            f"group(stages={self.stages}, {self.kernel}, tile={self.tile}, "
-            f"{chunk}={self.bz}, grid={self.grid}, smem={self.smem_bytes / 1024:.1f}KiB, "
+            f"group(stages={self.stages}, {self.kernel}, sweeps={self.sweeps}, "
+            f"tile={self.tile}, {chunk}={self.bz}, grid={self.grid}, "
+            f"smem={self.smem_bytes / 1024:.1f}KiB, "
             f"traffic={self.hbm_bytes_per_call / max(self.useful_cells_per_call, 1):.3f}"
             f"B/cell-update)")
 
@@ -114,6 +155,7 @@ class Plan:
     grid_shape: tuple[int, ...]
     notes: list[str]
     ideal_bytes_per_cell: float          # inputs read once + outputs written once
+    ops_per_cell: float                  # f32-equivalent ops, one sweep of the program
     sweeps_total: int = 1
 
     def describe(self) -> str:
@@ -121,6 +163,16 @@ class Plan:
         out += ["  " + g.describe() for g in self.groups]
         out += ["  note: " + n for n in self.notes]
         return "\n".join(out)
+
+
+def cascade(program: StencilProgram, nf: int) -> StencilProgram:
+    """The program a group of `nf` fused sweeps runs: `nf` chained sweep
+    copies (`unroll_iterate`), whatever the program's own `iterate`."""
+    if nf <= 1:
+        return program
+    one_call = copy.copy(program)
+    one_call.iterate = nf
+    return unroll_iterate(one_call, nf)
 
 
 def _elem_bytes(program: StencilProgram, name: str) -> int:
@@ -151,35 +203,49 @@ def _pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def _shapes(rank: int, grid_shape, tile, bz):
+def _shapes(rank: int, grid_shape, tile, bz, warm: int):
     """(tile, chunk, CUDA grid) candidates of one kernel on one grid."""
+    longest = max(CHUNK_BASE_MAX[rank], CHUNK_PER_WARM * warm)
     if rank == 3:
         Z, Y, X = grid_shape
         for ty, tx in [tile] if tile else TILE_CANDIDATES:
-            for bz_ in [bz] if bz else BZ_CANDIDATES:
+            for bz_ in [bz] if bz else [c for c in BZ_CANDIDATES if c <= longest]:
                 yield (ty, tx), bz_, (-(-X // tx), -(-Y // ty), -(-Z // bz_))
     else:
         H, W = grid_shape
         for rb, tx in [tile] if tile else ROW_TILE_CANDIDATES:
-            for by in [bz] if bz else BY_CANDIDATES:
+            for by in [bz] if bz else [c for c in BY_CANDIDATES if c <= longest]:
                 if by % rb == 0:
                     yield (rb, tx), by, (-(-W // tx), -(-H // by), 1)
 
 
-def _ring(rank: int, n: str, span: Span, elem: int, tile, off: int) -> Ring:
+def _ring(rank: int, n: str, span: Span, lag: int, elem: int, tile, off: int) -> Ring:
     if rank == 3:
-        (zlo, zhi), (ylo, yhi), (xlo, xhi) = span
+        (_, _), (ylo, yhi), (xlo, xhi) = span
         ty, tx = tile
-        return Ring(n, span, elem, zhi - zlo + 1, ty + yhi - ylo, tx + xhi - xlo, off)
-    (ylo, yhi), (xlo, xhi) = span
+        return Ring(n, span, elem, lag + 1, ty + yhi - ylo, tx + xhi - xlo, off)
+    (_, _), (xlo, xhi) = span
     rb, tx = tile
-    return Ring(n, span, elem, _pow2(yhi - ylo + rb), 1, tx + xhi - xlo, off)
+    return Ring(n, span, elem, _pow2(lag + rb), 1, tx + xhi - xlo, off)
+
+
+def _lags(program: StencilProgram, members: list[str], spans: dict[str, Span]
+          ) -> dict[str, int]:
+    """Per tensor read in the group: its span hi along the marched axis
+    minus the lowest plane (relative to the step) any consumer reads."""
+    lowest: dict[str, int] = {}
+    for c in members:
+        hi_c = spans[c][0][1]
+        for q, offs in program.tensors[c].window().items():
+            low = hi_c + min(o[0] for o in offs)
+            lowest[q] = min(lowest.get(q, low), low)
+    return {q: spans[q][0][1] - low for q, low in lowest.items()}
 
 
 def _plan_group(program: StencilProgram, members: list[str],
                 grid_shape: tuple[int, ...], smem_budget: int,
                 tile: tuple[int, int] | None = None,
-                bz: int | None = None) -> GroupPlan | None:
+                bz: int | None = None, sweeps: int = 1) -> GroupPlan | None:
     rank = program.rank
     ext_inputs, outputs = _group_io(program, members)
     spans = group_spans(program, members, outputs)
@@ -188,16 +254,18 @@ def _plan_group(program: StencilProgram, members: list[str],
     ext_inputs = [i for i in ext_inputs if i in spans]
     consumed = {p for m in members for p in program.tensors[m].parents()}
     ring_names = ext_inputs + [m for m in members if m in consumed]
+    lags = _lags(program, members, spans)
     warm = max((spans[n][0][1] - spans[n][0][0] for n in ring_names), default=0)
     cells = math.prod(grid_shape)
     writes = cells * sum(_elem_bytes(program, o) for o in outputs)
-    useful = cells * max(len(outputs), 1)
+    useful = cells * sweeps * max(len(outputs), 1)
+    ops = {m: typed_ops(program, program.tensors[m].expr) for m in members}
 
     best = None
-    for tl, chunk, grid in _shapes(rank, grid_shape, tile, bz):
+    for tl, chunk, grid in _shapes(rank, grid_shape, tile, bz, warm):
         rings, off = [], 0
         for n in ring_names:
-            r = _ring(rank, n, spans[n], _elem_bytes(program, n), tl, off)
+            r = _ring(rank, n, spans[n], lags[n], _elem_bytes(program, n), tl, off)
             rings.append(r)
             off += -(-r.nbytes // 16) * 16
         if off > min(smem_budget, SMEM_PER_BLOCK_MAX):
@@ -206,26 +274,91 @@ def _plan_group(program: StencilProgram, members: list[str],
             continue
         # tile extent per dim: the marched axis in chunks, the others in tiles
         extents = (chunk,) + tuple(tl) if rank == 3 else (chunk, tl[1])
-        reads = 0
-        for n in ext_inputs:
-            c = _elem_bytes(program, n)
-            for d, (lo, hi) in enumerate(spans[n]):
-                c *= _covered(grid_shape[d], extents[d], lo, hi)
-            reads += c
-        ctas = math.prod(grid)
-        # too few CTAs to fill the card counts first, then traffic;
-        # equal traffic prefers the larger tile and chunk
-        key = (ctas < 2 * NUM_SMS, (reads + writes) / useful,
+
+        def covered(n: str) -> int:
+            return math.prod(_covered(grid_shape[d], extents[d], lo, hi)
+                             for d, (lo, hi) in enumerate(spans[n]))
+
+        reads = sum(_elem_bytes(program, n) * covered(n) for n in ext_inputs)
+        # every stage over its ring width and warm-up (an output no stage
+        # reads has span 0: exactly the grid)
+        cell_ops = sum(ops[m] * covered(m) for m in members)
+        gp = GroupPlan(
+            stages=members, external_inputs=ext_inputs,
+            outputs=outputs, spans=spans,
+            params=_group_params(program, members),
+            tile=tl, bz=chunk, grid=grid, rings=rings, warm=warm,
+            smem_bytes=off, hbm_bytes_per_call=reads + writes,
+            useful_cells_per_call=useful, sweeps=sweeps, kernel=KERNELS[rank],
+            cell_ops_per_call=cell_ops)
+        # too few CTAs to fill the card counts first, then the modeled
+        # time; equal time prefers the larger tile and chunk
+        key = (math.prod(grid) < 2 * NUM_SMS, gp.modeled_seconds,
                -tl[0] * tl[1], -chunk)
         if best is None or key < best[0]:
-            best = (key, GroupPlan(
-                stages=members, external_inputs=ext_inputs,
-                outputs=outputs, spans=spans,
-                params=_group_params(program, members),
-                tile=tl, bz=chunk, grid=grid, rings=rings, warm=warm,
-                smem_bytes=off, hbm_bytes_per_call=reads + writes,
-                useful_cells_per_call=useful, kernel=KERNELS[rank]))
+            best = (key, gp)
     return None if best is None else best[1]
+
+
+def _fitting(program: StencilProgram, grid_shape: tuple[int, ...], depths,
+             smem_budget: int, tile=None, bz=None):
+    """(nf, GroupPlan) for each depth in `depths` whose whole cascade fits."""
+    for d in depths:
+        prog = cascade(program, d)
+        g = _plan_group(prog, prog.stage_order(), grid_shape, smem_budget,
+                        tile, bz, sweeps=d)
+        if g is not None:
+            yield d, g
+
+
+def _plan_fused(program: StencilProgram, grid_shape: tuple[int, ...], it: int,
+                sweeps: int | None, smem_budget: int, tile, bz,
+                notes: list[str]) -> GroupPlan | None:
+    """The fused group of an `iterate` program, or None to run one sweep
+    per call.  A requested depth is snapped to a divisor of `it` and, if
+    its cascade does not fit, reduced to the next divisor that does."""
+    divisors = [d for d in range(1, it + 1) if it % d == 0]
+    try:
+        if sweeps is not None:
+            nf = max(1, min(sweeps, it))
+            while it % nf:
+                nf -= 1
+            if nf != sweeps:
+                notes.append(f"requested sweeps {sweeps} adjusted to divisor {nf} "
+                             f"of iterate {it}")
+            deeper_first = sorted((d for d in divisors if 1 < d <= nf), reverse=True)
+            d, g = next(_fitting(program, grid_shape, deeper_first, smem_budget,
+                                 tile, bz), (nf, None))
+            if g is not None and d != nf:
+                notes.append(f"shared memory: reduced fused sweeps {nf} to {d}")
+            if g is None and nf > 1:
+                notes.append(f"shared memory: no fused depth up to {nf} fits; "
+                             f"one sweep per call")
+            return g
+        cap = AUTO_SWEEPS_MAX[program.rank]
+        fits = _fitting(program, grid_shape, [d for d in divisors if d <= cap],
+                        smem_budget, tile, bz)
+        best = min(fits, default=None, key=lambda dg: (
+            math.prod(dg[1].grid) < 2 * NUM_SMS, dg[1].modeled_seconds / dg[0]))
+    except FeedbackTypeError as e:
+        notes.append(f"{e}: no cascade; one sweep per call")
+        return None
+    if best is None or best[0] == 1:
+        return None
+    g = best[1]
+    notes.append(f"auto sweeps: {g.sweeps} fused sweeps, the least modeled "
+                 f"time per sweep ({g.modeled_seconds / g.sweeps * 1e3:.4f} ms) "
+                 f"among the divisors of {it} up to {cap} that fit")
+    return g
+
+
+def fused_depths(program: StencilProgram, grid_shape: tuple[int, ...]) -> list[int]:
+    """The divisors above 1 of the program's `iterate` whose whole cascade
+    fits `SMEM_BUDGET` on `grid_shape` (ascending)."""
+    it = max(program.iterate, 1)
+    return [d for d, _ in _fitting(program, tuple(grid_shape),
+                                   [d for d in range(2, it + 1) if it % d == 0],
+                                   SMEM_BUDGET)]
 
 
 def plan(program: StencilProgram, grid_shape: tuple[int, ...], *,
@@ -234,23 +367,33 @@ def plan(program: StencilProgram, grid_shape: tuple[int, ...], *,
          bz: int | None = None) -> Plan:
     """Plan `program` on a full grid of `grid_shape` for the CUDA path.
 
-    Fusion policy (as `soda_tpu`'s planner): all stages in one kernel when
-    its rings fit the shared-memory budget; otherwise the stage DAG is
-    split greedily, in topological order, into kernels chained through
-    device memory.  Each call runs one sweep: a requested `sweeps` depth is
-    recorded in the notes and planned as 1, which divides every `iterate`.
-    `tile` and `bz` pin the CTA shape instead of searching."""
+    `iterate` programs first try a fused group of nf sweeps (see the
+    module note; `sweeps` requests a depth, `sweeps=1` asks for one sweep
+    per call).  Otherwise the fusion policy is `soda_tpu`'s: all stages in
+    one kernel when its rings fit the shared-memory budget; else the stage
+    DAG is split greedily, in topological order, into kernels chained
+    through device memory, each call running one sweep.  `tile` and `bz`
+    pin the CTA shape instead of searching."""
     if program.rank == 1:
         raise NotImplementedError(
             f"program {program.name!r} has rank 1: {RANK1_ROADMAP}")
     if len(grid_shape) != program.rank:
         raise ValueError(f"grid rank {len(grid_shape)} != program rank {program.rank}")
+    grid_shape = tuple(grid_shape)
     it = max(program.iterate if iterate is None else iterate, 1)
-    notes = []
-    if sweeps is not None and sweeps != 1:
-        notes.append(
-            f"requested sweeps {sweeps} planned as 1: the line-buffer kernel "
-            f"runs one sweep per call (fused sweeps wait for kernel 3)")
+    notes: list[str] = []
+    ideal = float(sum(_elem_bytes(program, n) for n in program.input_names)
+                  + sum(_elem_bytes(program, n) for n in program.output_names))
+    per_cell = dict(ideal_bytes_per_cell=ideal, ops_per_cell=ops_per_cell(program),
+                    sweeps_total=it)
+    if it > 1:
+        fused = _plan_fused(program, grid_shape, it, sweeps, smem_budget,
+                            tile, bz, notes)
+        if fused is not None:
+            notes.append(f"iterate={it} executed as {it // fused.sweeps} kernel "
+                         f"call(s) x {fused.sweeps} fused sweeps")
+            return Plan(program.name, program.rank, [fused], grid_shape, notes,
+                        **per_cell)
     stages = program.stage_order()
 
     groups: list[GroupPlan] = []
@@ -268,19 +411,16 @@ def plan(program: StencilProgram, grid_shape: tuple[int, ...], *,
             if cur_plan is None:
                 raise ValueError(
                     f"stage {s!r} alone does not fit the shared-memory budget "
-                    f"{smem_budget} on grid {tuple(grid_shape)}")
+                    f"{smem_budget} on grid {grid_shape}")
             groups.append(cur_plan)
             cur = [s]
             cur_plan = _plan_group(program, cur, grid_shape, smem_budget, tile, bz)
             if cur_plan is None:
                 raise ValueError(
                     f"stage {s!r} alone does not fit the shared-memory budget "
-                    f"{smem_budget} on grid {tuple(grid_shape)}")
+                    f"{smem_budget} on grid {grid_shape}")
         groups.append(cur_plan)
         notes.append(f"shared-memory pressure: split {len(stages)} stages "
                      f"into {len(groups)} chained kernels")
     notes.append(f"iterate={it} executed as {it} chained call(s) of one sweep")
-    ideal = float(sum(_elem_bytes(program, n) for n in program.input_names)
-                  + sum(_elem_bytes(program, n) for n in program.output_names))
-    return Plan(program.name, program.rank, groups, tuple(grid_shape), notes,
-                ideal_bytes_per_cell=ideal, sweeps_total=it)
+    return Plan(program.name, program.rank, groups, grid_shape, notes, **per_cell)

@@ -22,19 +22,24 @@ from soda_tpu.backend import cpp as cpp_orig
 from soda_tpu.frontend import parser as lark_parser
 from soda_tpu.interp import numpy_interp
 from soda_tpu.ir import types as types_orig
+from soda_tpu.optimize import unroll as unroll_orig
 from soda_tpu.plan import planner as planner_orig
+from soda_tpu.utils import opcount as opcount_orig
 from soda_tpu.utils import testing as testing_orig
 from soda_tpu_torch.backend import cpp_gen
 from soda_tpu_torch.frontend import parser as port_parser
 from soda_tpu_torch.interp import numpy_ref
 from soda_tpu_torch.ir import types as types_port
 from soda_tpu_torch.ir.types import UnsupportedTypeError
+from soda_tpu_torch.optimize import unroll as unroll_port
 from soda_tpu_torch.plan import spans
+from soda_tpu_torch.utils import opcount as opcount_port
 from soda_tpu_torch.utils import testing as testing_port
 
 SODA = pathlib.Path(__file__).parent / "soda"
 CORPUS = sorted(SODA.glob("*.soda"))
 SHAPES = {1: (70,), 2: (13, 21), 3: (5, 7, 9)}
+ITERATE = [p for p in CORPUS if port_parser.parse_file(p).iterate > 1]
 
 
 def _both(path):
@@ -116,3 +121,33 @@ def test_scalar_types_equal_the_originals(s):
     for u in ("uint16", "int32", "uint64", "float", "double", "half"):
         assert repr(types_port.promote(a, types_port.ScalarType.parse(u))) == repr(
             types_orig.promote(b, types_orig.ScalarType.parse(u)))
+
+
+def test_iterate_corpus_is_the_six_fused_programs():
+    assert sorted(p.stem for p in ITERATE) == sorted(
+        ["jacobi2d", "seidel2d", "residual2d", "denoise2p", "jacobi2d_i64", "heat3d"])
+
+
+@pytest.mark.parametrize("path", ITERATE, ids=lambda p: p.stem)
+def test_unroll_copy_equals_the_original(path):
+    port, orig = _both(path)
+    it = port.iterate
+    for factor in [None] + [d for d in range(2, it) if it % d == 0]:
+        a = unroll_port.unroll_iterate(port, factor)
+        b = unroll_orig.unroll_iterate(orig, factor)
+        assert a.iterate == b.iterate and list(a.tensors) == list(b.tensors)
+        assert a.stage_order() == b.stage_order()
+        assert (a.input_names, a.output_names) == (b.input_names, b.output_names)
+        for n in a.tensors:
+            ta, tb = a.tensors[n], b.tensors[n]
+            assert repr(ta.type) == repr(tb.type) and ta.is_output == tb.is_output
+            assert ta.window() == tb.window(), n
+            assert repr(ta.expr) == repr(tb.expr), n
+
+
+@pytest.mark.parametrize("path", CORPUS, ids=lambda p: p.stem)
+def test_expr_ops_copy_equals_the_original(path):
+    port, orig = _both(path)
+    for name in port.stage_order():
+        assert (opcount_port.expr_ops(port.tensors[name].expr)
+                == opcount_orig.expr_ops(orig.tensors[name].expr)), name

@@ -52,10 +52,16 @@ def gxx():
 def test_jacobi3d_source_taps_the_input_ring():
     p = PROGRAMS["jacobi3d"]
     src = linebuffer.kernel_source(p, plan(p, (64, 64, 64)).groups[0])
+    # a column run loads each tap of its rows once, from the plane slot
+    # computed once per step
+    tag = {-1: "m1", 0: "0", 1: "1"}
+    for oz in (-1, 0, 1):
+        assert (f"const int __s_t0_{tag[oz]} = soda_slot(p + ({oz}), z0 + t0_ZLO, "
+                f"t0_D);") in src
     for oz, oy, ox in [(0, 0, 0), (0, 0, 1), (0, 0, -1), (0, 1, 0),
                        (0, -1, 0), (1, 0, 0), (-1, 0, 0)]:
-        assert (f"t0_r[soda_slot(p + ({oz}), z0 + t0_ZLO, t0_D) * t0_PS + "
-                f"(ly + ({oy}) - t0_YLO) * t0_C + (lx + ({ox}) - t0_XLO)]") in src
+        assert (f"t0_r[__s_t0_{tag[oz]} * t0_PS + "
+                f"(pb + ({oy}) - t0_YLO) * t0_C + (lx + ({ox}) - t0_XLO)]") in src
     assert src.count("soda_load_plane(") == 1
     body = src.split("#ifndef SODA_HOST_EMULATION")[0]
     assert "0.142857" in body and "std::" not in body
@@ -68,10 +74,11 @@ def test_denoise3d_source_rings_every_tapped_stage():
     for ring in ("u", "rhs", "grad", "w"):
         assert f"constexpr size_t {ring}_OFF" in src
     assert "// stage grad (ring)" in src and "// stage w (ring)" in src
-    assert "// output unew" in src and "unew_r" not in src
+    assert "// outputs ['unew']" in src and "unew_r" not in src
     body = src.split("#ifndef SODA_HOST_EMULATION")[0]
     assert "dm::sqrt(" in body and "std::" not in body
-    assert "w_r[soda_slot(p + (-1), z0 + w_ZLO, w_D)" in src
+    assert "__s_w_m1 = soda_slot(p + (-1), z0 + w_ZLO, w_D)" in src
+    assert "w_r[__s_w_m1 * w_PS" in src
 
 
 def test_half_is_refused_on_the_device_path():
@@ -93,7 +100,8 @@ def _emulate(name, shape, seed, **plan_kw):
     ins, ps = rand_inputs(p, shape, np.random.default_rng(seed))
     tins, tps = to_torch(p, ins, ps, "cpu")
     values = dict(tins)
-    for g in plan(p, shape, **plan_kw).groups:
+    # one sweep: the iterate programs' fused cascades are tests/test_torch_sweeps.py's
+    for g in plan(p, shape, iterate=1, **plan_kw).groups:
         k = linebuffer.GroupKernel(p, g)
         entry = k.build(emulate=True).lib.soda_launch
         outs = {o: torch.empty(shape, dtype=torch_dtype(p.tensors[o].type))

@@ -57,22 +57,25 @@ def test_blur_source_taps_the_row_rings():
     p = PROGRAMS["blur"]
     g = plan(p, (64, 256)).groups[0]
     src = linebuffer2d.kernel_source(p, g)
+    # a column run loads each tap of its rows from the ring once
     for ox in (0, 1, 2):
-        assert (f"input_r[((pl + (0) - input_YLO) & (input_D - 1)) * input_C"
+        assert (f"input_r[((pb + (0) - input_YLO) & (input_D - 1)) * input_C"
                 f" + (lx + ({ox}) - input_XLO)]") in src
     for oy in (-1, 0, 1):
-        assert (f"blur_x_r[((pl + ({oy}) - blur_x_YLO) & (blur_x_D - 1)) * "
+        assert (f"blur_x_r[((pb + ({oy}) - blur_x_YLO) & (blur_x_D - 1)) * "
                 f"blur_x_C + (lx + (0) - blur_x_XLO)]") in src
     assert src.count("soda_load_rows<RB, input_C, NT>(") == 1
-    assert "// stage blur_x (ring)" in src and "// output blur_y" in src
+    assert "// stage blur_x (ring)" in src and "// outputs ['blur_y']" in src
     body = src.split("#ifndef SODA_HOST_EMULATION")[0]
     assert "std::" not in body and "c_div(" in body
     assert '#include "linebuffer2d.cuh"' in src
-    # ring depths are powers of two of at least (row span + RB)
+    # ring depths are powers of two of at least (lag + RB): the rows from
+    # the leading one down to the lowest a consumer reads in the same step
     rb = g.tile[0]
+    lags = {"input": 0, "blur_x": 2}
     for r in g.rings:
         assert r.depth & (r.depth - 1) == 0
-        assert r.depth >= r.span[0][1] - r.span[0][0] + rb
+        assert r.depth >= lags[r.name] + rb
 
 
 def test_smooth_half_source_uses_soda_half():
@@ -88,7 +91,8 @@ def _emulate(name, shape, seed, **plan_kw):
     ins, ps = rand_inputs(p, shape, np.random.default_rng(seed))
     tins, tps = to_torch(p, ins, ps, "cpu")
     values = dict(tins)
-    for g in plan(p, shape, **plan_kw).groups:
+    # one sweep: the iterate programs' fused cascades are tests/test_torch_sweeps.py's
+    for g in plan(p, shape, iterate=1, **plan_kw).groups:
         k = linebuffer2d.GroupKernel(p, g)
         entry = k.build(emulate=True).lib.soda_launch
         outs = {o: torch.empty(shape, dtype=torch_dtype(p.tensors[o].type))

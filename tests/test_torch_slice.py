@@ -134,6 +134,7 @@ from soda_tpu_torch.plan.planner import plan
 from soda_tpu_torch.utils.testing import CORPUS, compare_outputs, oracle, rand_inputs
 res = {}
 for name, shape in [("jacobi3d", (9, 14, 40)), ("denoise3d", (8, 12, 40)),
+                    ("jacobi2d", (19, 40)), ("heat3d", (9, 14, 40)),
                     ("blur", (21, 40))]:
     p = parse_file(CORPUS / f"{name}.soda")
     plan(p, shape)
@@ -147,6 +148,7 @@ except RuntimeError as e:
     res["cuda"] = type(e).__name__
 res["jax_loaded"] = sys.modules.get("jax") is not None
 res["lark_loaded"] = sys.modules.get("lark") is not None
+res["fused_modules"] = sorted(m for m in sys.modules if m.endswith((".sweeps", ".unroll", ".opcount")))
 res["soda_tpu_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] == "soda_tpu"
                                 and sys.modules[m] is not None)
 print(json.dumps(res))
@@ -161,6 +163,10 @@ def test_card_contract_without_jax_and_lark():
     assert r.returncode == 0, r.stderr[-3000:]
     res = json.loads(r.stdout.strip().splitlines()[-1])
     assert res["jacobi3d"] and res["denoise3d"] and res["blur"]
+    assert res["jacobi2d"] and res["heat3d"]  # fused cascades, plain versions
+    assert res["fused_modules"] == ["soda_tpu_torch.backend.sweeps",
+                                    "soda_tpu_torch.optimize.unroll",
+                                    "soda_tpu_torch.utils.opcount"]
     assert not res["jax_loaded"] and not res["lark_loaded"]
     assert res["soda_tpu_loaded"] == []
     if not torch.cuda.is_available():
