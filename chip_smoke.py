@@ -53,11 +53,35 @@ Phases (any failure exits nonzero):
    power limit;
 10. the depth sweep: every row of phase 9 at every fused depth that fits
    (and 1), in ms per sweep beside the planner's modeled time, each
-   output equal to the chained kernels bit for bit.
+   output equal to the chained kernels bit for bit;
+11. small grids, the windows kernel (`backend/windows.py`, kernel 4):
+   smooth1d (rank 1) at lengths 1, 7, 300 and 4099, at its default block
+   and at a block of 32 cells; every rank-3 and rank-2 program of phases 3
+   and 5 pinned to windows blocks (`block=`) that cut several CTAs on the
+   odd grids of those phases; the radius-8 f64 star (`STAR3D_R8`) at
+   (40, 45, 51), whose plan at the default budget must be windows.  Each
+   case: the windows launch count rises by groups x iterate, the output
+   passes `device_gate` against the plain version (integers and half bit
+   for bit), `compare_outputs` against the port's NumPy reference on the
+   whole grid, and equals the line-buffer kernel (`sweeps=1`) bit for bit
+   on every program that calls no libm;
+12. the windows kernel's main path at full size: smooth1d 2^28 f32 (1 GiB
+   per array) with the windows launch counter reset just before and read
+   just after (1 launch), bit for bit against the plain version over the
+   whole grid, timed with CUDA events in turns (plain, kernel, kernel,
+   plain) and alone (`device_ms`) beside its bound and `F.conv1d` with
+   five 0.2 weights (TF32 off, held at LIBRARY_TOL);
+13. the windows kernel on ranks 2 and 3 at size: STAR3D_R8 512^3 f64 at
+   the default budget (the fallback; its line-buffer plan needs
+   smem_budget=227 KiB), and jacobi3d 512^3, denoise3d 256^3, blur 16384^2
+   and conv5x5 16384^2 pinned to windows, each checked against the plain
+   version over the whole grid and timed beside its line-buffer kernel in
+   turns (line buffer, windows, windows, line buffer) and alone; conv5x5
+   also beside `F.conv2d`.
 
 Phases 4 and 7 run their programs one sweep per call (`sweeps=1`), so
 they time kernels 1 and 2; phases 8-10 time the fused cascades
-(`backend/sweeps.py`).  The line before the last is the kernel summary
+(`backend/sweeps.py`), phases 12-13 the windows kernel.  The line before the last is the kernel summary
 as JSON; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -92,6 +116,16 @@ MAIN_SWEEPS = AT_SIZE_SWEEPS[0]
 DEPTH_SWEEP = AT_SIZE_SWEEPS   # every fused row at every depth that fits
 KERNEL_TOL = 1e-4   # f32 kernel vs plain (the same IEEE operations, no FMA)
 LIBRARY_TOL = 1e-4  # the library call vs the kernel (another summation order)
+SMALL_SHAPES_1D = ((1,), (7,), (300,), (4099,))
+SMALL_BLOCKS = {1: (32,), 2: (8, 32), 3: (4, 8, 32)}   # several CTAs per axis
+STAR_SMALL = (40, 45, 51)
+MAIN_WINDOWS = ("smooth1d", (2**28,))
+AT_SIZE_WINDOWS = (("star3d_r8", (512, 512, 512), None),
+                   ("jacobi3d", (512, 512, 512), (8, 8, 64)),
+                   ("denoise3d", (256, 256, 256), (8, 8, 64)),
+                   ("blur", (16384, 16384), (16, 128)),
+                   ("conv5x5", (16384, 16384), (16, 128)))
+STAR_LB_BUDGET = 227 * 1024   # the line buffer's star plan: one CTA an SM
 SLEEP_CYCLES = 3_000_000   # at most 1.98 GHz: at least 1.5 ms
 SLEEP_COVERS_S = 1e-3
 
@@ -182,9 +216,10 @@ def bitwise_equal(a: dict, b: dict) -> bool:
 
 def launch_count() -> int:
     """Launches of every kernel wrapper of the port."""
-    from soda_tpu_torch.backend import linebuffer, linebuffer2d, sweeps
+    from soda_tpu_torch.backend import linebuffer, linebuffer2d, sweeps, windows
 
-    return linebuffer.LAUNCHES + linebuffer2d.LAUNCHES + sweeps.LAUNCHES
+    return (linebuffer.LAUNCHES + linebuffer2d.LAUNCHES + sweeps.LAUNCHES
+            + windows.LAUNCHES)
 
 
 def device_inputs(p, shape, gen, dev) -> dict:
@@ -221,14 +256,16 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from soda_tpu_torch.backend import cuda, eager, linebuffer, linebuffer2d, sweeps
+    from soda_tpu_torch.backend import (cuda, eager, linebuffer, linebuffer2d, sweeps,
+                                        windows)
     from soda_tpu_torch.backend.io import to_numpy, to_torch
     from soda_tpu_torch.cli import sodac
     from soda_tpu_torch.frontend.parser import parse, parse_file
     from soda_tpu_torch.plan.planner import fused_depths, plan
     from soda_tpu_torch.utils import report
     from soda_tpu_torch.utils.testing import (CORPUS, INT3D_SOURCES,
-                                              RANK2_CORPUS, RANK3_CORPUS,
+                                              RANK1_CORPUS, RANK2_CORPUS,
+                                              RANK3_CORPUS, STAR3D_R8,
                                               compare_outputs, oracle,
                                               rand_inputs)
 
@@ -246,6 +283,8 @@ def main() -> int:
     programs = {n: parse_file(CORPUS / f"{n}.soda") for n in RANK3_CORPUS}
     programs.update({n: parse(s) for n, s in INT3D_SOURCES.items()})
     programs2 = {n: parse_file(CORPUS / f"{n}.soda") for n in RANK2_CORPUS}
+    programs1 = {n: parse_file(CORPUS / f"{n}.soda") for n in RANK1_CORPUS}
+    star = parse(STAR3D_R8)
 
     # ---- 2. build -------------------------------------------------------------
     jobs = {}
@@ -283,6 +322,24 @@ def main() -> int:
     for (n, shape), depths in sweep_depths.items():
         for d in depths:
             add_jobs(allp[n], shape, sweeps=d)
+    # the windows kernel (phases 11-13)
+    allp.update(programs1)
+    allp["star3d_r8"] = star
+    for p in programs1.values():
+        for shape in SMALL_SHAPES_1D:
+            add_jobs(p, shape)
+            add_jobs(p, shape, block=SMALL_BLOCKS[1])
+    for n, p in {**programs, **programs2}.items():
+        for shape in SMALL_SHAPES[1:] if p.rank == 3 else SMALL_SHAPES_2D[1:]:
+            add_jobs(p, shape, block=SMALL_BLOCKS[p.rank])
+            add_jobs(p, shape, sweeps=1)
+    add_jobs(star, STAR_SMALL)
+    add_jobs(star, STAR_SMALL, smem_budget=STAR_LB_BUDGET)
+    add_jobs(allp[MAIN_WINDOWS[0]], MAIN_WINDOWS[1])
+    for n, shape, block in AT_SIZE_WINDOWS:
+        add_jobs(allp[n], shape, block=block)
+        add_jobs(allp[n], shape, sweeps=1,
+                 **({"smem_budget": STAR_LB_BUDGET} if n == "star3d_r8" else {}))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(max_workers=min(len(jobs), 32)) as pool:
         built = list(pool.map(lambda k: (k, k.build()), jobs.values()))
@@ -290,8 +347,10 @@ def main() -> int:
     for k, b in built:
         ptxas = [ln.strip() for ln in b.log.splitlines()
                  if re.search(r"registers|spill|smem", ln)]
-        log(f"build {b.path.name}: {b.seconds:.1f} s "
-            f"(tile {k.group.tile}, chunk {k.group.bz}, smem {k.group.smem_bytes} B)")
+        g = k.group
+        cta = (f"block {g.block}" if g.kernel == "windows"
+               else f"tile {g.tile}, chunk {g.bz}")
+        log(f"build {b.path.name}: {b.seconds:.1f} s ({cta}, smem {g.smem_bytes} B)")
         for ln in ptxas:
             log(f"  {ln}")
     log(f"build: {len(built)} kernels in {wall:.1f} s wall")
@@ -700,6 +759,159 @@ def main() -> int:
         del ins, ref
         torch.cuda.empty_cache()
 
+    # ---- 11. small grids, the windows kernel: vs plain, oracle, line buffer --
+    cases = [(p, shape, kw) for p in programs1.values() for shape in SMALL_SHAPES_1D
+             for kw in ({}, {"block": SMALL_BLOCKS[1]})]
+    cases += [(p, shape, {"block": SMALL_BLOCKS[p.rank]})
+              for p in {**programs, **programs2}.values()
+              for shape in (SMALL_SHAPES[1:] if p.rank == 3 else SMALL_SHAPES_2D[1:])]
+    cases.append((star, STAR_SMALL, {}))
+    for p, shape, kw in cases:
+        the_plan = plan(p, shape, **kw)
+        kinds = {g.kernel for g in the_plan.groups}
+        ins, ps = rand_inputs(p, shape, np.random.default_rng(0))
+        before = windows.LAUNCHES
+        got = cuda.run(p, ins, ps, **kw)
+        torch.cuda.synchronize()
+        launched = windows.LAUNCHES - before
+        want = len(the_plan.groups) * max(p.iterate, 1)
+        half = any(t.type.is_float and t.type.width == 16 for t in p.tensors.values())
+        plain = eager.run(p, ins, ps)
+        ok_plain = device_gate(p, got, plain, half)
+        ok_oracle = compare_outputs(p, to_numpy(p, got), oracle(p, ins, ps), 0)
+        libm = p.uses_libm_transcendentals()
+        lb_kw = {"smem_budget": STAR_LB_BUDGET} if p is star else {"sweeps": 1}
+        ok_lb = p.rank == 1 or libm or bitwise_equal(got, cuda.run(p, ins, ps, **lb_kw))
+        ok = kinds == {"windows"} and launched == want and ok_plain and ok_oracle and ok_lb
+        log(f"windows small {p.name} {shape} {kw or 'default'}: "
+            f"{the_plan.groups[0].describe()}; launches {launched}/{want}, "
+            f"max|kernel-plain| {max_abs_err(got, plain):.3g} plain "
+            f"{'ok' if ok_plain else 'MISMATCH'}{' (bit for bit)' if half else ''}, "
+            f"oracle {'ok' if ok_oracle else 'MISMATCH'}, line buffer "
+            f"{'n/a' if p.rank == 1 or libm else 'bit for bit' if ok_lb else 'MISMATCH'}")
+        if not ok:
+            failures.append(f"windows {p.name} {shape} {kw}")
+    if failures:
+        log(f"FAILED windows small-grid checks: {failures}")
+        return 1
+
+    # ---- 12. the windows kernel's main path at full size: smooth1d 2^28 -----
+    n, shape = MAIN_WINDOWS
+    p = allp[n]
+    x = torch.randn(shape, generator=gen, device=dev)
+    ins = {"w_in": x}
+    fn = cuda.build_fn(p, grid_shape=shape)
+    windows.LAUNCHES = 0
+    got = cuda.run(p, ins, {})
+    torch.cuda.synchronize()
+    launches = windows.LAUNCHES
+    plain = eager.run(p, ins, {})
+    ok = bitwise_equal(got, plain) and launches == 1
+    err = max_abs_err(got, plain)
+    del plain
+    torch.cuda.empty_cache()
+
+    def run_kernel():
+        fn(ins, {})
+
+    def run_plain():
+        eager.run(p, ins, {})
+
+    run_kernel(), run_plain()
+    torch.cuda.synchronize()
+    t = [events_ms(run_plain, 5), events_ms(run_kernel, 20),
+         events_ms(run_kernel, 20), events_ms(run_plain, 5)]
+    k_ms, p_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    dev_ms = device_ms(run_kernel, 10)
+    rep = report.analyze(fn.plan)
+    r = report.rates(rep, k_ms / 1e3, card)
+    w = torch.full((1, 1, 5), float(np.float32(0.2)), device=dev)
+    x3 = x[None, None]
+
+    def run_library():
+        return F.conv1d(x3, w, padding=2)
+
+    lib = run_library()[0, 0]
+    lib_err = float((lib - got["w_out"]).abs().max())
+    del lib
+    lib_ms = (events_ms(run_library, 20) + events_ms(run_library, 20)) / 2
+    log(f"windows main {n} {shape}: launches {launches}, max|kernel-plain| {err:.3g} "
+        f"({'bit for bit' if ok else 'MISMATCH'}); ms kernel {k_ms:.4f} [{t[1]:.4f}, "
+        f"{t[2]:.4f}] (alone {fmt(dev_ms)}) plain {p_ms:.4f} [{t[0]:.4f}, {t[3]:.4f}]; "
+        f"bound {rep.bound_ms:.4f} ({rep.bound_by}); {r['achieved_gbps_at_ideal_bytes']:.1f} "
+        f"GB/s at {rep.ideal_bytes_per_cell:g} B/cell = {100 * r['share_of_3350_gbps']:.1f}% "
+        f"of 3.35 TB/s; library F.conv1d (TF32 off) {lib_ms:.4f} ms, max|library-kernel| "
+        f"{lib_err:.3g}; {fn.plan.groups[0].describe()}; card {card}")
+    if not ok or lib_err > LIBRARY_TOL:
+        log(f"FAILED windows main path: {n} {shape}")
+        return 1
+    summary4 = dict(err=err, ms=k_ms, plain_ms=p_ms, dev_ms=dev_ms, launches=launches,
+                    bound_ms=rep.bound_ms, bound_by=rep.bound_by, library_ms=lib_ms)
+    del got, ins, x, x3, fn
+    torch.cuda.empty_cache()
+
+    # ---- 13. the windows kernel on ranks 2 and 3 at size, beside the line buffer
+    for n, shape, block in AT_SIZE_WINDOWS:
+        p = allp[n]
+        params = {pp.name: np.random.default_rng(1).standard_normal(pp.shape).astype(
+            pp.type.np_dtype()) for pp in p.params.values()}
+        ins, pars = to_torch(p, device_inputs(p, shape, gen, dev), params, dev)
+        win = cuda.build_fn(p, grid_shape=shape, block=block)
+        lb = cuda.build_fn(p, grid_shape=shape, sweeps=1,
+                           **({"smem_budget": STAR_LB_BUDGET} if p is star else {}))
+        got = win(ins, pars)
+        exact = all(not t.type.is_float for t in p.tensors.values())
+        plain = eager.run(p, ins, pars)
+        err = max_abs_err(got, plain)
+        ok_plain = device_gate(p, got, plain, exact)
+        del plain
+        torch.cuda.empty_cache()
+        libm = p.uses_libm_transcendentals()
+        ok_lb = libm or bitwise_equal(got, lb(ins, pars))
+        ok = ({g.kernel for g in win.plan.groups} == {"windows"} and ok_plain and ok_lb
+              and {g.kernel for g in lb.plan.groups} == {f"linebuffer{p.rank}d"})
+
+        def run_win():
+            win(ins, pars)
+
+        def run_lb():
+            lb(ins, pars)
+
+        run_win(), run_lb()
+        torch.cuda.synchronize()
+        reps = 5 if math.prod(shape) > 2**26 else 20
+        t = [events_ms(run_lb, reps), events_ms(run_win, reps),
+             events_ms(run_win, reps), events_ms(run_lb, reps)]
+        w_ms, l_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        w_dev, l_dev = device_ms(run_win, reps), device_ms(run_lb, reps)
+        rep = report.analyze(win.plan)
+        lib = ""
+        if n == "conv5x5":
+            x4, wt = ins["src"][None, None], pars["coef"][None, None]
+
+            def run_library():
+                return F.conv2d(x4, wt, padding=2)
+
+            lib_ok = torch.allclose(run_library()[0, 0], got["dst"], rtol=LIBRARY_TOL,
+                                    atol=LIBRARY_TOL)
+            lib_ms = (events_ms(run_library, reps) + events_ms(run_library, reps)) / 2
+            lib = f"; library F.conv2d (TF32 off) {lib_ms:.4f} ms"
+            ok = ok and lib_ok
+            del x4
+        log(f"windows at-size {n} {shape}: max|kernel-plain| {err:.3g} plain "
+            f"{'ok' if ok_plain else 'MISMATCH'}, line buffer "
+            f"{'n/a (libm)' if libm else 'bit for bit' if ok_lb else 'MISMATCH'}; ms "
+            f"windows {w_ms:.4f} [{t[1]:.4f}, {t[2]:.4f}] (alone {fmt(w_dev)}) line "
+            f"buffer {l_ms:.4f} [{t[0]:.4f}, {t[3]:.4f}] (alone {fmt(l_dev)}); bound "
+            f"{rep.bound_ms:.4f} ({rep.bound_by}); plan {rep.plan_bytes_per_cell:.3f} "
+            f"B/cell{lib}; {win.plan.groups[0].describe()}; line buffer "
+            f"{lb.plan.groups[0].describe()}; card {card}")
+        if not ok:
+            log(f"FAILED windows at-size check: {n} {shape}")
+            return 1
+        del got, ins, pars, win, lb
+        torch.cuda.empty_cache()
+
     j, b, f = summary["jacobi3d"], summary2[MAIN_2D], summary3[MAIN_SWEEPS]
     log(card)
     log(json.dumps({"kernels": [{
@@ -722,7 +934,15 @@ def main() -> int:
         "launches": f["launches"], "max_abs_err": f["err"],
         "ms": f["ms"], "plain_ms": f["plain_ms"], "chained_ms": f["chained_ms"],
         "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        # smooth1d 2^28 f32 (phase 12)
+        "name": "windows", "route": "cuda",
+        "source": "soda_tpu_torch/csrc/windows.cuh",
+        "replaces": "soda_tpu/backend/pallas.py:1000",
+        "launches": summary4["launches"], "max_abs_err": summary4["err"],
+        "ms": summary4["ms"], "plain_ms": summary4["plain_ms"],
+        "bound_ms": summary4["bound_ms"], "bound_by": summary4["bound_by"],
+        "library_ms": summary4["library_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

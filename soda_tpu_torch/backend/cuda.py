@@ -11,9 +11,11 @@ The entry point runs on the card unless the caller asks for the CPU
 every group runs its plain version (`linebuffer.group_plain`); on CUDA
 tensors every group runs its kernel or raises: kernel 1 (the 3-D z-march,
 `linebuffer.py`) for rank 3, kernel 2 (the 2-D row-march,
-`linebuffer2d.py`) for rank 2, and for a plan that fuses nf > 1 sweeps the
+`linebuffer2d.py`) for rank 2, for a plan that fuses nf > 1 sweeps the
 fused cascade (`sweeps.py`, kernel 3's counterpart), `iterate / nf` calls
-of it.  Rank 1 waits for kernel 4 and runs on the CPU path only.
+of it, and for a windows group (every rank-1 program, a group pinned with
+`block=`, a stage whose rings fit no tile) the windows kernel
+(`windows.py`, kernel 4's counterpart).
 """
 
 from __future__ import annotations
@@ -24,10 +26,10 @@ import torch
 
 from ..ir.dtypes import check_types_supported
 from ..ir.program import StencilProgram
-from ..plan.planner import RANK1_ROADMAP, GroupPlan, Plan
+from ..plan.planner import GroupPlan, Plan
 from ..plan.planner import plan as make_plan
 from ..utils.device import resolve
-from . import eager, linebuffer, linebuffer2d, sweeps
+from . import linebuffer, linebuffer2d, sweeps, windows
 from .io import finalize_outputs, to_torch
 
 WRAPPERS = {3: linebuffer.GroupKernel, 2: linebuffer2d.GroupKernel}
@@ -35,9 +37,12 @@ WRAPPERS = {3: linebuffer.GroupKernel, 2: linebuffer2d.GroupKernel}
 
 def group_kernel(program: StencilProgram, g: GroupPlan) -> linebuffer.GroupKernel:
     """The wrapper of one planned group: the fused cascade when the group
-    fuses sweeps, else the line-buffer kernel of the program's rank."""
+    fuses sweeps, the windows kernel for a windows group, else the
+    line-buffer kernel of the program's rank."""
     if g.sweeps > 1:
         return sweeps.GroupKernel(program, g)
+    if g.kernel == "windows":
+        return windows.GroupKernel(program, g)
     return WRAPPERS[program.rank](program, g)
 
 
@@ -91,11 +96,6 @@ def run(program: StencilProgram, inputs: Mapping, params: Mapping | None = None,
     and params may be numpy arrays or tensors.  Returns tensors on
     `device` in the declared storage dtypes."""
     dev = resolve(device)
-    if program.rank == 1:
-        if dev.type == "cuda":
-            raise NotImplementedError(
-                f"program {program.name!r} has rank 1: {RANK1_ROADMAP}")
-        return eager.run(program, inputs, params, device=dev, iterate=iterate)
     ins, pars = to_torch(program, inputs, params, dev)
     grid_shape = tuple(next(iter(ins.values())).shape)
     fn = build_fn(program, the_plan, grid_shape, iterate=iterate, **plan_kwargs)

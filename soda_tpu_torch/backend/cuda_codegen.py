@@ -63,11 +63,14 @@ class DeviceGen(_Gen):
     chunk's first row is the 32-bit `pl`, and strip-local column `lx`.
     Each ring `n` declares `n_r`, `n_D` (rows kept, a power of two; row r
     of the chunk sits in slot (r - n_YLO) & (n_D - 1)), `n_YLO`, `n_XLO`
-    and `n_C`."""
+    and `n_C`.
+
+    Rank 1 has no march: only `RunGen` prints it, for the windows kernel
+    (`backend/windows.py`), which reads every tap through its own load."""
 
     def __init__(self, program: StencilProgram, rings: set[str]):
-        if program.rank not in (2, 3):
-            raise ValueError(f"the device kernels take ranks 2 and 3, not {program.rank}")
+        if program.rank not in (1, 2, 3):
+            raise ValueError(f"the device kernels take ranks 1 to 3, not {program.rank}")
         super().__init__(program, ["p", "ly", "lx"][3 - program.rank:])
         if self.acc128:
             raise UnsupportedTypeError(
@@ -107,13 +110,14 @@ def offset_tag(v: int) -> str:
 
 class RunGen(DeviceGen):
     """`DeviceGen` for a column run along the rows (dim 0 of rank 2, dim 1
-    of rank 3): the tap of ring `q` at offset `off` for row `row` of the
-    run reads the register `__q_<key>`, `key` being `off` with its row
-    offset moved by `row`; `loads` maps each such register to (q, key)."""
+    of rank 3; rank 1 runs one cell at a time): the tap of ring `q` at
+    offset `off` for row `row` of the run reads the register `__q_<key>`,
+    `key` being `off` with its row offset moved by `row`; `loads` maps
+    each such register to (q, key)."""
 
     def __init__(self, program: StencilProgram, rings: set[str]):
         super().__init__(program, rings)
-        self.axis = program.rank - 2
+        self.axis = max(program.rank - 2, 0)
         self.row = 0
         self.loads: dict[str, tuple[str, tuple[int, ...]]] = {}
 

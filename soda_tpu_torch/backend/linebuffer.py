@@ -250,9 +250,10 @@ class GroupKernel:
     (unless `out` provides them) and launches on the current stream; it
     never falls back.  `LAUNCHES` counts the launches.
 
-    `linebuffer2d.GroupKernel` (kernel 2, rank 2) and `sweeps.GroupKernel`
-    (fused sweeps, ranks 2 and 3) are this wrapper with their own source,
-    rank, plain version and count."""
+    `linebuffer2d.GroupKernel` (kernel 2, rank 2), `sweeps.GroupKernel`
+    (fused sweeps, ranks 2 and 3) and `windows.GroupKernel` (kernel 4,
+    ranks 1 to 3) are this wrapper with their own source, rank, plain
+    version and count."""
 
     rank = 3
     prefix = "lb3d"
@@ -330,7 +331,7 @@ class GroupKernel:
         if device.type == "cpu":
             return self._plain(values, params)
         if device.type != "cuda":
-            raise ValueError(f"the line-buffer kernel runs on CUDA tensors, got {device}")
+            raise ValueError(f"the {self.prefix} kernel runs on CUDA tensors, got {device}")
         shape = tuple(values[g.external_inputs[0]].shape)
         if len(shape) != self.rank or min(shape) == 0:
             raise ValueError(f"the {self.prefix} kernel takes a non-empty "

@@ -1,19 +1,19 @@
 """sodac for the torch port (minimal).
 
 Counterpart of `soda_tpu/cli/sodac.py`.  Parses a `.soda` file, plans it
-for the CUDA path (ranks 2 and 3; rank 1 has no kernel yet and the
-planner's error says so), and with `--run` runs it on random inputs made
-from `--seed` on the card (or on the CPU with `--device cpu`), checks the
-result against the port's NumPy reference and prints the max difference.
-Exit code 1 when the check fails.
+for the CUDA path (ranks 1 to 3), prints the plan, and with `--run` runs
+it on random inputs made from `--seed` on the card (or on the CPU with
+`--device cpu`), checks the result against the port's NumPy reference and
+prints the max difference.  Exit code 1 when the check fails.
 
     python -m soda_tpu_torch.cli.sodac tests/soda/blur.soda \\
         --grid-shape 2048,4096 --run
 
 `--sweeps N` asks for N fused sweeps per kernel call of an `iterate`
 program (as the JAX CLI's flag); the printed plan shows the depth
-(`sweeps=`).  The JAX CLI's other flags are not ported yet (ROADMAP.md
-queue 1).
+(`sweeps=`).  `--block 8,32` pins the windows kernel with that block (the
+JAX CLI's `--block`, which pins its windows blocks).  The JAX CLI's other
+flags are not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -29,9 +29,9 @@ def _shape(s: str) -> tuple[int, ...]:
         shape = tuple(int(v) for v in s.split(","))
     except ValueError:
         raise argparse.ArgumentTypeError(
-            f"--grid-shape wants comma-separated integers, got {s!r}") from None
+            f"want comma-separated integers, got {s!r}") from None
     if not shape or min(shape) <= 0:
-        raise argparse.ArgumentTypeError(f"--grid-shape wants positive sizes, got {s!r}")
+        raise argparse.ArgumentTypeError(f"want positive sizes, got {s!r}")
     return shape
 
 
@@ -48,6 +48,9 @@ def make_parser() -> argparse.ArgumentParser:
                     help="fused sweeps per kernel call for iterate programs "
                          "(default: the planner's choice; 1 = one sweep per "
                          "call; a non-divisor of iterate is snapped to one)")
+    ap.add_argument("--block", type=_shape, default=None,
+                    help="pin the windows kernel with this block, one size "
+                         "per axis, e.g. 8,32 (one sweep per call)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default: the card, never a fallback) or 'cpu'")
@@ -80,11 +83,12 @@ def main(argv=None) -> int:
     print(program.describe())
     if args.sweeps is not None and args.sweeps < 1:
         raise SystemExit(f"--sweeps wants a positive count, got {args.sweeps}")
-    plan_kw = {} if args.sweeps is None else {"sweeps": args.sweeps}
+    plan_kw = {k: v for k, v in (("sweeps", args.sweeps), ("block", args.block))
+               if v is not None}
     try:
         print(plan(program, shape, **plan_kw).describe())
-    except NotImplementedError as e:  # rank 1: no CUDA kernel yet
-        print(f"no CUDA plan: {e}")
+    except ValueError as e:
+        raise SystemExit(f"no CUDA plan: {e}") from None
     if not args.run:
         return 0
     ins, ps = rand_inputs(program, shape, np.random.default_rng(args.seed))

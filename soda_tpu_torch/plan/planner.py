@@ -1,4 +1,4 @@
-"""Shared-memory planner for the Hopper line-buffer kernels.
+"""Shared-memory planner for the Hopper kernels.
 
 Counterpart of `soda_tpu/plan/planner.py::plan` and `GroupPlan`.  The
 stage grouping and the window arithmetic are the port's copies
@@ -37,6 +37,19 @@ fused group holds the whole sweep chain; when no depth above 1 fits, or
 the program's feedback types differ, each call runs one sweep and the
 stage DAG may split into chained groups as for any program.
 
+The windows kernel (TPU kernel 4, `backend/windows.py`): a CTA owns one
+block of the grid (BX cells, BY x BX or BZ x BY x BX; the last axis is
+tiled too) and marches nothing.  Each external input whose (block + span)
+window fits the budget is loaded into shared memory whole; the others are
+read tap by tap from device memory.  Every stage another stage of the
+group reads is computed over its exact extent (block + span) into shared
+memory; the other outputs over the block, straight to device memory.  It
+plans rank 1 (no march), groups pinned with `block=`, and any stage whose
+line-buffer rings fit no tile of the budget: such a stage gets a windows
+group of its own where the greedy split would otherwise fail.  A stage
+alone always has a windows plan (its inputs read directly need no shared
+memory), unless the grid exceeds the launch limits.
+
 Shared memory per CTA is at most 227 KB on the H100; the planner keeps
 under `smem_budget` so that several CTAs share an SM, and prefers plans
 with at least two CTAs per SM.
@@ -44,10 +57,12 @@ with at least two CTAs per SM.
 `hbm_bytes_per_call` counts every byte the kernel moves: each input cell
 a CTA loads, with its tile halo across the marched axis (re-read by the
 neighbouring tiles) and the warm-up of each chunk along it, clipped to
-the grid; plus one write per output cell.  `cell_ops_per_call` counts the
-operations the kernel computes: every stage over its whole ring width and
-its chunk's warm-up (the cascade's trapezoid), clipped to the grid, times
-its f32-equivalent operations per cell (`utils/opcount.py::typed_ops`).
+the grid (the windows kernel: each block's window, whether loaded whole
+or read tap by tap); plus one write per output cell.  `cell_ops_per_call`
+counts the operations the kernel computes: every stage over its whole
+ring width and its chunk's warm-up (the cascade's trapezoid; the windows
+kernel: its exact extent), clipped to the grid, times its f32-equivalent
+operations per cell (`utils/opcount.py::typed_ops`).
 """
 
 from __future__ import annotations
@@ -81,13 +96,24 @@ BY_CANDIDATES = (2048, 1024, 512, 256, 128, 64, 32, 16, 8)
 CHUNK_BASE_MAX = {3: 64, 2: 512}
 CHUNK_PER_WARM = 16
 # the deepest depth `sweeps=None` picks, per rank: deeper cascades ran
-# slower on the H100 than the model predicts (PERF.md, the depth sweeps)
+# slower on the H100 than the model predicts (PERF.md, the depth sweeps);
+# a rank without an entry (rank 1: no march) runs one sweep per call
 AUTO_SWEEPS_MAX = {2: 8, 3: 2}
 
-RANK1_ROADMAP = ("rank 1 runs through the windows kernel (kernel 4, "
-                 "ROADMAP.md queue 1), which is not ported to CUDA yet; "
-                 "run it on the CPU path (device='cpu')")
 KERNELS = {3: "linebuffer3d", 2: "linebuffer2d"}
+# windows kernel blocks per rank, in cells per axis (the last axis last);
+# the deep rank-3 blocks whose (y, x) plane is one cell per thread read
+# an input tap by tap 1.3x faster than (8, 8, 64) at the same registers
+# (NVIDIA H100 80GB HBM3 at 700 W, PERF.md): a CTA's threads walk the
+# block plane by plane, so the planes an input's taps reach stay in L1
+# from one plane to the next
+WINDOW_BLOCKS = {
+    1: ((4096,), (2048,), (1024,), (512,), (256,), (128,), (32,)),
+    2: ((16, 128), (8, 128), (16, 64), (8, 64), (4, 64), (8, 32), (4, 32),
+        (2, 32), (1, 32)),
+    3: ((32, 8, 32), (16, 8, 32), (8, 8, 64), (4, 8, 64), (4, 4, 64),
+        (8, 8, 32), (4, 8, 32), (2, 8, 32), (2, 4, 32), (1, 4, 32), (1, 1, 32)),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +135,23 @@ class Ring:
         return self.depth * self.rows * self.cols * self.elem_bytes
 
 
+@dataclasses.dataclass(frozen=True)
+class Window:
+    """A tensor held whole in shared memory by the windows kernel: the
+    block plus the tensor's span, row-major (an external input's window,
+    or a stage computed over its exact extent)."""
+
+    name: str
+    span: Span
+    elem_bytes: int
+    extent: tuple[int, ...]  # block + span width, per dim
+    offset: int              # byte offset in the CTA's shared memory
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.extent) * self.elem_bytes
+
+
 @dataclasses.dataclass
 class GroupPlan:
     """One fused kernel: a set of stages executed in one launch."""
@@ -118,7 +161,7 @@ class GroupPlan:
     outputs: list[str]                   # tensors written to device memory
     spans: dict[str, Span]               # extent of each tensor rel. to the output cell
     params: list[str]                    # params the group's stages read
-    tile: tuple[int, int]                # (TY, TX) rank 3; (RB, TX) rank 2
+    tile: tuple[int, ...]                # (TY, TX) rank 3; (RB, TX) rank 2; () windows
     bz: int                              # chunk along the marched axis: BZ planes / BY rows
     grid: tuple[int, int, int]           # CUDA grid (x, y, z)
     rings: list[Ring]
@@ -129,6 +172,12 @@ class GroupPlan:
     sweeps: int = 1                      # fused sweeps per call (a cascade when > 1)
     kernel: str = "linebuffer3d"
     cell_ops_per_call: float = 0.0       # computed cells x ops, trapezoid included
+    # the windows kernel: its block, the tensors it holds in shared memory
+    # (windowed inputs, then the stages other stages read) and the inputs
+    # it reads tap by tap from device memory
+    block: tuple[int, ...] = ()
+    windows: list[Window] = dataclasses.field(default_factory=list)
+    direct: list[str] = dataclasses.field(default_factory=list)
 
     @property
     def modeled_seconds(self) -> float:
@@ -138,13 +187,18 @@ class GroupPlan:
                    self.cell_ops_per_call / (H100_SXM_PEAK_TFLOPS * 1e12))
 
     def describe(self) -> str:
-        chunk = "bz" if self.kernel == "linebuffer3d" else "by"
+        traffic = self.hbm_bytes_per_call / max(self.useful_cells_per_call, 1)
+        if self.kernel == "windows":
+            shape = (f"block={self.block}, windowed="
+                     f"{[w.name for w in self.windows if w.name in self.external_inputs]}, "
+                     f"direct={self.direct}")
+        else:
+            chunk = "bz" if self.kernel == "linebuffer3d" else "by"
+            shape = f"tile={self.tile}, {chunk}={self.bz}"
         return (
             f"group(stages={self.stages}, {self.kernel}, sweeps={self.sweeps}, "
-            f"tile={self.tile}, {chunk}={self.bz}, grid={self.grid}, "
-            f"smem={self.smem_bytes / 1024:.1f}KiB, "
-            f"traffic={self.hbm_bytes_per_call / max(self.useful_cells_per_call, 1):.3f}"
-            f"B/cell-update)")
+            f"{shape}, grid={self.grid}, smem={self.smem_bytes / 1024:.1f}KiB, "
+            f"traffic={traffic:.3f}B/cell-update)")
 
 
 @dataclasses.dataclass
@@ -190,13 +244,22 @@ def _group_params(program: StencilProgram, stages: list[str]) -> list[str]:
 
 def _covered(n: int, tile: int, lo: int, hi: int) -> int:
     """Sum over the tiles of one dim of the cells each tile loads,
-    [start + lo, start + tile - 1 + hi], clipped to [0, n)."""
-    total = 0
-    for start in range(0, n, tile):
-        a = max(start + lo, 0)
-        b = min(start + tile - 1 + hi, n - 1)
-        total += max(b - a + 1, 0)
-    return total
+    [start + lo, start + tile - 1 + hi], clipped to [0, n): the tiles
+    k_lo..k_hi load tile + hi - lo cells each, the few at the edges are
+    clipped one by one (a 2^28-cell axis has millions of tiles)."""
+    count = -(-n // tile)
+
+    def one(k: int) -> int:
+        a = max(k * tile + lo, 0)
+        b = min(k * tile + tile - 1 + hi, n - 1)
+        return max(b - a + 1, 0)
+
+    k_lo = min(-(-max(-lo, 0) // tile), count)
+    k_hi = min((n - tile - hi) // tile, count - 1)
+    if k_hi < k_lo:
+        return sum(one(k) for k in range(count))
+    return ((k_hi - k_lo + 1) * (tile + hi - lo) + sum(one(k) for k in range(k_lo))
+            + sum(one(k) for k in range(k_hi + 1, count)))
 
 
 def _pow2(n: int) -> int:
@@ -300,6 +363,111 @@ def _plan_group(program: StencilProgram, members: list[str],
     return None if best is None else best[1]
 
 
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _plan_windows(program: StencilProgram, members: list[str],
+                  grid_shape: tuple[int, ...], smem_budget: int,
+                  block: tuple[int, ...] | None = None) -> GroupPlan | None:
+    """The windows kernel's plan of `members` (one sweep), or None when the
+    stages that other stages of the group read do not fit `smem_budget` in
+    any block, or the CUDA grid exceeds the launch limits.  Those stages
+    are held in shared memory first; then each external input, in order,
+    whose window still fits; the rest are read tap by tap."""
+    rank = program.rank
+    ext_inputs, outputs = _group_io(program, members)
+    spans = group_spans(program, members, outputs)
+    members = [m for m in members if m in spans]
+    ext_inputs = [i for i in ext_inputs if i in spans]
+    consumed = {p for m in members for p in program.tensors[m].parents()}
+    held = [m for m in members if m in consumed]
+    cells = math.prod(grid_shape)
+    writes = cells * sum(_elem_bytes(program, o) for o in outputs)
+    ops = {m: typed_ops(program, program.tensors[m].expr) for m in members}
+    budget = min(smem_budget, SMEM_PER_BLOCK_MAX)
+
+    best = None
+    for blk in [tuple(block)] if block else WINDOW_BLOCKS[rank]:
+        per_dim = [-(-grid_shape[d] // blk[d]) for d in range(rank)]
+        grid = tuple(reversed(per_dim)) + (1,) * (3 - rank)   # (x, y, z)
+        if grid[0] >= 2**31 or grid[1] > MAX_GRID_YZ or grid[2] > MAX_GRID_YZ:
+            continue
+
+        def window(n: str, off: int) -> Window:
+            ext = tuple(b + hi - lo for b, (lo, hi) in zip(blk, spans[n]))
+            return Window(n, spans[n], _elem_bytes(program, n), ext, off)
+
+        wins, off = [], 0
+        for n in held:
+            wins.append(window(n, off))
+            off += _round16(wins[-1].nbytes)
+        if off > budget:
+            continue
+        for n in ext_inputs:
+            w = window(n, off)
+            if off + _round16(w.nbytes) <= budget:
+                wins.append(w)
+                off += _round16(w.nbytes)
+        in_smem = {w.name for w in wins}
+
+        def covered(n: str) -> int:
+            return math.prod(_covered(grid_shape[d], blk[d], lo, hi)
+                             for d, (lo, hi) in enumerate(spans[n]))
+
+        direct = [n for n in ext_inputs if n not in in_smem]
+        gp = GroupPlan(
+            stages=members, external_inputs=ext_inputs, outputs=outputs,
+            spans=spans, params=_group_params(program, members), tile=(),
+            bz=0, grid=grid, rings=[], warm=0, smem_bytes=off,
+            hbm_bytes_per_call=(sum(_elem_bytes(program, n) * covered(n)
+                                    for n in ext_inputs) + writes),
+            useful_cells_per_call=cells * max(len(outputs), 1),
+            kernel="windows",
+            cell_ops_per_call=sum(ops[m] * covered(m) for m in members),
+            block=blk, windows=wins, direct=direct)
+        # fill the card first, then window every input that fits, then
+        # the modeled time; equal time prefers the larger block
+        key = (math.prod(grid) < 2 * NUM_SMS, bool(direct), gp.modeled_seconds,
+               -math.prod(blk))
+        if best is None or key < best[0]:
+            best = (key, gp)
+    return None if best is None else best[1]
+
+
+def _split(stages: list[str], fit, alone) -> list[GroupPlan]:
+    """All `stages` (topological order) in one group when `fit` plans them;
+    else split greedily into groups chained through device memory, each as
+    many consecutive stages as `fit` plans; a stage that `fit` cannot plan
+    alone gets `alone`'s group (None: refused)."""
+    whole = fit(stages)
+    if whole is not None:
+        return [whole]
+    groups: list[GroupPlan] = []
+    cur: list[str] = []
+    cur_plan = None
+    for s in stages:
+        gp = fit(cur + [s])
+        if gp is not None:
+            cur, cur_plan = cur + [s], gp
+            continue
+        if cur_plan is not None:
+            groups.append(cur_plan)
+            cur, cur_plan = [s], fit([s])
+            if cur_plan is not None:
+                continue
+        gp = alone(s)
+        if gp is None:
+            raise ValueError(f"stage {s!r} alone does not fit: no line-buffer "
+                             f"tile within the shared-memory budget and no "
+                             f"windows block within the launch limits")
+        groups.append(gp)
+        cur, cur_plan = [], None
+    if cur_plan is not None:
+        groups.append(cur_plan)
+    return groups
+
+
 def _fitting(program: StencilProgram, grid_shape: tuple[int, ...], depths,
              smem_budget: int, tile=None, bz=None):
     """(nf, GroupPlan) for each depth in `depths` whose whole cascade fits."""
@@ -316,7 +484,14 @@ def _plan_fused(program: StencilProgram, grid_shape: tuple[int, ...], it: int,
                 notes: list[str]) -> GroupPlan | None:
     """The fused group of an `iterate` program, or None to run one sweep
     per call.  A requested depth is snapped to a divisor of `it` and, if
-    its cascade does not fit, reduced to the next divisor that does."""
+    its cascade does not fit, reduced to the next divisor that does.  A
+    rank without an `AUTO_SWEEPS_MAX` entry has no march to cascade: depth
+    1, one sweep per call."""
+    cap = AUTO_SWEEPS_MAX.get(program.rank, 1)
+    if cap == 1:
+        if sweeps is not None and sweeps > 1:
+            notes.append(f"rank {program.rank}: no fused cascade; one sweep per call")
+        return None
     divisors = [d for d in range(1, it + 1) if it % d == 0]
     try:
         if sweeps is not None:
@@ -335,7 +510,6 @@ def _plan_fused(program: StencilProgram, grid_shape: tuple[int, ...], it: int,
                 notes.append(f"shared memory: no fused depth up to {nf} fits; "
                              f"one sweep per call")
             return g
-        cap = AUTO_SWEEPS_MAX[program.rank]
         fits = _fitting(program, grid_shape, [d for d in divisors if d <= cap],
                         smem_budget, tile, bz)
         best = min(fits, default=None, key=lambda dg: (
@@ -354,7 +528,10 @@ def _plan_fused(program: StencilProgram, grid_shape: tuple[int, ...], it: int,
 
 def fused_depths(program: StencilProgram, grid_shape: tuple[int, ...]) -> list[int]:
     """The divisors above 1 of the program's `iterate` whose whole cascade
-    fits `SMEM_BUDGET` on `grid_shape` (ascending)."""
+    fits `SMEM_BUDGET` on `grid_shape` (ascending); none for a rank
+    without a march."""
+    if program.rank not in AUTO_SWEEPS_MAX:
+        return []
     it = max(program.iterate, 1)
     return [d for d, _ in _fitting(program, tuple(grid_shape),
                                    [d for d in range(2, it + 1) if it % d == 0],
@@ -364,7 +541,7 @@ def fused_depths(program: StencilProgram, grid_shape: tuple[int, ...]) -> list[i
 def plan(program: StencilProgram, grid_shape: tuple[int, ...], *,
          smem_budget: int = SMEM_BUDGET, sweeps: int | None = None,
          iterate: int | None = None, tile: tuple[int, int] | None = None,
-         bz: int | None = None) -> Plan:
+         bz: int | None = None, block: tuple[int, ...] | None = None) -> Plan:
     """Plan `program` on a full grid of `grid_shape` for the CUDA path.
 
     `iterate` programs first try a fused group of nf sweeps (see the
@@ -372,54 +549,58 @@ def plan(program: StencilProgram, grid_shape: tuple[int, ...], *,
     per call).  Otherwise the fusion policy is `soda_tpu`'s: all stages in
     one kernel when its rings fit the shared-memory budget; else the stage
     DAG is split greedily, in topological order, into kernels chained
-    through device memory, each call running one sweep.  `tile` and `bz`
-    pin the CTA shape instead of searching."""
-    if program.rank == 1:
-        raise NotImplementedError(
-            f"program {program.name!r} has rank 1: {RANK1_ROADMAP}")
-    if len(grid_shape) != program.rank:
-        raise ValueError(f"grid rank {len(grid_shape)} != program rank {program.rank}")
+    through device memory, each call running one sweep; a stage whose
+    rings fit no tile alone runs in the windows kernel.  `tile` and `bz`
+    pin the line buffer's CTA shape instead of searching.  Rank 1 plans to
+    the windows kernel; `block` pins the windows kernel with that block
+    (one sweep per call), for any rank."""
+    rank = program.rank
+    if len(grid_shape) != rank:
+        raise ValueError(f"grid rank {len(grid_shape)} != program rank {rank}")
     grid_shape = tuple(grid_shape)
+    if block is not None:
+        block = tuple(int(b) for b in block)
+        if len(block) != rank or min(block) < 1:
+            raise ValueError(f"block {block} is not {rank} positive sizes")
+        if tile is not None or bz is not None:
+            raise ValueError("block= pins the windows kernel; tile= and bz= "
+                             "pin the line buffer's")
+        if sweeps is not None and sweeps > 1:
+            raise ValueError("block= pins the windows kernel, which runs one "
+                             "sweep per call")
     it = max(program.iterate if iterate is None else iterate, 1)
     notes: list[str] = []
     ideal = float(sum(_elem_bytes(program, n) for n in program.input_names)
                   + sum(_elem_bytes(program, n) for n in program.output_names))
     per_cell = dict(ideal_bytes_per_cell=ideal, ops_per_cell=ops_per_cell(program),
                     sweeps_total=it)
-    if it > 1:
+    if it > 1 and block is None:
         fused = _plan_fused(program, grid_shape, it, sweeps, smem_budget,
                             tile, bz, notes)
         if fused is not None:
             notes.append(f"iterate={it} executed as {it // fused.sweeps} kernel "
                          f"call(s) x {fused.sweeps} fused sweeps")
-            return Plan(program.name, program.rank, [fused], grid_shape, notes,
+            return Plan(program.name, rank, [fused], grid_shape, notes,
                         **per_cell)
     stages = program.stage_order()
 
-    groups: list[GroupPlan] = []
-    whole = _plan_group(program, stages, grid_shape, smem_budget, tile, bz)
-    if whole is not None:
-        groups.append(whole)
+    def windows(members: list[str]) -> GroupPlan | None:
+        return _plan_windows(program, members, grid_shape, smem_budget, block)
+
+    if block is not None or rank not in KERNELS:
+        notes.append("windows kernel: " + (f"block {block} pinned" if block
+                                           else f"rank {rank} has no march"))
+        groups = _split(stages, windows, lambda s: None)
     else:
-        cur: list[str] = []
-        cur_plan = None
-        for s in stages:
-            gp = _plan_group(program, cur + [s], grid_shape, smem_budget, tile, bz)
-            if gp is not None:
-                cur, cur_plan = cur + [s], gp
-                continue
-            if cur_plan is None:
-                raise ValueError(
-                    f"stage {s!r} alone does not fit the shared-memory budget "
-                    f"{smem_budget} on grid {grid_shape}")
-            groups.append(cur_plan)
-            cur = [s]
-            cur_plan = _plan_group(program, cur, grid_shape, smem_budget, tile, bz)
-            if cur_plan is None:
-                raise ValueError(
-                    f"stage {s!r} alone does not fit the shared-memory budget "
-                    f"{smem_budget} on grid {grid_shape}")
-        groups.append(cur_plan)
+        def alone(s: str) -> GroupPlan | None:
+            notes.append(f"shared memory: no line-buffer tile of stage {s!r} "
+                         f"fits {smem_budget} B; it runs in the windows kernel")
+            return windows([s])
+
+        groups = _split(
+            stages, lambda ms: _plan_group(program, ms, grid_shape, smem_budget,
+                                           tile, bz), alone)
+    if len(groups) > 1:
         notes.append(f"shared-memory pressure: split {len(stages)} stages "
                      f"into {len(groups)} chained kernels")
     notes.append(f"iterate={it} executed as {it} chained call(s) of one sweep")

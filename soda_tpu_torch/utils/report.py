@@ -2,12 +2,13 @@
 
 Counterpart of `soda_tpu/utils/report.py::analyze`.  The analytic ideal is
 hardware-independent: every input read once and every output written once
-per call, in storage dtypes (8 B/cell for f32 jacobi3d, 4 B/cell for
-uint16 blur), for ranks 2 and 3 alike.  A call runs `sweeps` fused sweeps
-(1 for the line-buffer kernels, nf for a fused cascade), so the ideal per
-sweep is the call's over nf.  `analyze` adds the plan's own bytes (tile
-halos and warm-up included) and the bound: the least time the H100 could
-take for one call, the larger of
+per call, in storage dtypes (8 B/cell for f32 jacobi3d and smooth1d, 4
+B/cell for uint16 blur), for ranks 1 to 3 and every kernel alike.  A call
+runs `sweeps` fused sweeps (1 for the line-buffer and windows kernels, nf
+for a fused cascade), so the ideal per sweep is the call's over nf.
+`analyze` adds the plan's own bytes (tile halos, warm-up and window halos
+included) and the bound: the least time the H100 could take for one call,
+the larger of
 - the ideal bytes of the call over its published 3.35 TB/s, and
 - nf x the program's operations per cell x cells over its published
   67 TFLOP/s of f32 outside the tensor cores, each operation weighted by

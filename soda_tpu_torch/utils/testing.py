@@ -48,6 +48,24 @@ output int16: o(0, 0, 0) = (d(0, 1, 0) - d(-1, 0, 0)) % 7 + (d(0, 0, 0) >> 2) - 
 """,
 }
 
+# the rank-1 corpus: every program that only the windows kernel runs
+RANK1_CORPUS = ("smooth1d",)
+
+
+def _star3d(radius: int) -> str:
+    taps = ["u(0, 0, 0)"] + [
+        f"u({o[0]}, {o[1]}, {o[2]})" for r in range(1, radius + 1) for s in (r, -r)
+        for o in ((s, 0, 0), (0, s, 0), (0, 0, s))]
+    return (f"kernel: star3d_r{radius}\ninput double: u(64, 64, *)\n"
+            f"output double: v(0, 0, 0) = ({' + '.join(taps)}) * 0.02\n")
+
+
+# a 49-point radius-8 star in f64 (a space-order-16 finite-difference
+# stencil): its line-buffer ring (17 planes of an f64 tile and its halo)
+# fits no tile of the default shared-memory budget, so the planner falls
+# back to the windows kernel
+STAR3D_R8 = _star3d(8)
+
 
 def rand_inputs(p, shape, rng):
     """Random inputs + params for `p`: signed ints draw negatives

@@ -1,6 +1,7 @@
-"""The line-buffer kernels (1: 3-D z-march, 2: 2-D row-march) and the fused
-`iterate` cascades (`backend/sweeps.py`) on the card against their plain
-version and, for the cascades, against the chained one-sweep kernels.
+"""The line-buffer kernels (1: 3-D z-march, 2: 2-D row-march), the fused
+`iterate` cascades (`backend/sweeps.py`) and the windows kernel
+(`backend/windows.py`, kernel 4) on the card against their plain version,
+and the cascades and the windows kernel against the line-buffer kernels.
 
 Marked `gpu`; each test asks the `cuda_device` fixture for a card and skips
 without one.  This file imports neither jax nor soda_tpu's TPU backends, so
@@ -14,19 +15,22 @@ for bit against the chained kernels (the same operations in the same
 order, no FMA); floats through
 `compare_outputs` (f32 1e-4, f32 libm 2e-3, f64 1e-4) against the plain
 PyTorch version on the card and against the port's NumPy reference, on
-the whole grid.
+the whole grid; the windows kernel bit for bit against the line-buffer
+kernel on programs that call no libm (the same operations in the same
+order).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from soda_tpu_torch.backend import cuda, eager, linebuffer, linebuffer2d, sweeps
+from soda_tpu_torch.backend import cuda, eager, linebuffer, linebuffer2d, sweeps, windows
 from soda_tpu_torch.backend.io import to_numpy, to_torch
 from soda_tpu_torch.frontend.parser import parse, parse_file
 from soda_tpu_torch.plan.planner import fused_depths, plan
 from soda_tpu_torch.utils.testing import (CORPUS, INT3D_SOURCES, RANK3_CORPUS,
-                                          compare_outputs, oracle, rand_inputs)
+                                          STAR3D_R8, compare_outputs, oracle,
+                                          rand_inputs)
 
 torch.set_num_threads(1)
 
@@ -35,7 +39,8 @@ ITERATE = ("jacobi2d", "seidel2d", "residual2d", "denoise2p", "jacobi2d_i64", "h
 
 
 def _launches() -> int:
-    return linebuffer.LAUNCHES + linebuffer2d.LAUNCHES + sweeps.LAUNCHES
+    return (linebuffer.LAUNCHES + linebuffer2d.LAUNCHES + sweeps.LAUNCHES
+            + windows.LAUNCHES)
 
 
 def _want(p, pl) -> int:
@@ -181,3 +186,87 @@ def test_fused_cascade_on_many_tiles_and_chunks(cuda_device):
     chained = cuda.run(p, ins, ps, device=cuda_device, sweeps=1)
     assert torch.equal(got["heat_out"], chained["heat_out"])
     assert compare_outputs(p, to_numpy(p, got), oracle(p, ins, ps), 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [1, 7, 300, 4099])
+@pytest.mark.parametrize("block", [None, (32,)])
+def test_rank1_windows_kernel_matches_plain_and_oracle(cuda_device, length, block):
+    p = _program("smooth1d")
+    ins, ps = rand_inputs(p, (length,), np.random.default_rng(19))
+    before = windows.LAUNCHES
+    got = cuda.run(p, ins, ps, device=cuda_device, block=block)
+    torch.cuda.synchronize()
+    assert windows.LAUNCHES - before == 1
+    plain = eager.run(p, ins, ps, device=cuda_device)
+    assert torch.equal(_bits(got["w_out"]), _bits(plain["w_out"]))
+    assert np.array_equal(to_numpy(p, got)["w_out"], oracle(p, ins, ps)["w_out"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape,block", [
+    ("jacobi3d", (13, 37, 45), (4, 8, 32)), ("denoise3d", (13, 37, 45), (4, 8, 32)),
+    ("divneg_i16", (13, 37, 45), (2, 4, 32)), ("blur", (37, 45), (8, 32)),
+    ("accum64", (37, 45), (8, 32)), ("smooth_half", (37, 45), (8, 32)),
+    ("mathfn2d", (37, 45), (8, 32)), ("conv5x5", (37, 45), (4, 32))])
+def test_pinned_windows_kernel_matches_plain_and_line_buffer(cuda_device, name, shape, block):
+    p = _program(name)
+    ins, ps = rand_inputs(p, shape, np.random.default_rng(20))
+    pl = plan(p, shape, block=block)
+    assert [g.kernel for g in pl.groups] == ["windows"] * len(pl.groups)
+    before = windows.LAUNCHES
+    got = cuda.run(p, ins, ps, device=cuda_device, block=block)
+    torch.cuda.synchronize()
+    assert windows.LAUNCHES - before == _want(p, pl)
+    plain = eager.run(p, ins, ps, device=cuda_device)
+    lb = cuda.run(p, ins, ps, device=cuda_device, sweeps=1)
+    for k in got:
+        if not p.tensors[k].type.is_float or p.tensors[k].type.width == 16:
+            assert torch.equal(_bits(got[k]), _bits(plain[k])), k
+        if not p.uses_libm_transcendentals():
+            assert torch.equal(_bits(got[k]), _bits(lb[k])), k
+    assert compare_outputs(p, to_numpy(p, got), to_numpy(p, plain), 0)
+    assert compare_outputs(p, to_numpy(p, got), oracle(p, ins, ps), 0)
+
+
+@pytest.mark.gpu
+def test_radius8_star_falls_back_to_windows_on_the_card(cuda_device):
+    p = parse(STAR3D_R8)
+    shape = (40, 45, 51)
+    pl = plan(p, shape)
+    assert [g.kernel for g in pl.groups] == ["windows"] and pl.groups[0].direct == ["u"]
+    ins, ps = rand_inputs(p, shape, np.random.default_rng(21))
+    got = cuda.run(p, ins, ps, device=cuda_device)
+    plain = eager.run(p, ins, ps, device=cuda_device)
+    lb = cuda.run(p, ins, ps, device=cuda_device, smem_budget=227 * 1024)
+    assert torch.equal(_bits(got["v"]), _bits(plain["v"]))
+    assert torch.equal(_bits(got["v"]), _bits(lb["v"]))
+    assert compare_outputs(p, to_numpy(p, got), oracle(p, ins, ps), 0)
+
+
+@pytest.mark.gpu
+def test_windows_wrapper_checks_dtype_and_raises(cuda_device):
+    p = _program("smooth1d")
+    k = windows.GroupKernel(p, plan(p, (300,)).groups[0])
+    x = torch.zeros(300, device=cuda_device, dtype=torch.float64)
+    with pytest.raises(TypeError, match="dtype"):
+        k({"w_in": x}, {})
+
+
+@pytest.mark.gpu
+def test_rank1_windows_kernel_past_2_to_31_cells(cuda_device):
+    """64-bit offsets: smooth1d on 2^31 + 4099 cells (8 GiB per array).  The
+    cells at both ends and on both sides of 2^31 equal the plain version on
+    slices of the input that hold every tap they read, bit for bit."""
+    p = _program("smooth1d")
+    n = 2**31 + 4099
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    x = torch.randn(n, generator=gen, device=cuda_device)
+    before = windows.LAUNCHES
+    got = cuda.run(p, {"w_in": x}, device=cuda_device)["w_out"]
+    torch.cuda.synchronize()
+    assert windows.LAUNCHES - before == 1
+    for a, b in [(0, 4096), (2**31 - 4096, 2**31 + 4096), (n - 4096, n)]:
+        lo, hi = max(a - 2, 0), min(b + 2, n)
+        want = eager.run(p, {"w_in": x[lo:hi].contiguous()}, device=cuda_device)["w_out"]
+        assert torch.equal(_bits(got[a:b]), _bits(want[a - lo:b - lo])), (a, b)

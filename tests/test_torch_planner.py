@@ -21,6 +21,8 @@ from soda_tpu_torch.backend import cuda
 from soda_tpu_torch.backend.io import to_numpy
 from soda_tpu_torch.frontend.parser import parse, parse_file
 from soda_tpu_torch.plan import planner
+from soda_tpu_torch.utils import report
+from soda_tpu_torch.utils.testing import STAR3D_R8
 
 torch.set_num_threads(1)
 
@@ -97,17 +99,29 @@ def test_small_budget_splits_into_chained_groups_that_still_match():
 
 
 def test_stage_that_cannot_fit_is_refused():
+    """A stage whose rings fit no line-buffer tile runs in the windows
+    kernel (its input read tap by tap); only a grid that no windows block
+    can launch (more than 65535 rows of CTAs) is refused."""
     p = parse_file(SODA / "jacobi3d.soda")
+    g = planner.plan(p, (16, 16, 16), smem_budget=1024).groups[0]
+    assert g.kernel == "windows" and g.direct == ["t0"] and g.smem_bytes == 0
+    tall = parse_file(SODA / "jacobi2d.soda")
     with pytest.raises(ValueError, match="does not fit"):
-        planner.plan(p, (16, 16, 16), smem_budget=1024)
+        planner.plan(tall, (2**21, 3), smem_budget=64, sweeps=1)
 
 
 def test_rank_two_is_refused_naming_the_roadmap():
-    # rank 2 plans now (kernel 2); rank 1 waits for kernel 4
+    """Rank 2 plans to kernel 2 and rank 1 to the windows kernel (kernel 4);
+    nothing is refused."""
     assert planner.plan(parse_file(SODA / "jacobi2d.soda"), (64, 64)).rank == 2
     p = parse_file(SODA / "smooth1d.soda")
-    with pytest.raises(NotImplementedError, match="kernel 4.*ROADMAP.md"):
-        planner.plan(p, (256,))
+    pl = planner.plan(p, (256,))
+    (g,) = pl.groups
+    assert pl.rank == 1 and g.kernel == "windows" and g.block == (4096,)
+    assert [w.name for w in g.windows] == ["w_in"] and g.direct == []
+    assert [w.extent for w in g.windows] == [(4100,)]
+    assert g.grid == (1, 1, 1) and "windows" in pl.describe()
+    assert planner.plan(p, (2**28,)).groups[0].grid == (2**16, 1, 1)
 
 
 def test_sweeps_nondivisor_adjusted_not_underexecuted():
@@ -172,3 +186,92 @@ def test_at_size_row_plans_fill_the_card_within_shared_memory(name, shape):
         assert np.prod(g.grid) >= 2 * planner.NUM_SMS
     plan_b = sum(g.hbm_bytes_per_call for g in pl.groups) / np.prod(shape)
     assert plan_b < pl.ideal_bytes_per_cell * 1.08
+
+
+def test_block_pins_the_windows_kernel():
+    p = parse_file(SODA / "denoise3d.soda")
+    pl = planner.plan(p, (13, 37, 45), block=(4, 8, 32))
+    (g,) = pl.groups
+    assert g.kernel == "windows" and g.block == (4, 8, 32) and g.grid == (2, 5, 4)
+    # the stages unew reads are held over their extents, then the inputs
+    assert [(w.name, w.extent) for w in g.windows] == [
+        ("grad", (6, 10, 34)), ("w", (6, 10, 34)), ("u", (8, 12, 36)),
+        ("rhs", (4, 8, 32))]
+    assert g.smem_bytes == sum(-(-w.nbytes // 16) * 16 for w in g.windows)
+    assert any("block (4, 8, 32) pinned" in n for n in pl.notes)
+    # an iterate program pinned to windows runs chained one-sweep calls
+    h = parse_file(SODA / "heat3d.soda")
+    ph = planner.plan(h, (13, 37, 45), block=(4, 8, 32))
+    assert [g.sweeps for g in ph.groups] == [1] and ph.sweeps_total == 4
+    with pytest.raises(ValueError, match="one sweep per call"):
+        planner.plan(h, (13, 37, 45), block=(4, 8, 32), sweeps=2)
+    with pytest.raises(ValueError, match="pin the line buffer"):
+        planner.plan(p, (13, 37, 45), block=(4, 8, 32), tile=(8, 32))
+    with pytest.raises(ValueError, match="positive sizes"):
+        planner.plan(p, (13, 37, 45), block=(4, 8))
+
+
+@pytest.mark.parametrize("budget,kernel", [(planner.SMEM_BUDGET, "windows"),
+                                           (227 * 1024, "linebuffer3d")])
+def test_radius8_star_falls_back_to_windows_at_the_default_budget(budget, kernel):
+    p = parse(STAR3D_R8)
+    assert p.radius() == 8
+    assert sum(len(v) for v in p.tensors["v"].window().values()) == 49
+    pl = planner.plan(p, (512, 512, 512), smem_budget=budget)
+    (g,) = pl.groups
+    assert g.kernel == kernel and g.smem_bytes <= budget
+    if kernel == "windows":
+        # no window of u fits 96 KB: read tap by tap, no shared memory
+        assert g.direct == ["u"] and g.smem_bytes == 0
+        assert any("no line-buffer tile of stage 'v'" in n for n in pl.notes)
+        assert np.prod(g.grid) >= 2 * planner.NUM_SMS
+    rep = report.analyze(pl)
+    assert rep.bound_by == "bytes"
+    assert abs(rep.bound_ms - 16 * 2**27 / 3.35e12 * 1e3) < 1e-12
+
+
+def test_small_budget_makes_jacobi3d_fall_back():
+    # a 4 KB budget (4000 B) leaves no tile for the line buffer's three
+    # rings of planes (the smallest, 8 x 32, takes 4080 B): the stage runs
+    # in the windows kernel, in the largest block whose window fits
+    p = parse_file(SODA / "jacobi3d.soda")
+    assert planner.plan(p, (16, 16, 16), smem_budget=4096).groups[0].kernel == "linebuffer3d"
+    pl = planner.plan(p, (16, 16, 16), smem_budget=4000)
+    (g,) = pl.groups
+    assert g.kernel == "windows" and g.direct == [] and g.smem_bytes <= 4000
+    ins, ps = rand_inputs(p, (16, 16, 16), np.random.default_rng(5))
+    got = to_numpy(p, cuda.run(p, ins, ps, device="cpu", the_plan=pl))
+    gold = numpy_interp.run(lark_parser.parse_file(SODA / "jacobi3d.soda"), ins, ps)
+    assert np.array_equal(got["t1"], gold["t1"])
+
+
+@pytest.mark.parametrize("sweeps", [None, 4])
+def test_rank1_iterate_plans_chained_one_sweep_calls(sweeps):
+    src = ("kernel: it1\niterate: 4\ninput float: a(64)\n"
+           "output float: b(0) = (a(-1) + a(0) + a(1)) / 3.0f\n")
+    p = parse(src)
+    assert p.rank not in planner.AUTO_SWEEPS_MAX
+    pl = planner.plan(p, (300,), sweeps=sweeps)
+    assert [(g.kernel, g.sweeps) for g in pl.groups] == [("windows", 1)]
+    assert pl.sweeps_total == 4 and planner.fused_depths(p, (300,)) == []
+    assert any("4 chained call(s)" in n for n in pl.notes)
+    x = np.random.default_rng(6).standard_normal(300).astype(np.float32)
+    got = to_numpy(p, cuda.run(p, {"a": x}, device="cpu", sweeps=sweeps))
+    assert np.array_equal(got["b"], numpy_interp.run(lark_parser.parse(src), {"a": x})["b"])
+
+
+@pytest.mark.parametrize("name,shape,block", [("smooth1d", (4099,), None),
+                                              ("smooth1d", (2**28,), None),
+                                              ("blur", (37, 45), (8, 32)),
+                                              ("jacobi3d", (512, 512, 512), (8, 8, 64)),
+                                              ("denoise3d", (13, 37, 45), (4, 8, 32))])
+def test_windows_bytes_per_cell_are_at_least_the_ideal(name, shape, block):
+    p = parse_file(SODA / f"{name}.soda")
+    pl = planner.plan(p, shape, block=block)
+    (g,) = pl.groups
+    assert g.kernel == "windows"
+    cells = int(np.prod(shape))
+    assert g.hbm_bytes_per_call >= pl.ideal_bytes_per_cell * cells
+    # every input cell at least once, every output cell once
+    assert g.useful_cells_per_call == cells * len(g.outputs)
+    assert g.cell_ops_per_call >= pl.ops_per_cell * cells

@@ -135,7 +135,7 @@ from soda_tpu_torch.utils.testing import CORPUS, compare_outputs, oracle, rand_i
 res = {}
 for name, shape in [("jacobi3d", (9, 14, 40)), ("denoise3d", (8, 12, 40)),
                     ("jacobi2d", (19, 40)), ("heat3d", (9, 14, 40)),
-                    ("blur", (21, 40))]:
+                    ("smooth1d", (300,)), ("blur", (21, 40))]:
     p = parse_file(CORPUS / f"{name}.soda")
     plan(p, shape)
     ins, ps = rand_inputs(p, shape, np.random.default_rng(0))
@@ -164,6 +164,7 @@ def test_card_contract_without_jax_and_lark():
     res = json.loads(r.stdout.strip().splitlines()[-1])
     assert res["jacobi3d"] and res["denoise3d"] and res["blur"]
     assert res["jacobi2d"] and res["heat3d"]  # fused cascades, plain versions
+    assert res["smooth1d"]  # rank 1: the windows kernel's plain version
     assert res["fused_modules"] == ["soda_tpu_torch.backend.sweeps",
                                     "soda_tpu_torch.optimize.unroll",
                                     "soda_tpu_torch.utils.opcount"]
@@ -223,9 +224,18 @@ def test_report_bound_in_ms_for_ranks_two_and_three():
     assert rep2.ideal_bytes_per_cell == 4.0
     assert abs(rep2.bound_ms - 4 * 2048 * 4096 / 3.35e12 * 1e3) < 1e-12
     assert 4.0 < rep2.plan_bytes_per_cell < 4.3
+    # rank 1 through the windows kernel: smooth1d 2^28 f32, 8 B/cell
+    p1 = parse_file(SODA / "smooth1d.soda")
+    rep1 = report.analyze(plan(p1, (2**28,)))
+    assert rep1.ideal_bytes_per_cell == 8.0 and rep1.bound_by == "bytes"
+    assert abs(rep1.bound_ms - 8 * 2**28 / 3.35e12 * 1e3) < 1e-12
+    assert round(rep1.bound_ms, 4) == 0.641
+    assert 8.0 < rep1.plan_bytes_per_cell < 8.01
 
 
 def test_cli_prints_rank2_plans_and_says_why_rank1_has_none(capsys):
+    """The CLI prints and runs rank-2 plans and smooth1d's (rank 1, the
+    windows kernel); `--block` pins the windows kernel."""
     rc = sodac.main([str(SODA / "blur.soda"), "--grid-shape", "21,40",
                      "--device", "cpu", "--run"])
     out = capsys.readouterr().out
@@ -234,4 +244,11 @@ def test_cli_prints_rank2_plans_and_says_why_rank1_has_none(capsys):
                      "--device", "cpu", "--run"])
     out = capsys.readouterr().out
     assert rc == 0 and "OK" in out
-    assert "no CUDA plan" in out and "kernel 4" in out
+    assert "windows" in out and "block=(4096,)" in out and "no CUDA plan" not in out
+    rc = sodac.main([str(SODA / "blur.soda"), "--grid-shape", "21,40",
+                     "--block", "8,32", "--device", "cpu", "--run"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "OK" in out and "windows" in out and "block=(8, 32)" in out
+    with pytest.raises(SystemExit, match="no CUDA plan"):
+        sodac.main([str(SODA / "heat3d.soda"), "--grid-shape", "9,13,40",
+                    "--block", "4,8,32", "--sweeps", "2"])
