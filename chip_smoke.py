@@ -20,7 +20,13 @@ Phases (any failure exits nonzero):
    poisson3d_f64 at 256^3, and jacobi3d 1024^3 when the card has room;
 5. small grids, rank 2: the 22 rank-2 corpus programs of at most 64 bits
    on (64, 256), (37, 45) and (7, 13), as in phase 3 with kernel 2's
-   count; integers and half bit for bit against the plain version;
+   count; integers and half bit for bit against the plain version; then
+   the row-march's pinned variants (`PINNED_2D` on `PINNED_2D_PROGRAMS`:
+   RB 1, RB 16, a chunk shorter than the warm-up, a barrier after each
+   stage instead of the planner's skew, each on (64, 256), whose rows are
+   copied 16 bytes at a time, and on (37, 45), copied element by element),
+   each launching kernel 2 and equal bit for bit to the planner's kernel
+   and, without libm, to the plain version;
 6. the CLI on blur 2048x4096 with no --device: it runs on the card,
    checks against the NumPy reference and exits 0;
 7. kernel 2's main path at full size: blur 2048x4096 uint16 with kernel
@@ -39,7 +45,10 @@ Phases (any failure exits nonzero):
    kernel's launch count must rise by groups x iterate / nf, every output
    must equal the chained one-sweep kernels (`sweeps=1`) bit for bit, pass
    `device_gate` against the plain version and `compare_outputs` against
-   the port's NumPy reference on the whole grid;
+   the port's NumPy reference on the whole grid; then `PINNED_SWEEPS_PROGRAMS`
+   at depth = iterate pinned to RB 1 and to a chunk shorter than the
+   cascade's warm-up, skewed and with barriers, on both load paths
+   (`PINNED_SWEEPS`), bit for bit against the chained kernels;
 9. fused sweeps at size: the main path jacobi2d 2048^2 iterate 8 with the
    fused kernel's launch counter reset just before and read just after
    (8 / nf launches, nf > 1); then jacobi2d 16384^2 iterate 8 (1 GiB per
@@ -52,8 +61,9 @@ Phases (any failure exits nonzero):
    bounds it), the planned bytes per cell-update, and the card's name and
    power limit;
 10. the depth sweep: every row of phase 9 at every fused depth that fits
-   (and 1), in ms per sweep beside the planner's modeled time, each
-   output equal to the chained kernels bit for bit;
+   (and 1), in ms per sweep beside the planner's modeled time and plan
+   (tile, chunk, load path, CTAs an SM, waves), each output equal to the
+   chained kernels bit for bit;
 11. small grids, the windows kernel (`backend/windows.py`, kernel 4):
    smooth1d (rank 1) at lengths 1, 7, 300 and 4099, at its default block
    and at a block of 32 cells; every rank-3 and rank-2 program of phases 3
@@ -79,7 +89,8 @@ Phases (any failure exits nonzero):
    turns (line buffer, windows, windows, line buffer) and alone; conv5x5
    also beside `F.conv2d`.
 
-Phases 4 and 7 run their programs one sweep per call (`sweeps=1`), so
+Each phase logs the seconds since the start when it ends.  Phases 4 and
+7 run their programs one sweep per call (`sweeps=1`), so
 they time kernels 1 and 2; phases 8-10 time the fused cascades
 (`backend/sweeps.py`), phases 12-13 the windows kernel.  The line before the last is the kernel summary
 as JSON; the last line is {"ok": true, "device": {...}}.
@@ -102,6 +113,21 @@ AT_SIZE = (("jacobi3d", (512, 512, 512)), ("denoise3d", (256, 256, 256)),
            ("heat3d", (256, 256, 256)), ("poisson3d_f64", (256, 256, 256)))
 BIG = ("jacobi3d", (1024, 1024, 1024))
 SMALL_SHAPES_2D = ((64, 256), (37, 45), (7, 13))
+# the row-march pinned (phase 5): RB 1, RB 16, a chunk (2 rows) shorter
+# than the warm-up of the radius-2 programs (4 rows), and a barrier after
+# each stage instead of the skew (`utils/testing.py::pinned_plan`), on
+# both load paths; on a uint16 program of two levels and radius 2, and an
+# f32 one of three levels and two inputs
+PINNED_2D = ({"tile": (1, 32), "bz": 8}, {"tile": (16, 64), "bz": 16},
+             {"tile": (2, 32), "bz": 2}, {"tile": (2, 32), "bz": 8, "sync": "barrier"})
+PINNED_2D_PROGRAMS = ("gaussian2d", "denoise2d")
+# the rank-2 cascades at depth = iterate pinned (phase 8): RB 1, and a
+# chunk shorter than the warm-up (2 x iterate rows), with the copies
+# skewed by level and with a barrier after each; on an f32 cascade of two
+# outputs and an auxiliary input, and the deepest, int64 one
+PINNED_SWEEPS = ({"tile": (1, 32), "bz": 8}, {"tile": (2, 32), "bz": 4},
+                 {"tile": (2, 32), "bz": 4, "sync": "barrier"})
+PINNED_SWEEPS_PROGRAMS = ("residual2d", "jacobi2d_i64")
 AT_SIZE_2D = (("blur", (2048, 4096)), ("blur", (16384, 16384)),
               ("conv5x5", (16384, 16384)), ("accum64", (2048, 2048)),
               ("poisson_f64", (2048, 2048)), ("jacobi2d", (2048, 2048)))
@@ -267,10 +293,15 @@ def main() -> int:
                                               RANK1_CORPUS, RANK2_CORPUS,
                                               RANK3_CORPUS, STAR3D_R8,
                                               compare_outputs, oracle,
-                                              rand_inputs)
+                                              pinned_plan, rand_inputs)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+    t_start = time.perf_counter()
+
+    def mark(phase: int) -> None:
+        log(f"phase {phase} done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 1. device ---------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -289,10 +320,13 @@ def main() -> int:
     # ---- 2. build -------------------------------------------------------------
     jobs = {}
 
-    def add_jobs(p, shape, **kw):
-        for g in plan(p, shape, **kw).groups:
+    def add_plan(p, the_plan):
+        for g in the_plan.groups:
             k = cuda.group_kernel(p, g)
             jobs[k.source] = k
+
+    def add_jobs(p, shape, **kw):
+        add_plan(p, plan(p, shape, **kw))
 
     allp = {**programs, **programs2}
     small_depths = {}    # (name, shape) -> fused depths phase 8 runs
@@ -313,9 +347,17 @@ def main() -> int:
             add_jobs(p, shape)
     for n, shape in AT_SIZE_2D:
         add_jobs(programs2[n], shape, sweeps=1)
+    for n in PINNED_2D_PROGRAMS:
+        for shape in SMALL_SHAPES_2D[:2]:
+            for kw in PINNED_2D:
+                add_plan(programs2[n], pinned_plan(programs2[n], shape, kw))
     for (n, shape), depths in small_depths.items():
         for d in [1] + depths:
             add_jobs(allp[n], shape, sweeps=d)
+        if n in PINNED_SWEEPS_PROGRAMS and shape in SMALL_SHAPES_2D[:2]:
+            for kw in PINNED_SWEEPS:
+                add_plan(allp[n], pinned_plan(allp[n], shape,
+                                              dict(kw, sweeps=allp[n].iterate)))
     for n, shape in AT_SIZE_SWEEPS:
         add_jobs(allp[n], shape)
         add_jobs(allp[n], shape, sweeps=1)
@@ -355,6 +397,8 @@ def main() -> int:
             log(f"  {ln}")
     log(f"build: {len(built)} kernels in {wall:.1f} s wall")
 
+    mark(2)
+
     # ---- 3. small grids: kernel vs plain on the card vs oracle ---------------
     failures = []
     for n, p in programs.items():
@@ -380,6 +424,8 @@ def main() -> int:
     if failures:
         log(f"FAILED small-grid checks: {failures}")
         return 1
+
+    mark(3)
 
     # ---- 4. main path at full size --------------------------------------------
     summary = {}
@@ -497,6 +543,8 @@ def main() -> int:
     else:
         log(f"at-size {n} {shape}: skipped, {free / 2**30:.1f} GiB free")
 
+    mark(4)
+
     # ---- 5. small grids, rank 2: kernel 2 vs plain on the card vs oracle -----
     for n, p in programs2.items():
         exact = any(t.type.is_float and t.type.width == 16 for t in p.tensors.values())
@@ -520,9 +568,35 @@ def main() -> int:
                 f"{'ok' if ok_oracle else 'MISMATCH'}")
             if not ok:
                 failures.append(f"{n} {shape}")
+    for n in PINNED_2D_PROGRAMS:
+        p = programs2[n]
+        libm = p.uses_libm_transcendentals()
+        for shape in SMALL_SHAPES_2D[:2]:
+            ins, ps = rand_inputs(p, shape, np.random.default_rng(0))
+            ref = cuda.run(p, ins, ps)
+            plain = eager.run(p, ins, ps)
+            for kw in PINNED_2D:
+                the_plan = pinned_plan(p, shape, kw)
+                before = linebuffer2d.LAUNCHES
+                got = cuda.run(p, ins, ps, the_plan=the_plan)
+                torch.cuda.synchronize()
+                launched = linebuffer2d.LAUNCHES - before
+                ok_ref = bitwise_equal(got, ref)
+                ok_plain = device_gate(p, got, plain, not libm)
+                ok = (launched == len(the_plan.groups) and ok_ref and ok_plain
+                      and {g.kernel for g in the_plan.groups} == {"linebuffer2d"}
+                      and the_plan.groups[0].sync == kw.get("sync", "skew"))
+                log(f"pinned {n} {shape} {kw}: {the_plan.groups[0].describe()}; "
+                    f"launches {launched}, planner's kernel "
+                    f"{'bit for bit' if ok_ref else 'MISMATCH'}, plain "
+                    f"{'ok' if ok_plain else 'MISMATCH'}{'' if libm else ' (bit for bit)'}")
+                if not ok:
+                    failures.append(f"pinned {n} {shape} {kw}")
     if failures:
         log(f"FAILED rank-2 small-grid checks: {failures}")
         return 1
+
+    mark(5)
 
     # ---- 6. the CLI, on the card by default ------------------------------------
     before = linebuffer2d.LAUNCHES
@@ -534,6 +608,8 @@ def main() -> int:
     if rc != 0 or launched < 1:
         log("FAILED cli check")
         return 1
+
+    mark(6)
 
     # ---- 7. kernel 2 at full size ---------------------------------------------
     summary2 = {}
@@ -621,6 +697,8 @@ def main() -> int:
         del got, ins, pars, fn
         torch.cuda.empty_cache()
 
+    mark(7)
+
     # ---- 8. small grids, fused sweeps: fused vs chained vs plain vs oracle ----
     for (n, shape), depths in small_depths.items():
         p = allp[n]
@@ -647,9 +725,28 @@ def main() -> int:
                 f"oracle {'ok' if ok_oracle else 'MISMATCH'}")
             if not ok:
                 failures.append(f"fused {n} {shape} nf {d}")
+        if n in PINNED_SWEEPS_PROGRAMS and shape in SMALL_SHAPES_2D[:2]:
+            for kw in PINNED_SWEEPS:
+                the_plan = pinned_plan(p, shape, dict(kw, sweeps=it))
+                g = the_plan.groups[0]
+                before = sweeps.LAUNCHES
+                got = cuda.run(p, ins, ps, the_plan=the_plan)
+                torch.cuda.synchronize()
+                launched = sweeps.LAUNCHES - before
+                ok_bits = bitwise_equal(got, chained)
+                ok = (g.sweeps == it and launched == 1 and ok_bits
+                      and g.sync == kw.get("sync", "skew")
+                      and device_gate(p, got, plain, False))
+                log(f"fused pinned {n} {shape} nf {g.sweeps} {kw}: {g.describe()}; "
+                    f"warm-up {g.warm} rows, launches {launched}, chained "
+                    f"{'bit for bit' if ok_bits else 'MISMATCH'}")
+                if not ok:
+                    failures.append(f"fused pinned {n} {shape} {kw}")
     if failures:
         log(f"FAILED fused small-grid checks: {failures}")
         return 1
+
+    mark(8)
 
     # ---- 9. fused sweeps at size: fused vs chained vs plain, timed ------------
     summary3 = {}
@@ -728,6 +825,8 @@ def main() -> int:
         del ins, fused, chained
         torch.cuda.empty_cache()
 
+    mark(9)
+
     # ---- 10. the depth sweep: ms per sweep at every depth that fits ----------
     for (n, shape), depths in sweep_depths.items():
         p = allp[n]
@@ -746,10 +845,14 @@ def main() -> int:
             ms = (events_ms(lambda: fn(ins, {}), 2) + events_ms(lambda: fn(ins, {}), 2)) / 2 / it
             g = fn.plan.groups[0]
             measured[d] = ms
+            shape_of = (f"tile {g.tile}, chunk {g.bz}, smem {g.smem_bytes} B"
+                        + (f", load {g.load}, sync {g.sync}, threads {g.threads}, "
+                           f"CTAs/SM {g.slots_per_sm}, waves {g.waves:.2f}"
+                           if g.kernel == "linebuffer2d" else ""))
             log(f"depth sweep {n} {shape} nf {d}: {ms:.4f} ms/sweep measured, "
                 f"{g.modeled_seconds / d * 1e3:.4f} modeled; "
-                f"{'bit for bit' if ok else 'MISMATCH'} vs chained; tile {g.tile}, "
-                f"chunk {g.bz}, smem {g.smem_bytes} B; card {card}")
+                f"{'bit for bit' if ok else 'MISMATCH'} vs chained; {shape_of}; "
+                f"card {card}")
             if not ok:
                 log(f"FAILED depth sweep: {n} {shape} nf {d}")
                 return 1
@@ -758,6 +861,8 @@ def main() -> int:
             f"{chosen} ({measured[chosen] / measured[best]:.3f}x the fastest)")
         del ins, ref
         torch.cuda.empty_cache()
+
+    mark(10)
 
     # ---- 11. small grids, the windows kernel: vs plain, oracle, line buffer --
     cases = [(p, shape, kw) for p in programs1.values() for shape in SMALL_SHAPES_1D
@@ -794,6 +899,8 @@ def main() -> int:
     if failures:
         log(f"FAILED windows small-grid checks: {failures}")
         return 1
+
+    mark(11)
 
     # ---- 12. the windows kernel's main path at full size: smooth1d 2^28 -----
     n, shape = MAIN_WINDOWS
@@ -849,6 +956,8 @@ def main() -> int:
                     bound_ms=rep.bound_ms, bound_by=rep.bound_by, library_ms=lib_ms)
     del got, ins, x, x3, fn
     torch.cuda.empty_cache()
+
+    mark(12)
 
     # ---- 13. the windows kernel on ranks 2 and 3 at size, beside the line buffer
     for n, shape, block in AT_SIZE_WINDOWS:
@@ -912,6 +1021,7 @@ def main() -> int:
         del got, ins, pars, win, lb
         torch.cuda.empty_cache()
 
+    mark(13)
     j, b, f = summary["jacobi3d"], summary2[MAIN_2D], summary3[MAIN_SWEEPS]
     log(card)
     log(json.dumps({"kernels": [{

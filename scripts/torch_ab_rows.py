@@ -9,14 +9,17 @@ turns (parent, change, change, parent), each turn its own process:
 
     for r in build/parent . . build/parent; do python3 scripts/torch_ab_rows.py $r X; done
 
-The rows are this checkout's `chip_smoke.py` rows: kernels 1 and 2 one
-sweep per call (`AT_SIZE`, `BIG`, `AT_SIZE_2D`), the fused rows at the
+The rows are this checkout's `chip_smoke.py` rows: kernels 1, 2 and 4 one
+sweep per call (`AT_SIZE`, `BIG`, `AT_SIZE_2D`, `MAIN_WINDOWS`), the fused rows at the
 planner's depth (`AT_SIZE_SWEEPS`) and the depth sweep (`DEPTH_SWEEP`, at
 every depth the timed copy's planner fits); the optional third argument
 keeps the rows of the programs it names, and the corpus is always this
 checkout's `tests/soda`.  Per row it prints the CUDA-event time per sweep
 over back-to-back calls (two turns averaged, `chip_smoke.events_ms`), the
-device time of the kernels alone (`chip_smoke.device_ms`), and, for grids
+device time of the kernels alone (`chip_smoke.device_ms`), the host's time
+to enqueue one call (`fn` without a wait, the mean of the turn's calls:
+where it exceeds the kernels' time, the back-to-back time is the
+host's), and, for grids
 of at most 2^24 cells, whether the result equals the plain PyTorch version
 at 1e-4; then the registers and spills `ptxas` reported for every kernel.
 Inputs are made on the card from a fixed seed (`chip_smoke.device_inputs`).
@@ -47,7 +50,8 @@ def _smoke():
 
 def rows(smoke, fused_depths, parse_file, only) -> list:
     """(program, grid, sweeps) per row; sweeps None is the planner's depth."""
-    out = [(n, s, 1) for n, s in smoke.AT_SIZE + (smoke.BIG,) + smoke.AT_SIZE_2D]
+    out = [(n, s, 1) for n, s in smoke.AT_SIZE + (smoke.BIG,) + smoke.AT_SIZE_2D
+           + (smoke.MAIN_WINDOWS,)]
     out += [(n, s, None) for n, s in smoke.AT_SIZE_SWEEPS]
     for n, s in smoke.DEPTH_SWEEP:
         out += [(n, s, d) for d in [1] + fused_depths(parse_file(CORPUS / f"{n}.soda"), s)]
@@ -105,11 +109,18 @@ def main(root: str, label: str, only: str = "") -> int:
               + smoke.events_ms(lambda: fn(ins, pars), reps)) / 2 / it
         alone = smoke.device_ms(lambda: fn(ins, pars), reps)
         alone = float("nan") if alone is None else alone / it
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(ins, pars)
+        host = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
         g = fn.plan.groups[0]
-        out[f"{n} {s} nf{d or 'auto'}"] = (ms, alone, g.sweeps, g.modeled_seconds / g.sweeps * 1e3)
+        out[f"{n} {s} nf{d or 'auto'}"] = (ms, alone, g.sweeps,
+                                           g.modeled_seconds / g.sweeps * 1e3, host)
         print(f"{label} {n} {s} nf {d or 'auto'} (planned {g.sweeps}): {ms:.4f} ms/sweep "
               f"events, {alone:.4f} alone, {g.modeled_seconds / g.sweeps * 1e3:.4f} "
-              f"modeled; plain {ok}; tile {g.tile} chunk {g.bz} smem {g.smem_bytes} B",
+              f"modeled, host {host:.4f} ms per call ({it // g.sweeps} launch(es) a "
+              f"group); plain {ok}; tile {g.tile} chunk {g.bz} smem {g.smem_bytes} B",
               flush=True)
         del ins, pars, got
         torch.cuda.empty_cache()

@@ -73,17 +73,23 @@ def _compile(cmd: list[str], src: pathlib.Path, out: pathlib.Path) -> tuple[floa
     return seconds, r.stdout + r.stderr
 
 
-def build(name: str, source: str, *, emulate: bool = False) -> Built:
+def build(name: str, source: str, *, emulate: bool = False,
+          hazard: bool = False) -> Built:
     """Compile `source` (once per content) and load it.
 
     emulate=False: nvcc for sm_90a (the card).  emulate=True: the host C++
-    compiler with -DSODA_HOST_EMULATION (the CPU tests)."""
+    compiler with -DSODA_HOST_EMULATION (the CPU tests); hazard=True adds
+    -DSODA_HAZARD (copies land at issue, a step's stages and a stage's work
+    items in reverse order: `csrc/linebuffer2d.cuh`)."""
     headers = "\0".join(h.read_text() for h in sorted(CSRC.glob("*.cuh")))
-    cmd = (["g++"] + HOST_FLAGS if emulate
+    if hazard and not emulate:
+        raise ValueError("the hazard emulation is host C++ (emulate=True)")
+    cmd = (["g++"] + HOST_FLAGS + (["-DSODA_HAZARD"] if hazard else []) if emulate
            else [nvcc_path()] + NVCC_FLAGS)
     key = hashlib.sha256(
         "\0".join([source, headers, " ".join(cmd[1:])]).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}_{'host' if emulate else 'sm90a'}_{key}.so"
+    kind = ("hazard" if hazard else "host") if emulate else "sm90a"
+    out = BUILD_DIR / f"{name}_{kind}_{key}.so"
     if out in _loaded:
         return _loaded[out]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -24,7 +24,7 @@ import torch
 
 from ..ir.dtypes import torch_dtype
 from ..ir.program import StencilProgram
-from ..plan.planner import NTHREADS, SMEM_PER_SM, GroupPlan
+from ..plan.planner import NTHREADS, GroupPlan, ctas_per_sm
 from . import _build
 from .cuda_codegen import RunGen, column_run, offset_tag, ring_var, run_rows, storage_ctype
 
@@ -58,9 +58,9 @@ def min_blocks(g: GroupPlan, nthreads: int) -> int:
     as shared memory lets share an SM, while each thread keeps at least 64
     registers.  Measured on the H100 against no bound and a bound of 24
     warps an SM (PERF.md, Findings): no slower on any row, and it stops the
-    compiler from taking registers that would leave CTAs idle."""
-    by_smem = SMEM_PER_SM // max(g.smem_bytes + 1024, 1)
-    return max(1, min(by_smem, 65536 // (nthreads * 64)))
+    compiler from taking registers that would leave CTAs idle
+    (`planner.ctas_per_sm`, which the row-march's plans count waves by)."""
+    return ctas_per_sm(g.smem_bytes, nthreads)
 
 
 def entry_points(kernel: str, decl: str, call: str, block: str, grid: str,
@@ -282,8 +282,10 @@ class GroupKernel:
             self._source = self._generate()
         return self._source
 
-    def build(self, emulate: bool = False) -> _build.Built:
-        built = _build.build(self.name, self.source, emulate=emulate)
+    def build(self, emulate: bool = False, hazard: bool = False) -> _build.Built:
+        """Compile (once) for the card, or as host C++ (`emulate`), with
+        the row-march's hazard emulation (`hazard`, `csrc/linebuffer2d.cuh`)."""
+        built = _build.build(self.name, self.source, emulate=emulate, hazard=hazard)
         fn = built.lib.soda_launch
         n_ptr = (len(self.group.external_inputs) + len(self.group.params)
                  + len(self.group.outputs))
@@ -303,6 +305,20 @@ class GroupKernel:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
+
+    def _check_vector_rows(self, values, shape) -> None:
+        """A row-march plan that copies rows 16 bytes at a time (`load`
+        "vector") takes grids whose rows are whole 16-byte chunks, and
+        inputs that start on a 16-byte boundary."""
+        for n in self.group.external_inputs:
+            elem = values[n].element_size()
+            if shape[-1] * elem % 16:
+                raise ValueError(
+                    f"{n}: rows of {shape[-1]} x {elem} B are not whole 16-byte "
+                    f"chunks, which this plan's row copies need; plan this grid")
+            if values[n].data_ptr() % 16:
+                raise ValueError(f"{n}: data does not start on a 16-byte boundary, "
+                                 f"which this plan's row copies need")
 
     def launch(self, entry, values, params, outs, stream: int) -> None:
         """Call the C entry (`build().lib.soda_launch`) on tensors already
@@ -341,6 +357,8 @@ class GroupKernel:
         for n in g.params:
             self._check(n, params[n], torch_dtype(p.params[n].type),
                         p.params[n].shape, device)
+        if g.load == "vector":
+            self._check_vector_rows(values, shape)
         outs = {}
         for n in g.outputs:
             dt = torch_dtype(p.tensors[n].type)

@@ -20,13 +20,21 @@ kernel 2's row-march (`csrc/linebuffer2d.cuh`) rank 2; the generated
 What bounds it on the H100: one call reads every input cell once (plus
 the strip halo and the chunk's warm-up of 2 * nf * radius planes or rows)
 and writes every output cell once for nf sweeps, so device-memory bytes
-per sweep fall by about nf; what is left is the cascade's arithmetic over
-its trapezoid (every copy computes its full ring width and the warm-up),
-which the planner's model (`GroupPlan.modeled_seconds`) weighs when it
-picks nf, and the shared-memory taps and a barrier per copy per step,
-which it does not: the automatic depth is capped per rank where the
-measured depth sweeps ran deeper cascades slower
-(`planner.AUTO_SWEEPS_MAX`).
+per sweep fall by about nf.  What is left is on chip: the cascade's
+arithmetic over its trapezoid (every copy computes its full ring width
+and the warm-up), which the planner's model (`GroupPlan.modeled_seconds`)
+weighs when it picks nf, and each copy's shared-memory taps and their
+address arithmetic per cell, which it does not.  Rank 2 runs the
+row-march, which copies the input rows a step ahead and orders a step's
+copies one of two ways (`GroupPlan.sync`): skewed, copy k one level
+deeper than copy k-1 and a step behind it, so one wait ends a step and no
+barrier separates the copies; or every copy at level 1 with a barrier
+after each.  The skew deepens every ring by a step of RB rows, which in a
+deep cascade leaves room only for narrow tiles (jacobi2d x 8: RB 4, 128
+columns), so the planner takes the barriers where they admit a larger
+tile.  The automatic depth is capped per rank where the measured depth
+sweeps ran deeper cascades slower (`planner.AUTO_SWEEPS_MAX`).  Rank 3
+runs kernel 1's z-march, a barrier per copy per plane.
 
 A cell outside the grid is zero at every sweep, as in the chained
 one-sweep calls, so the fused result equals the oracle and the chained
@@ -63,8 +71,12 @@ NOTE = """\
 // read and the last write never touch device memory.  Bound on the H100:
 // one read of every input and one write of every output per call of {nf}
 // sweeps over 3.35 TB/s, or {nf} sweeps' operations, weighted by type,
-// over 67 TFLOP/s, whichever is larger.  Cells outside the grid are zero
-// at every sweep, as in the chained calls."""
+// over 67 TFLOP/s, whichever is larger; what limits it is each copy's
+// shared-memory taps and their address arithmetic per cell.  In the
+// row-march copy k either lags copy k-1 by one step (one wait a step, no
+// barrier between copies) or follows it behind a barrier (the plan's
+// sync).  Cells outside the grid are zero at every sweep, as in the
+// chained calls."""
 
 
 def kernel_source(program: StencilProgram, g: GroupPlan) -> str:

@@ -2,49 +2,79 @@
 //
 // Replaces the TPU kernel soda_tpu/backend/_linebuffer.py::
 // build_linebuffer2d_group_fn (both its emit_pipeline and mosaic engines):
-// one fused group of a rank-2, single-sweep stencil program over the whole
-// (H, W) grid.  backend/linebuffer2d.py generates one kernel per (program,
-// group, plan) from the IR; this header holds the march's row loader, and
+// one fused group of a rank-2 stencil program over the whole (H, W) grid,
+// and (backend/sweeps.py) the cascade of fused iterate sweeps.
+// backend/linebuffer2d.py generates one kernel per (program, group, plan)
+// from the IR; this header holds the march's row copies and its wait, and
 // soda_common.cuh the C semantics, math overloads and `soda_half`.
 //
 // What computes what.  The TPU kernel walks row blocks in order on one
 // core and carries the last rows of every input from one grid step to the
-// next, with a look-ahead of the next block's first rows.  CUDA blocks run
-// in parallel and in no order, so nothing carries between them: a CTA
-// owns a strip of TX columns and a chunk of BY rows, and marches the rows
-// of its chunk RB at a time, with its own warm-up of ceil(span / RB) steps.
-// Every tensor the group taps at a row offset (inputs and intermediate
-// stages) has a ring of rows in shared memory, each row TX + x halo wide;
-// the ring's depth is a power of two of at least (row span + RB), so a
-// row's slot is (row - base) & (depth - 1) and a step's new rows never
-// overwrite a row that the step still reads.
+// next.  CUDA blocks run in parallel and in no order, so a CTA owns a
+// strip of TX columns and a chunk of BY rows and marches its rows RB at a
+// time, with its own warm-up.  Every tensor the group taps at a row offset
+// (inputs and intermediate stages) has a ring of rows in shared memory; a
+// row's slot is (row - base) & (depth - 1).
 //
-// What bounds it on the H100: device-memory bytes.  blur does about a
-// dozen integer operations for every 4 bytes (a uint16 read and a uint16
-// write per cell) against 3.35 TB/s.  Every input cell is read from device
-// memory once per chunk; only the x halo of each strip is read twice, by
-// the neighbouring strip, and the warm-up rows once more per chunk.  No
-// host padding and no rim pass: loads outside the grid fill zeros, and an
-// intermediate stage's value outside the grid is stored as zero -- the
-// oracle's zero-fill semantics on the whole grid, for every grid shape.
+// What bounds it on the H100.  At the 16384^2 grids, device-memory bytes:
+// one read of every input and one write of every output per call over
+// 3.35 TB/s.  At the main path's 16 MiB grids, which stay in the 50 MB L2
+// between calls, latency.  A march that loads each step's rows
+// synchronously waits one full memory latency per step, then meets a
+// CTA-wide barrier after every stage (nine a step for jacobi2d x 8).  Past
+// both, the shared-memory taps and their address arithmetic per cell
+// (scripts/torch_sass_mix.py counts them).  So:
 //
-// A simple kernel first: plain loads (no cp.async, no TMA) and a barrier
-// after each phase of a step.  The loader issues all of a thread's loads
-// of a step before it stores any, so that several loads are in flight per
-// thread (2-byte elements move little per load).  The generated stages
-// compute in column runs: a thread takes a column and several rows of
-// the step, loads each tap of the run from the ring into a register once
-// and computes the rows with 32-bit index arithmetic, which cuts the
-// shared-memory loads and index instructions per cell that bound the
-// march (backend/linebuffer2d.py).  The same march runs the cascades of
-// fused iterate sweeps (backend/sweeps.py), one ring per sweep copy.
+// - One wait per step (`sync` "skew").  A stage at level L (1 + the
+//   deepest level it reads in the group, inputs level 0) computes the
+//   rows of step s - (L - 1) during step s, so no stage reads a row
+//   written in the same step -- SODA's dataflow of one processing element
+//   per stage with buffers between them, skewed by whole steps.  The
+//   stages of a step run one after another in each thread with no barrier
+//   between them; the one wait (cp.async.wait_all, then __syncthreads)
+//   ends the step.  The skew costs deeper rings (the planner sizes each
+//   ring for its consumers' lag in steps) and DRAIN = deepest level - 1
+//   more steps a chunk, in which only the lagging stages compute: the
+//   work is the same.  In a deep cascade the deeper rings leave room only
+//   for narrow tiles, so the planner may instead put every stage at level
+//   1 with a barrier after each (`sync` "barrier"): shallower rings, wider
+//   tiles or more CTAs an SM, the same one wait for the row copies.
+// - Row copies one step ahead.  The input rows of step s + 1 are copied
+//   while step s computes.  Where the grid's width is a whole number of
+//   16-byte chunks (`load` "vector"), a ring row is widened to whole
+//   chunks and copied with cp.async.cg 16 bytes at a time, the source size
+//   0 outside the grid (the copy fills zeros).  TMA was not taken: a ring
+//   row (TX + halo = 258 columns at TX 256) exceeds one box's 256 elements
+//   per dimension, and a step copies only RB short rows, which one
+//   cp.async per thread covers.  Otherwise ("scalar", e.g. 37 x 45) each
+//   thread loads its elements of the rows into registers at the start of
+//   the step and stores them to the ring after the stages, before the
+//   wait.
+// - 32-bit integer carriers where a range analysis proves them exact
+//   (backend/cuda_codegen.py::int32_exact): blur's divisions by 3 are
+//   32-bit divisions.
+//
+// Every stage keeps the oracle's zero-fill semantics: an input read
+// outside the grid is zero, and so is an intermediate stage's value there,
+// so the kernel equals interp/numpy_ref.py on the whole grid.
 //
 // Built with -DSODA_HOST_EMULATION the same source compiles as host C++
-// (soda_common.cuh), which is how the CPU tests check the march.
+// (soda_common.cuh), one thread per CTA, which is how the CPU tests check
+// the march.  A row copy then lands at the step's wait, the latest it can
+// on the card, so a read before the wait sees stale rows; with
+// -DSODA_HAZARD too it lands at issue, the earliest, and the work items of
+// a stage run in reverse order, and so do the stages of a step where no
+// barrier orders them ("skew"), so a copy or a stage that overwrites a row
+// still read in the step shows as a wrong result.
 
 #pragma once
 
 #include "soda_common.cuh"
+
+#ifdef SODA_HOST_EMULATION
+#include <cstring>
+#include <vector>
+#endif
 
 // Ring slot of row p in a ring of `depth` rows (a power of two) whose
 // first row is `base`; the march never asks for a row below base.
@@ -52,31 +82,124 @@ SODA_HD int soda_row(int64_t p, int64_t base, int depth) {
   return (int)((p - base) & (int64_t)(depth - 1));
 }
 
-// Load rows [p0, p0 + NROWS) of columns [xs, xs + COLS) of the (d0, d1)
-// grid `src` into the ring, skipping rows below `base` (the chunk's
-// warm-up needs none of them), with zero outside the grid.  Thread `tid`
-// of NT takes every NT-th element: all its loads are issued into
-// registers before the first store to shared memory, so each thread keeps
-// (NROWS * COLS / NT) loads in flight instead of one.  Index arithmetic is
-// 64-bit.
+#ifdef SODA_HOST_EMULATION
+// Copies issued and not yet landed (one CTA at a time runs on the host).
+struct soda_copy {
+  unsigned char* dst;
+  const unsigned char* src;  // nullptr: zero fill
+  int bytes;
+};
+inline std::vector<soda_copy>& soda_pending() {
+  static std::vector<soda_copy> q;
+  return q;
+}
+inline void soda_land(const soda_copy& c) {
+  if (c.src) std::memcpy(c.dst, c.src, c.bytes);
+  else std::memset(c.dst, 0, c.bytes);
+}
+inline void soda_issue(void* dst, const void* src, int bytes) {
+  const soda_copy c{static_cast<unsigned char*>(dst),
+                    static_cast<const unsigned char*>(src), bytes};
+#ifdef SODA_HAZARD
+  soda_land(c);
+#else
+  soda_pending().push_back(c);
+#endif
+}
+#endif
+
+// A CTA's march starts with no copy in flight.
+SODA_BODY void soda_cta_begin() {
+#ifdef SODA_HOST_EMULATION
+  soda_pending().clear();
+#endif
+}
+
+// The step's one wait: every copy this thread issued has landed, then the
+// CTA's barrier makes every thread's copies and ring stores visible.
+SODA_BODY void soda_step_wait() {
+#ifdef SODA_HOST_EMULATION
+  for (const soda_copy& c : soda_pending()) soda_land(c);
+  soda_pending().clear();
+#else
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+#endif
+}
+
+// Vector path: rows [p0, p0 + NROWS) of columns [xs, xs + COLS) of the
+// (d0, d1) grid `src` into the ring, 16 bytes (V elements) per cp.async,
+// skipping rows below `base`.  xs and d1 are multiples of V, so a chunk
+// lies wholly inside or wholly outside the grid; outside, the source size
+// is 0 and the copy fills zeros.
 template <int NROWS, int COLS, int NT, typename T>
-SODA_HD void soda_load_rows(T* __restrict__ ring, const T* __restrict__ src,
-                            int64_t p0, int64_t base, int depth, int64_t xs,
-                            int64_t d0, int64_t d1, int tid) {
-  constexpr int TOTAL = NROWS * COLS, PER = (TOTAL + NT - 1) / NT;
-  T v[PER];
+SODA_BODY void soda_fetch_rows_v(T* __restrict__ ring, const T* __restrict__ src,
+                                 int64_t p0, int64_t base, int depth, int64_t xs,
+                                 int64_t d0, int64_t d1, int tid) {
+  constexpr int V = 16 / (int)sizeof(T), CH = COLS / V;
+  static_assert(COLS % V == 0, "a vector-copied ring row is whole 16-byte chunks");
+  for (int i = tid; i < NROWS * CH; i += NT) {
+    const int64_t p = p0 + i / CH, gx = xs + (int64_t)(i % CH) * V;
+    if (p < base) continue;
+    const bool in = p >= 0 && p < d0 && gx >= 0 && gx < d1;
+    T* dst = ring + soda_row(p, base, depth) * COLS + (i % CH) * V;
+    const T* s = in ? src + p * d1 + gx : src;
+#ifdef SODA_HOST_EMULATION
+    soda_issue(dst, in ? s : nullptr, 16);
+#else
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(s), "r"(in ? 16 : 0) : "memory");
+#endif
+  }
+#ifndef SODA_HOST_EMULATION
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Elements of a scalar row copy each thread holds in registers.
+template <int NROWS, int COLS, int NT>
+SODA_HD constexpr int soda_per() { return (NROWS * COLS + NT - 1) / NT; }
+
+// Scalar path, first half: thread `tid` of NT loads its elements of rows
+// [p0, p0 + NROWS) x [xs, xs + COLS) into `v` (zero outside the grid), all
+// before the first use, so that they are in flight while the step
+// computes.  Under host emulation the copy is issued instead.
+template <int NROWS, int COLS, int NT, typename T>
+SODA_BODY void soda_fetch_rows_s(T (&v)[soda_per<NROWS, COLS, NT>()], T* __restrict__ ring,
+                                 const T* __restrict__ src, int64_t p0, int64_t base,
+                                 int depth, int64_t xs, int64_t d0, int64_t d1, int tid) {
+  constexpr int TOTAL = NROWS * COLS, PER = soda_per<NROWS, COLS, NT>();
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
     const int i = tid + k * NT;
     const int64_t p = p0 + i / COLS, gx = xs + i % COLS;
-    v[k] = T(0);
-    if (i < TOTAL && p >= base && p >= 0 && p < d0 && gx >= 0 && gx < d1)
-      v[k] = src[p * d1 + gx];
+    const bool in = i < TOTAL && p >= 0 && p < d0 && gx >= 0 && gx < d1;
+#ifdef SODA_HOST_EMULATION
+    if (i < TOTAL && p >= base)
+      soda_issue(ring + soda_row(p, base, depth) * COLS + i % COLS,
+                 in ? src + p * d1 + gx : nullptr, (int)sizeof(T));
+#else
+    (void)ring; (void)base; (void)depth;
+    v[k] = in ? src[p * d1 + gx] : T(0);
+#endif
   }
+}
+
+// Scalar path, second half: the registers into the ring, after the step's
+// stages and before its wait.
+template <int NROWS, int COLS, int NT, typename T>
+SODA_BODY void soda_store_rows_s(T* __restrict__ ring, const T (&v)[soda_per<NROWS, COLS, NT>()],
+                                 int64_t p0, int64_t base, int depth, int tid) {
+#ifndef SODA_HOST_EMULATION
+  constexpr int TOTAL = NROWS * COLS, PER = soda_per<NROWS, COLS, NT>();
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
     const int i = tid + k * NT;
     const int64_t p = p0 + i / COLS;
     if (i < TOTAL && p >= base) ring[soda_row(p, base, depth) * COLS + i % COLS] = v[k];
   }
+#else
+  (void)ring; (void)v; (void)p0; (void)base; (void)depth; (void)tid;
+#endif
 }

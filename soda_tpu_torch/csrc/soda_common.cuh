@@ -42,6 +42,15 @@ SODA_HD int64_t mask_int(int64_t v, int width, bool is_signed) {
   }
   return int64_t(u);
 }
+// mask_int on a 32-bit carrier (a stage whose every integer node the range
+// analysis, backend/cuda_codegen.py::int32_exact, proves to lie in int32):
+// the same value as mask_int of the same value carried in 64 bits.
+SODA_HD int32_t mask_int32(int32_t v, int width, bool is_signed) {
+  if (width >= 32) return v;
+  const uint32_t m = (uint32_t(1) << width) - 1, u = uint32_t(v) & m;
+  if (is_signed && ((u >> (width - 1)) & 1u)) return int32_t(u | ~m);
+  return int32_t(u);
+}
 template <typename T> SODA_HD T c_div(T a, T b) { return a / b; }  // C trunc
 template <typename T> SODA_HD T c_mod(T a, T b) { return a % b; }
 template <typename T> SODA_HD T c_abs(T a) { return a < 0 ? T(-a) : a; }
@@ -79,6 +88,7 @@ namespace dm {
 template <typename T> SODA_HD T min(T a, T b) { return (b < a) ? b : a; }
 template <typename T> SODA_HD T max(T a, T b) { return (a < b) ? b : a; }
 SODA_HD int64_t abs(int64_t a) { return c_abs(a); }
+SODA_HD int32_t abs(int32_t a) { return c_abs(a); }
 SODA_HD float abs(float a) { return ::fabsf(a); }
 SODA_HD double abs(double a) { return ::fabs(a); }
 #define SODA_MATH1(fn)                                  \

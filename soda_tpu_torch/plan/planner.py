@@ -16,14 +16,28 @@ from its lag (below):
   tile and its y/x halo;
 - rank 2, kernel 2 (`csrc/linebuffer2d.cuh`): a CTA owns a strip of TX
   columns of the contiguous last axis and a chunk of BY rows, and
-  marches the rows RB at a time; a ring holds a power of two of at least
-  (lag + RB) rows, each TX + x halo wide.  `tile` is (RB, TX) and `bz`
-  is BY.
+  marches the rows RB at a time: the input rows of step s + 1 are copied
+  while step s computes.  With `sync` "skew" a stage at level L (1 + the
+  deepest level it reads in the group; inputs are level 0) computes the
+  rows of step s - (L - 1), so no stage reads a row written in the same
+  step and a step needs one wait; with "barrier" every stage is at level
+  1 and a barrier follows each stage.  A ring holds a power of two of at
+  least lag + (w + L_c) * RB rows for each consumer c, where w is 1 for
+  an input (copied a step ahead) and 1 - L for a stage: the skew deepens
+  the rings of a deep cascade, the barriers leave room for wider tiles,
+  and the planner tries both.  On the H100 a barrier per stage cost less
+  than the narrower tile the skew forced at nf 4 and 8 on 8192^2 and
+  16384^2 grids; at an equal tile the skew ran blur 16384^2 2.5% faster
+  (0.4169 against 0.4275 ms) and blur 2048 x 4096 no slower (PERF.md).
+  `_plan_group(..., sync=)` pins one order for tests and scripts.  Each row
+  is TX + x halo wide, an input row widened to whole 16-byte chunks when
+  the grid's width allows 16-byte copies (`load` "vector", else
+  "scalar").  `tile` is (RB, TX) and `bz` is BY.
 
 A ring's lag is how far its leading plane (its span's hi along the
-marched axis) runs ahead of the lowest plane any consumer in the group
-reads at the same step: min over consumers c of (c's span hi + c's lowest
-offset on it).  The ring keeps exactly the planes still read.
+marched axis) runs ahead of the lowest plane a consumer in the group
+reads at the same step: c's span hi + c's lowest offset on it.  A rank-3
+ring keeps exactly the planes still read (the largest lag + 1).
 
 Fused sweeps (TPU kernel 3, `backend/sweeps.py`): an `iterate` program
 with fused depth nf is planned as the group of `unroll_iterate(program,
@@ -52,7 +66,12 @@ memory), unless the grid exceeds the launch limits.
 
 Shared memory per CTA is at most 227 KB on the H100; the planner keeps
 under `smem_budget` so that several CTAs share an SM, and prefers plans
-with at least two CTAs per SM.
+with at least two CTAs per SM.  A rank-2 plan also counts waves: the
+CTAs one SM runs at once (`ctas_per_sm`, from shared memory, threads and
+64 registers a thread) make `waves` = CTAs / (that x 132 SMs), and its
+modeled time is multiplied by ceil(waves) / waves, the share of the last
+wave's slots left idle; beside the power-of-two chunks it tries the
+chunks that fill whole waves.
 
 `hbm_bytes_per_call` counts every byte the kernel moves: each input cell
 a CTA loads, with its tile halo across the marched axis (re-read by the
@@ -69,6 +88,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import math
 
 from ..ir import expr as ir
@@ -88,16 +108,34 @@ MAX_GRID_YZ = 65_535                # CUDA limit on gridDim.y and gridDim.z
 H100_SXM_PEAK_GBPS = 3350.0         # published HBM3 bandwidth at 700 W
 TILE_CANDIDATES = ((32, 64), (16, 64), (32, 32), (16, 32), (8, 32))  # (TY, TX)
 BZ_CANDIDATES = (256, 128, 64, 32, 16, 8)
-ROW_TILE_CANDIDATES = ((8, 256), (4, 256), (8, 128), (4, 128), (2, 128),
-                       (1, 128), (1, 64), (1, 32))                   # (RB, TX)
+# (RB, TX): a step's RB rows are one column run a thread where the taps fit
+# its registers, and longer runs load fewer taps a cell (blur 16384^2:
+# RB 16 0.6056 ms, RB 8 0.6486, RB 4 0.7932 on the H100, PERF.md)
+ROW_TILE_CANDIDATES = ((16, 256), (16, 128), (8, 256), (4, 256), (8, 128),
+                       (4, 128), (2, 128), (1, 128), (1, 64), (1, 32))
 BY_CANDIDATES = (2048, 1024, 512, 256, 128, 64, 32, 16, 8)
 # chunks longer than 64 planes / 512 rows only where the warm-up asks for
 # them (a fused cascade): at most one warm-up per CHUNK_PER_WARM planes
 CHUNK_BASE_MAX = {3: 64, 2: 512}
 CHUNK_PER_WARM = 16
+# the row-march's modeled time counts bytes and operations, not the
+# instructions that bound it on the card, so it is no finer than this:
+# among the plans within it of the least, the planner prefers runs of at
+# least ROW_RUN_MIN rows (fewer tap loads a cell), then SMs that hold
+# ROW_WARPS_MIN warps, then the larger tile and chunk (on the H100 the
+# cascades ran fastest at 18-27 warps an SM and up to 31% slower at 10-15,
+# scripts/torch_row_shapes.py, PERF.md)
+MODEL_SLACK = 0.10
+ROW_RUN_MIN = 4
+ROW_WARPS_MIN = 16
+# the row-march's threads per CTA: a multiple of its widest stage row of
+# at least this many, so that a step's runs of a stage take one pass
+ROW_THREADS_MIN = 128
 # the deepest depth `sweeps=None` picks, per rank: deeper cascades ran
-# slower on the H100 than the model predicts (PERF.md, the depth sweeps);
-# a rank without an entry (rank 1: no march) runs one sweep per call
+# slower on the H100 than the model predicts (PERF.md, the depth sweeps:
+# rank 2's fastest depths were 8 for jacobi2d and 5 for jacobi2d_i64, and
+# nf 10 and 20 ran slower); a rank without an entry (rank 1: no march)
+# runs one sweep per call
 AUTO_SWEEPS_MAX = {2: 8, 3: 2}
 
 KERNELS = {3: "linebuffer3d", 2: "linebuffer2d"}
@@ -127,8 +165,9 @@ class Ring:
     elem_bytes: int
     depth: int              # slots kept
     rows: int               # TY + y halo (rank 3); 1 (rank 2)
-    cols: int               # TX + x halo
+    cols: int               # TX + x halo (rank 2: whole 16-byte chunks when copied so)
     offset: int             # byte offset in the CTA's shared memory
+    col0: int = 0           # rank 2: its first column relative to the strip
 
     @property
     def nbytes(self) -> int:
@@ -178,13 +217,40 @@ class GroupPlan:
     block: tuple[int, ...] = ()
     windows: list[Window] = dataclasses.field(default_factory=list)
     direct: list[str] = dataclasses.field(default_factory=list)
+    # the row-march (rank 2): threads per CTA, how input rows are copied
+    # ("vector": 16-byte cp.async; "scalar": element loads through
+    # registers), how the stages of a step are ordered ("skew": each at
+    # its level, lagging level - 1 steps, one wait a step; "barrier": all
+    # at level 1, a barrier after each stage), each member's level, and
+    # CTAs per SM (0: the wave count is not modeled)
+    threads: int = NTHREADS
+    load: str = ""
+    sync: str = ""
+    levels: dict[str, int] = dataclasses.field(default_factory=dict)
+    slots_per_sm: int = 0
+
+    @property
+    def warps_per_sm(self) -> int:
+        """The warps an SM runs at once (0: not modeled)."""
+        return self.slots_per_sm * -(-self.threads // 32)
+
+    @property
+    def waves(self) -> float:
+        """CTAs over the CTAs the card runs at once (0: not modeled)."""
+        if not self.slots_per_sm:
+            return 0.0
+        return math.prod(self.grid) / (self.slots_per_sm * NUM_SMS)
 
     @property
     def modeled_seconds(self) -> float:
         """Modeled time of one call on the H100: the larger of its planned
-        bytes over 3.35 TB/s and its computed operations over 67 TFLOP/s."""
-        return max(self.hbm_bytes_per_call / (H100_SXM_PEAK_GBPS * 1e9),
-                   self.cell_ops_per_call / (H100_SXM_PEAK_TFLOPS * 1e12))
+        bytes over 3.35 TB/s and its computed operations over 67 TFLOP/s;
+        for the row-march, times ceil(waves) / waves (the last wave's idle
+        slots)."""
+        t = max(self.hbm_bytes_per_call / (H100_SXM_PEAK_GBPS * 1e9),
+                self.cell_ops_per_call / (H100_SXM_PEAK_TFLOPS * 1e12))
+        w = self.waves
+        return t * math.ceil(w) / w if w else t
 
     def describe(self) -> str:
         traffic = self.hbm_bytes_per_call / max(self.useful_cells_per_call, 1)
@@ -192,9 +258,12 @@ class GroupPlan:
             shape = (f"block={self.block}, windowed="
                      f"{[w.name for w in self.windows if w.name in self.external_inputs]}, "
                      f"direct={self.direct}")
+        elif self.kernel == "linebuffer3d":
+            shape = f"tile={self.tile}, bz={self.bz}"
         else:
-            chunk = "bz" if self.kernel == "linebuffer3d" else "by"
-            shape = f"tile={self.tile}, {chunk}={self.bz}"
+            shape = (f"tile={self.tile}, by={self.bz}, load={self.load}, "
+                     f"sync={self.sync}, threads={self.threads}, "
+                     f"ctas/SM={self.slots_per_sm}, waves={self.waves:.2f}")
         return (
             f"group(stages={self.stages}, {self.kernel}, sweeps={self.sweeps}, "
             f"{shape}, grid={self.grid}, smem={self.smem_bytes / 1024:.1f}KiB, "
@@ -266,49 +335,70 @@ def _pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def _shapes(rank: int, grid_shape, tile, bz, warm: int):
-    """(tile, chunk, CUDA grid) candidates of one kernel on one grid."""
-    longest = max(CHUNK_BASE_MAX[rank], CHUNK_PER_WARM * warm)
-    if rank == 3:
-        Z, Y, X = grid_shape
-        for ty, tx in [tile] if tile else TILE_CANDIDATES:
-            for bz_ in [bz] if bz else [c for c in BZ_CANDIDATES if c <= longest]:
-                yield (ty, tx), bz_, (-(-X // tx), -(-Y // ty), -(-Z // bz_))
-    else:
-        H, W = grid_shape
-        for rb, tx in [tile] if tile else ROW_TILE_CANDIDATES:
-            for by in [bz] if bz else [c for c in BY_CANDIDATES if c <= longest]:
-                if by % rb == 0:
-                    yield (rb, tx), by, (-(-W // tx), -(-H // by), 1)
+def ctas_per_sm(smem_bytes: int, threads: int) -> int:
+    """CTAs one SM runs at once: its shared memory (with the 1 KiB the
+    runtime reserves a CTA), 2048 threads, and 64 registers a thread (the
+    kernels' `__launch_bounds__`, `linebuffer.min_blocks`)."""
+    return max(1, min(SMEM_PER_SM // (smem_bytes + 1024), 2048 // threads,
+                      65536 // (threads * 64), 32))
 
 
-def _ring(rank: int, n: str, span: Span, lag: int, elem: int, tile, off: int) -> Ring:
-    if rank == 3:
-        (_, _), (ylo, yhi), (xlo, xhi) = span
-        ty, tx = tile
-        return Ring(n, span, elem, lag + 1, ty + yhi - ylo, tx + xhi - xlo, off)
-    (_, _), (xlo, xhi) = span
-    rb, tx = tile
-    return Ring(n, span, elem, _pow2(lag + rb), 1, tx + xhi - xlo, off)
+def _shapes3(grid_shape, tile, bz, warm: int):
+    """(tile, chunk, CUDA grid) candidates of kernel 1 on one grid."""
+    longest = max(CHUNK_BASE_MAX[3], CHUNK_PER_WARM * warm)
+    Z, Y, X = grid_shape
+    for ty, tx in [tile] if tile else TILE_CANDIDATES:
+        for bz_ in [bz] if bz else [c for c in BZ_CANDIDATES if c <= longest]:
+            yield (ty, tx), bz_, (-(-X // tx), -(-Y // ty), -(-Z // bz_))
 
 
-def _lags(program: StencilProgram, members: list[str], spans: dict[str, Span]
-          ) -> dict[str, int]:
-    """Per tensor read in the group: its span hi along the marched axis
-    minus the lowest plane (relative to the step) any consumer reads."""
-    lowest: dict[str, int] = {}
+def _row_chunks(grid_shape, rb: int, tx: int, bz, warm: int, slots: int) -> list[int]:
+    """Chunk lengths BY (multiples of RB) to try for kernel 2's tile (RB,
+    TX): the powers of two (rounded down to a multiple of RB), and the
+    lengths whose CTAs fill 1 to 4 whole waves of `slots` CTAs an SM."""
+    if bz:
+        return [bz] if bz % rb == 0 else []
+    H, W = grid_shape
+    longest = max(CHUNK_BASE_MAX[2], CHUNK_PER_WARM * warm)
+    out = {c // rb * rb for c in BY_CANDIDATES if c >= rb}
+    strips = -(-W // tx)
+    for k in (1, 2, 3, 4):
+        chunks = max(1, k * slots * NUM_SMS // strips)
+        out.add(rb * -(-H // (rb * chunks)))
+    return sorted((c for c in out if BY_CANDIDATES[-1] <= c <= longest), reverse=True)
+
+
+def _consumer_lags(program: StencilProgram, members: list[str],
+                   spans: dict[str, Span]) -> list[tuple[str, str, int]]:
+    """(tensor q, consumer c, lag) for every tensor a member c reads: q's
+    span hi along the marched axis minus the lowest plane (relative to the
+    step) c reads of it."""
+    out = []
     for c in members:
         hi_c = spans[c][0][1]
         for q, offs in program.tensors[c].window().items():
-            low = hi_c + min(o[0] for o in offs)
-            lowest[q] = min(lowest.get(q, low), low)
-    return {q: spans[q][0][1] - low for q, low in lowest.items()}
+            out.append((q, c, spans[q][0][1] - (hi_c + min(o[0] for o in offs))))
+    return out
+
+
+def _levels(program: StencilProgram, members: list[str]) -> dict[str, int]:
+    """Each member's level (topological order): 1 + the deepest level of
+    the members it reads; the group's inputs are level 0."""
+    lv: dict[str, int] = {}
+    for m in members:
+        lv[m] = 1 + max((lv[q] for q in program.tensors[m].parents() if q in lv),
+                        default=0)
+    return lv
 
 
 def _plan_group(program: StencilProgram, members: list[str],
                 grid_shape: tuple[int, ...], smem_budget: int,
                 tile: tuple[int, int] | None = None,
-                bz: int | None = None, sweeps: int = 1) -> GroupPlan | None:
+                bz: int | None = None, sweeps: int = 1,
+                sync: str | None = None) -> GroupPlan | None:
+    """The line buffer's plan of `members`, or None when no tile fits the
+    budget; `sync` ("skew" or "barrier") keeps one order of a rank-2
+    step's stages (a group of one level has only "skew")."""
     rank = program.rank
     ext_inputs, outputs = _group_io(program, members)
     spans = group_spans(program, members, outputs)
@@ -317,49 +407,124 @@ def _plan_group(program: StencilProgram, members: list[str],
     ext_inputs = [i for i in ext_inputs if i in spans]
     consumed = {p for m in members for p in program.tensors[m].parents()}
     ring_names = ext_inputs + [m for m in members if m in consumed]
-    lags = _lags(program, members, spans)
+    pairs = _consumer_lags(program, members, spans)
     warm = max((spans[n][0][1] - spans[n][0][0] for n in ring_names), default=0)
     cells = math.prod(grid_shape)
     writes = cells * sum(_elem_bytes(program, o) for o in outputs)
     useful = cells * sweeps * max(len(outputs), 1)
     ops = {m: typed_ops(program, program.tensors[m].expr) for m in members}
+    budget = min(smem_budget, SMEM_PER_BLOCK_MAX)
+    common = dict(stages=members, external_inputs=ext_inputs, outputs=outputs,
+                  spans=spans, params=_group_params(program, members), warm=warm,
+                  useful_cells_per_call=useful, sweeps=sweeps, kernel=KERNELS[rank])
+
+    def covered(n: str, extents, x_cols=None) -> int:
+        """Cells of `n` the CTAs load or compute, over its span around
+        each tile (`x_cols`: a ring's own columns (lo, hi) along x)."""
+        lims = list(spans[n])
+        if x_cols:
+            lims[-1] = x_cols
+        return math.prod(_covered(grid_shape[d], extents[d], lo, hi)
+                         for d, (lo, hi) in enumerate(lims))
+
+    def consider(best, gp: GroupPlan, area: int):
+        # too few CTAs to fill the card counts first, then the modeled
+        # time; equal time prefers the larger tile and chunk
+        key = (math.prod(gp.grid) < 2 * NUM_SMS, gp.modeled_seconds, -area, -gp.bz)
+        return (key, gp) if best is None or key < best[0] else best
 
     best = None
-    for tl, chunk, grid in _shapes(rank, grid_shape, tile, bz, warm):
-        rings, off = [], 0
+    if rank == 2:
+        cands = []
+        H, W = grid_shape
+        levels = _levels(program, members)
+        # the outputs no stage reads are computed together, at the deepest
+        # of their levels
+        direct = [o for o in outputs if o not in ring_names]
+        for o in direct:
+            levels[o] = max(levels[d] for d in direct)
+        vector = all(W % (16 // _elem_bytes(program, n)) == 0 for n in ext_inputs)
+        # "skew": one wait a step, each stage a step behind the stages it
+        # reads; "barrier": every stage at level 1, a barrier after each
+        # (shallower rings: room for wider tiles)
+        modes = {"skew": levels}
+        if max(levels.values()) > 1:
+            modes["barrier"] = dict.fromkeys(levels, 1)
+        if sync in modes:
+            modes = {sync: modes[sync]}
+        for (rb, tx), (order, lv) in itertools.product(
+                [tile] if tile else ROW_TILE_CANDIDATES, modes.items()):
+            rings, off = [], 0
+            for n in ring_names:
+                elem = _elem_bytes(program, n)
+                w = 1 if n in ext_inputs else 1 - lv[n]
+                depth = _pow2(max(lag + (w + lv[c]) * rb
+                                  for q, c, lag in pairs if q == n))
+                (_, _), (xlo, xhi) = spans[n]
+                v = 16 // elem if vector and n in ext_inputs else 1
+                col0 = xlo // v * v
+                cols = -(-(tx + xhi - col0) // v) * v
+                rings.append(Ring(n, spans[n], elem, depth, 1, cols, off, col0))
+                off += -(-rings[-1].nbytes // 16) * 16
+            if off > budget:
+                continue
+            widest = max([r.cols for r in rings if r.name in members] + [tx])
+            widest = -(-widest // 32) * 32
+            nt = min(1024, widest * -(-ROW_THREADS_MIN // widest))
+            slots = ctas_per_sm(off, nt)
+            for chunk in _row_chunks(grid_shape, rb, tx, bz, warm, slots):
+                grid = (-(-W // tx), -(-H // chunk), 1)
+                if grid[1] > MAX_GRID_YZ:
+                    continue
+                extents = (chunk, tx)
+                reads = sum(r.elem_bytes * covered(
+                    r.name, extents, (r.col0, r.col0 + r.cols - tx))
+                    for r in rings if r.name in ext_inputs)
+                cell_ops = sum(ops[m] * covered(m, extents) for m in members)
+                gp = GroupPlan(tile=(rb, tx), bz=chunk, grid=grid, rings=rings,
+                               smem_bytes=off, hbm_bytes_per_call=reads + writes,
+                               cell_ops_per_call=cell_ops, threads=nt,
+                               load="vector" if vector else "scalar",
+                               levels=lv, sync=order, slots_per_sm=slots, **common)
+                cands.append(gp)
+        # fill the card first; then, among the plans within MODEL_SLACK of
+        # the least modeled time, those whose SMs hold ROW_WARPS_MIN warps
+        # (if any), the larger tile (fewer steps, and waits,
+        # per row), the longer chunk, and one wait a step over a barrier
+        # per stage (2.5% on blur 16384^2 at an equal tile, PERF.md)
+        fill = [c for c in cands if math.prod(c.grid) >= 2 * NUM_SMS] or cands
+        if not fill:
+            return None
+        least = min(c.modeled_seconds for c in fill)
+        near = [c for c in fill if c.modeled_seconds <= least * (1 + MODEL_SLACK)]
+        return max(near, key=lambda c: (
+            c.tile[0] >= ROW_RUN_MIN, c.warps_per_sm >= ROW_WARPS_MIN,
+            c.tile[0] * c.tile[1], c.bz, c.sync == "skew", -c.modeled_seconds))
+
+    lags: dict[str, int] = {}
+    for q, _, lag in pairs:
+        lags[q] = max(lags.get(q, lag), lag)
+    for tl, chunk, grid in _shapes3(grid_shape, tile, bz, warm):
+        (ty, tx), rings, off = tl, [], 0
         for n in ring_names:
-            r = _ring(rank, n, spans[n], lags[n], _elem_bytes(program, n), tl, off)
-            rings.append(r)
-            off += -(-r.nbytes // 16) * 16
-        if off > min(smem_budget, SMEM_PER_BLOCK_MAX):
+            (_, _), (ylo, yhi), (xlo, xhi) = spans[n]
+            rings.append(Ring(n, spans[n], _elem_bytes(program, n), lags[n] + 1,
+                              ty + yhi - ylo, tx + xhi - xlo, off))
+            off += -(-rings[-1].nbytes // 16) * 16
+        if off > budget:
             continue
         if grid[1] > MAX_GRID_YZ or grid[2] > MAX_GRID_YZ:
             continue
         # tile extent per dim: the marched axis in chunks, the others in tiles
-        extents = (chunk,) + tuple(tl) if rank == 3 else (chunk, tl[1])
-
-        def covered(n: str) -> int:
-            return math.prod(_covered(grid_shape[d], extents[d], lo, hi)
-                             for d, (lo, hi) in enumerate(spans[n]))
-
-        reads = sum(_elem_bytes(program, n) * covered(n) for n in ext_inputs)
+        extents = (chunk,) + tuple(tl)
+        reads = sum(_elem_bytes(program, n) * covered(n, extents) for n in ext_inputs)
         # every stage over its ring width and warm-up (an output no stage
         # reads has span 0: exactly the grid)
-        cell_ops = sum(ops[m] * covered(m) for m in members)
-        gp = GroupPlan(
-            stages=members, external_inputs=ext_inputs,
-            outputs=outputs, spans=spans,
-            params=_group_params(program, members),
-            tile=tl, bz=chunk, grid=grid, rings=rings, warm=warm,
-            smem_bytes=off, hbm_bytes_per_call=reads + writes,
-            useful_cells_per_call=useful, sweeps=sweeps, kernel=KERNELS[rank],
-            cell_ops_per_call=cell_ops)
-        # too few CTAs to fill the card counts first, then the modeled
-        # time; equal time prefers the larger tile and chunk
-        key = (math.prod(grid) < 2 * NUM_SMS, gp.modeled_seconds,
-               -tl[0] * tl[1], -chunk)
-        if best is None or key < best[0]:
-            best = (key, gp)
+        cell_ops = sum(ops[m] * covered(m, extents) for m in members)
+        gp = GroupPlan(tile=tl, bz=chunk, grid=grid, rings=rings, smem_bytes=off,
+                       hbm_bytes_per_call=reads + writes,
+                       cell_ops_per_call=cell_ops, **common)
+        best = consider(best, gp, ty * tx)
     return None if best is None else best[1]
 
 
@@ -551,7 +716,8 @@ def plan(program: StencilProgram, grid_shape: tuple[int, ...], *,
     DAG is split greedily, in topological order, into kernels chained
     through device memory, each call running one sweep; a stage whose
     rings fit no tile alone runs in the windows kernel.  `tile` and `bz`
-    pin the line buffer's CTA shape instead of searching.  Rank 1 plans to
+    pin the line buffer's CTA shape instead of searching (the row-march's
+    order of a step's stages stays the planner's).  Rank 1 plans to
     the windows kernel; `block` pins the windows kernel with that block
     (one sweep per call), for any rank."""
     rank = program.rank

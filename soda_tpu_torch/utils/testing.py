@@ -7,10 +7,14 @@ originals, so a tolerance cannot drift between the packages); the oracle
 is the port's NumPy reference (`interp/numpy_ref.py`).  Gates
 (docs/SEMANTICS.md): integer outputs bit-exact; `half` programs at 2e-2;
 f32 programs with libm transcendentals at 2e-3; other floats at 1e-4.
+`pinned_plan` pins the row-march's order of a step's stages, which only
+the checks choose; `build_emulated` compiles many kernels' host emulation
+at once.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -65,6 +69,37 @@ def _star3d(radius: int) -> str:
 # fits no tile of the default shared-memory budget, so the planner falls
 # back to the windows kernel
 STAR3D_R8 = _star3d(8)
+
+
+def pinned_plan(p, shape, pin: dict):
+    """`plan(p, shape, **pin)`, where a pin's "sync" ("skew" or "barrier")
+    re-plans the plan's one group with a step's stages in that order at
+    the same tile and chunk: `plan()` leaves the order to the planner, and
+    the checks reach the other one through the planner's `_plan_group`."""
+    from ..plan import planner
+
+    kw = {k: v for k, v in pin.items() if k != "sync"}
+    pl = planner.plan(p, shape, **kw)
+    if "sync" not in pin:
+        return pl
+    (g,) = pl.groups
+    prog = planner.cascade(p, g.sweeps)
+    return dataclasses.replace(pl, groups=[planner._plan_group(
+        prog, prog.stage_order(), tuple(shape),
+        kw.get("smem_budget", planner.SMEM_BUDGET), g.tile, g.bz,
+        sweeps=g.sweeps, sync=pin["sync"])])
+
+
+def build_emulated(kernels, *, hazard: bool = False, workers: int = 4) -> None:
+    """Compile the host emulation of each distinct source among `kernels`
+    (`GroupKernel`s) in `workers` threads, each running its own compiler;
+    a later `k.build(emulate=True, hazard=hazard)` loads the library."""
+    import concurrent.futures
+
+    distinct = {k.source: k for k in kernels}
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        list(pool.map(lambda k: k.build(emulate=True, hazard=hazard),
+                      distinct.values()))
 
 
 def rand_inputs(p, shape, rng):

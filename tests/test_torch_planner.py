@@ -155,12 +155,16 @@ def test_blur_row_rings_follow_the_group_spans():
     g = planner.plan(p, (64, 256), tile=(8, 128), bz=16).groups[0]
     assert g.kernel == "linebuffer2d"
     # input is tapped at x 0..2 by blur_x, which blur_y taps at y -1..1:
-    # both rings span 3 rows, but a ring keeps only the rows from its
-    # leading one down to the lowest a consumer reads in the same step:
-    # blur_x reads input at its own leading rows (lag 0; 0 + RB -> 8),
-    # blur_y reads blur_x 2 rows below its leading one (2 + RB -> 16)
+    # both rings span 3 rows, but a ring keeps only the rows from the
+    # lowest a consumer reads in a step up to the highest written in it:
+    # blur_x (level 1) reads input at its own leading rows (lag 0) while
+    # the next step's rows are copied in (0 + 2 RB -> 16); blur_y (level
+    # 2, a step behind blur_x) reads blur_x 2 rows below its leading one
+    # (2 + 2 RB = 18 -> 32).  The input's rows are whole 16-byte chunks
+    # (130 -> 136 columns), copied 16 bytes at a time
     rings = {r.name: (r.depth, r.rows, r.cols) for r in g.rings}
-    assert rings == {"input": (8, 1, 130), "blur_x": (16, 1, 128)}
+    assert rings == {"input": (16, 1, 136), "blur_x": (32, 1, 128)}
+    assert g.load == "vector" and g.levels == {"blur_x": 1, "blur_y": 2}
     assert g.warm == 2 and g.grid == (2, 4, 1)
     assert g.smem_bytes == sum(-(-r.nbytes // 16) * 16 for r in g.rings)
 
@@ -169,7 +173,9 @@ def test_row_march_bytes_count_strip_halos_and_warmup():
     p = parse_file(SODA / "blur.soda")
     g = planner.plan(p, (64, 256), tile=(8, 128), bz=16).groups[0]
     rows = 17 + 18 + 18 + 17      # four chunks of 16 rows, halo 1 each side, clipped
-    cols = 130 + 128              # two strips of 128 columns, x halo 2 on the right
+    # two strips of 128 columns, x halo 2 on the right in whole 16-byte
+    # chunks (130 -> 136 columns; the second strip's clipped to the grid)
+    cols = 136 + 128
     assert g.hbm_bytes_per_call == rows * cols * 2 + 64 * 256 * 2
     assert g.useful_cells_per_call == 64 * 256
 

@@ -11,6 +11,11 @@ by the line-buffer marches.  No card here, so:
   whole grid and the chained one-sweep kernels (emulated the same way),
   bit for bit on every output (these programs call no libm, so the f32
   operations are the oracle's, in its order);
+- the rank-2 cascades of jacobi2d x 8, residual2d x 4 and jacobi2d_i64 x
+  20 under the row-march's hazard emulation (copies land at issue, a
+  step's stages and a stage's work items in reverse order) on an aligned
+  grid (16-byte row copies) and an odd one, with a chunk shorter than the
+  warm-up, bit for bit against the oracle;
 - the same emulated kernel is held against the JAX package's kernel 3
   (`pallas.run(..., interpret=True)`, whose plan must be "strips") on the
   same numpy inputs, outside `valid_rim()` with `compare_outputs`: inside
@@ -41,6 +46,7 @@ from soda_tpu_torch.ir.dtypes import torch_dtype
 from soda_tpu_torch.optimize.unroll import FeedbackTypeError, unroll_iterate
 from soda_tpu_torch.plan import planner
 from soda_tpu_torch.utils import report
+from soda_tpu_torch.utils.testing import build_emulated, pinned_plan
 
 torch.set_num_threads(1)
 
@@ -62,21 +68,45 @@ def gxx():
         pytest.skip("host emulation needs g++")
 
 
+@pytest.fixture(scope="module")
+def built():
+    """The host emulation of every fused and chained kernel the emulated
+    cases below run, compiled in parallel up front (`build_emulated`)."""
+    if shutil.which("g++") is None:
+        pytest.skip("host emulation needs g++")
+
+    def kernels(cases):
+        return [cuda.group_kernel(PROGRAMS[n], g) for n, shape, kw in cases
+                for g in pinned_plan(PROGRAMS[n], shape, kw).groups]
+
+    plain = []
+    for n in NAMES:
+        rank, it = PROGRAMS[n].rank, PROGRAMS[n].iterate
+        for shape, kw in (ODD[rank], TINY[rank]):
+            plain += [(n, shape, kw), (n, shape, dict(kw, sweeps=it)),
+                      (n, shape, dict(ODD[rank][1], sweeps=1))]
+    build_emulated(kernels(plain + [(n, shape, {}) for n, shape in JAX_ROWS]))
+    build_emulated(kernels([(n, shape, dict(_cascade_kw(n, kw), sync=sync))
+                            for n in HAZARD_CASCADES for shape, kw in HAZARD_SHAPES
+                            for sync in ("skew", "barrier")]), hazard=True)
+
+
 def _bits(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a).view(np.uint8)
 
 
-def _emulate(p, shape, ins, ps, **plan_kw):
-    """The plan's groups as host-emulated kernels, `iterate / nf` calls
-    with the feedback of `cuda.build_fn`; returns (outputs, plan)."""
-    pl = planner.plan(p, shape, **plan_kw)
+def _emulate(p, shape, ins, ps, hazard=False, **plan_kw):
+    """The plan's groups as host-emulated kernels (`hazard`: under the
+    row-march's hazard emulation), `iterate / nf` calls with the feedback
+    of `cuda.build_fn`; returns (outputs, plan)."""
+    pl = pinned_plan(p, shape, plan_kw)
     tins, tps = to_torch(p, ins, ps, "cpu")
     it = max(p.iterate, 1)
     nf = pl.groups[0].sweeps
     kernels = []
     for g in pl.groups:
         k = cuda.group_kernel(p, g)
-        kernels.append((k, k.build(emulate=True).lib.soda_launch))
+        kernels.append((k, k.build(emulate=True, hazard=hazard).lib.soda_launch))
     values = dict(tins)
     for c in range(it // nf):
         produced = {}
@@ -95,7 +125,7 @@ def _emulate(p, shape, ins, ps, **plan_kw):
 @pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("grid", ["odd", "tiny"])
 @pytest.mark.parametrize("depth", ["planner", "iterate"])
-def test_host_emulated_fused_kernel_equals_oracle_and_chained(gxx, name, grid, depth):
+def test_host_emulated_fused_kernel_equals_oracle_and_chained(built, name, grid, depth):
     p = PROGRAMS[name]
     shape, kw = (ODD if grid == "odd" else TINY)[p.rank]
     if depth == "iterate":
@@ -118,7 +148,39 @@ def test_host_emulated_fused_kernel_equals_oracle_and_chained(gxx, name, grid, d
         assert np.array_equal(_bits(got[k]), _bits(chained[k])), k
 
 
-@pytest.mark.parametrize("name,shape", [
+HAZARD_CASCADES = ("jacobi2d", "residual2d", "jacobi2d_i64")
+HAZARD_SHAPES = (((64, 256), {"tile": (4, 64), "bz": 4}),
+                 ((37, 45), {"tile": (2, 32), "bz": 4}))
+
+
+def _cascade_kw(name, kw):
+    """The whole `iterate` in one call; jacobi2d_i64's 20 int64 rings fit
+    the budget one row a step."""
+    kw = dict(kw, sweeps=PROGRAMS[name].iterate)
+    return dict(kw, tile=(1, 32)) if name == "jacobi2d_i64" else kw
+
+
+@pytest.mark.parametrize("name", HAZARD_CASCADES)
+@pytest.mark.parametrize("shape,kw", HAZARD_SHAPES)
+@pytest.mark.parametrize("sync", ["skew", "barrier"])
+def test_hazard_emulated_rank2_cascade_equals_oracle(built, name, shape, kw, sync):
+    """The whole `iterate` in one fused call (nf = iterate), each chunk
+    shorter than the cascade's warm-up (2 x nf rows), with a step's copies
+    skewed by level (one wait a step) or all at level 1 with a barrier
+    after each (pinned through `pinned_plan`)."""
+    p = PROGRAMS[name]
+    ins, ps = rand_inputs(p, shape, np.random.default_rng(36))
+    got, pl = _emulate(p, shape, ins, ps, hazard=True, sync=sync, **_cascade_kw(name, kw))
+    (g,) = pl.groups
+    assert g.sweeps == p.iterate and g.bz < g.warm and g.sync == sync
+    assert max(g.levels.values()) == (len(g.stages) if sync == "skew" else 1)
+    assert g.load == ("vector" if shape[1] == 256 else "scalar")
+    gold = numpy_interp.run(REF[name], ins, ps)
+    for k in gold:
+        assert np.array_equal(_bits(got[k]), _bits(gold[k])), k
+
+
+JAX_ROWS = (
     ("jacobi2d", (200, 384)),        # tests/test_backends.py:332
     ("residual2d", (48, 128)),       # tests/test_backends.py:247
     ("residual2d", (50, 128)),
@@ -126,8 +188,11 @@ def test_host_emulated_fused_kernel_equals_oracle_and_chained(gxx, name, grid, d
     ("denoise2p", (48, 128)),
     ("jacobi2d_i64", (64, 128)),
     ("heat3d", (16, 16, 128)),       # 8 planes leave none outside the rim of 4
-])
-def test_fused_kernel_matches_jax_strips_kernel_outside_the_rim(gxx, name, shape):
+)
+
+
+@pytest.mark.parametrize("name,shape", JAX_ROWS)
+def test_fused_kernel_matches_jax_strips_kernel_outside_the_rim(built, name, shape):
     p, ref = PROGRAMS[name], REF[name]
     assert jax_plan(ref, shape).groups[0].strategy == "strips"
     ins, ps = rand_inputs(p, shape, np.random.default_rng(32))
@@ -136,6 +201,19 @@ def test_fused_kernel_matches_jax_strips_kernel_outside_the_rim(gxx, name, shape
     jax_out = pallas_backend.run(ref, ins, ps, interpret=True)
     assert compare_outputs(p, got, jax_out, p.valid_rim())
     assert compare_outputs(p, got, numpy_interp.run(ref, ins, ps), 0)
+
+
+def test_jacobi2d_x8_cascade_matches_jax_strips_kernel_outside_the_rim(gxx):
+    """The whole iterate 8 in one call of the one-wait row-march (eight
+    copies, each a step behind the one before) against the JAX package's
+    kernel 3 on the same numpy inputs."""
+    p, ref, shape = PROGRAMS["jacobi2d"], REF["jacobi2d"], (200, 384)
+    ins, ps = rand_inputs(p, shape, np.random.default_rng(37))
+    got, pl = _emulate(p, shape, ins, ps, sweeps=8)
+    assert pl.groups[0].sweeps == 8 and max(pl.groups[0].levels.values()) == 8
+    jax_out = pallas_backend.run(ref, ins, ps, interpret=True)
+    assert compare_outputs(p, got, jax_out, p.valid_rim())
+    assert np.array_equal(got["t1"], numpy_interp.run(ref, ins, ps)["t1"])
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -185,7 +263,8 @@ def test_fused_source_names_its_kernel_and_says_what_it_replaces():
         assert "_build_strips_group_fn" in src and "3.35 TB/s" in src
     # copy k reads copy k-1 through its ring; the last copy writes the output
     assert "// stage heat_out__it2 (ring)" in src3 and "// outputs ['heat_out']" in src3
-    assert src2.count("soda_load_rows<RB,") == 1
+    # the input rows of the first step, then of each next step
+    assert src2.count("soda_fetch_rows_v<RB, t0_C, NT>(") == 2
 
 
 def test_rings_are_sized_by_lag():
@@ -198,10 +277,22 @@ def test_rings_are_sized_by_lag():
                                          "heat_out__it1", "heat_out__it2"]
     assert {r.depth for r in g.rings} == {3}
     assert g.spans["heat_in"] == ((-4, 4),) * 3
-    # rank 2: a power of two of at least lag + RB rows
+    # rank 2: a power of two of at least lag + (w + level) * RB rows for
+    # each consumer: the input (copied a step ahead, w = 1) and each copy
+    # (w = 1 - its level) are read by the next copy, 2 rows below their
+    # leading one: 2 + 2 * 4 = 10 -> 16
     q = PROGRAMS["jacobi2d"]
     g2 = planner.plan(q, (64, 256), sweeps=8, tile=(4, 128), bz=32).groups[0]
-    assert {r.depth for r in g2.rings} == {8} and len(g2.rings) == 8
+    assert {r.depth for r in g2.rings} == {16} and len(g2.rings) == 8
+    assert g2.sync == "skew"
+    assert g2.levels == {s: k + 1 for k, s in enumerate(g2.stages)}
+    # with a barrier after each copy, every copy is at level 1: the input
+    # still needs 2 + 2 * 4 = 10 -> 16 rows, each copy 2 + 4 = 6 -> 8
+    g3 = pinned_plan(q, (64, 256), {"sweeps": 8, "tile": (4, 128), "bz": 32,
+                                    "sync": "barrier"}).groups[0]
+    assert set(g3.levels.values()) == {1}
+    assert {r.name: r.depth for r in g3.rings} == {
+        "t0": 16, **{f"t1__it{k}": 8 for k in range(7)}}
 
 
 @pytest.mark.parametrize("name,shape", [("jacobi2d", (2048, 2048)),
