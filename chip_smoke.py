@@ -87,7 +87,34 @@ Phases (any failure exits nonzero):
    and conv5x5 16384^2 pinned to windows, each checked against the plain
    version over the whole grid and timed beside its line-buffer kernel in
    turns (line buffer, windows, windows, line buffer) and alone; conv5x5
-   also beside `F.conv2d`.
+   also beside `F.conv2d`;
+14. the computation-reuse rewrite (`--tcse`, `optimize/tcse.py`) through
+   the kernels: gauss5x5 (uint16), erode2d (a `min` cover) and seidel2d
+   (f32, iterate 4) on small grids, rewritten and not, each against the
+   port's NumPy reference of its own program on the whole grid, the
+   rewritten kernel against its plain version (integers bit for bit,
+   floats at `device_gate`) and against the unrewritten kernel outside the
+   rewritten program's `valid_rim()`; then gauss5x5 16384^2 both ways
+   through `cuda.build_fn` with kernel 2's counter reset just before and
+   read just after, bit for bit against each other outside the rim and
+   the rewritten kernel bit for bit against its plain version on the whole
+   grid, timed in turns (plain program, rewritten, rewritten, plain) by
+   CUDA events and alone (`device_ms`) beside the bound and the plan's
+   operations per cell;
+15. host tiling (`parallel/host_tile.py`): the pinned host-to-card and
+   card-to-host bandwidth of a 1 GiB copy; jacobi3d 1024^3 f32 (4 GiB an
+   array) at one sweep a pass under a 2 GiB budget (16 tiles), bit for bit
+   against the whole-grid `cuda.run` on the whole grid, and jacobi2d
+   32768^2 f32 iterate 8 with tiles and sweeps a pass chosen under a 2 GiB
+   budget, bit for bit against the whole-grid run outside `valid_rim()`;
+   each run with two tiles in flight and with one, in turns (2, 1, 1, 2),
+   every run checked, printing the tiles, passes, read amplification, wall
+   seconds a pass, bytes across the host link and the share of the pass
+   the measured bandwidth needs for them;
+16. the CLI on the card with no --device: `--tcse --report --dump-plan
+   --run` on gauss5x5, `--host-tile auto --hbm-budget 8 MiB
+   --host-tile-sweeps auto --run` on jacobi2d 2048^2, and `--benchmark`
+   on jacobi3d 512^3 (CUDA events, beside phase 4's figure).
 
 Each phase logs the seconds since the start when it ends.  Phases 4 and
 7 run their programs one sweep per call (`sweeps=1`), so
@@ -99,6 +126,8 @@ as JSON; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import io
 import json
 import math
 import pathlib
@@ -152,6 +181,14 @@ AT_SIZE_WINDOWS = (("star3d_r8", (512, 512, 512), None),
                    ("blur", (16384, 16384), (16, 128)),
                    ("conv5x5", (16384, 16384), (16, 128)))
 STAR_LB_BUDGET = 227 * 1024   # the line buffer's star plan: one CTA an SM
+TCSE_PROGRAMS = ("gauss5x5", "erode2d", "seidel2d")
+TCSE_SHAPES = ((64, 256), (37, 45))    # 16-byte row copies, element copies
+TCSE_MAIN = ("gauss5x5", (16384, 16384))
+# (program, grid, sweeps a pass or "auto", device budget in bytes)
+HOST_TILED = (("jacobi3d", (1024, 1024, 1024), 1, 2 * 2**30),
+              ("jacobi2d", (32768, 32768), "auto", 2 * 2**30))
+CLI_HOST_TILED = ("jacobi2d", (2048, 2048), 8 * 2**20)
+PINNED_COPY_BYTES = 2**30
 SLEEP_CYCLES = 3_000_000   # at most 1.98 GHz: at least 1.5 ms
 SLEEP_COVERS_S = 1e-3
 
@@ -287,6 +324,8 @@ def main() -> int:
     from soda_tpu_torch.backend.io import to_numpy, to_torch
     from soda_tpu_torch.cli import sodac
     from soda_tpu_torch.frontend.parser import parse, parse_file
+    from soda_tpu_torch.optimize import tcse
+    from soda_tpu_torch.parallel import host_tile
     from soda_tpu_torch.plan.planner import fused_depths, plan
     from soda_tpu_torch.utils import report
     from soda_tpu_torch.utils.testing import (CORPUS, INT3D_SOURCES,
@@ -382,6 +421,30 @@ def main() -> int:
         add_jobs(allp[n], shape, block=block)
         add_jobs(allp[n], shape, sweeps=1,
                  **({"smem_budget": STAR_LB_BUDGET} if n == "star3d_r8" else {}))
+    # the rewritten programs (phase 14), the tiles' plans (phase 15) and the
+    # CLI's (phase 16)
+    rewritten = {n: tcse.apply(allp[n]) for n in TCSE_PROGRAMS}
+    for n, q in rewritten.items():
+        for shape in TCSE_SHAPES:
+            add_jobs(q, shape)
+            add_jobs(allp[n], shape)
+    add_jobs(rewritten[TCSE_MAIN[0]], TCSE_MAIN[1])
+    add_jobs(allp[TCSE_MAIN[0]], TCSE_MAIN[1])
+    tilings = {}
+    for n, shape, nf, budget in HOST_TILED + ((*CLI_HOST_TILED[:2], "auto",
+                                               CLI_HOST_TILED[2]),):
+        p = allp[n]
+        if nf == "auto":
+            nf, tiles = host_tile.choose_sweeps_per_pass(p, shape, None, budget)
+        else:
+            tiles = host_tile.choose_host_tiles(p, shape, budget, nf)
+        tilings[(n, shape)] = host_tile.plan_host_tiling(p, shape, tiles, nf)
+        it = max(p.iterate, 1)
+        add_jobs(p, tilings[(n, shape)][2], iterate=None if nf == it else nf)
+        add_jobs(p, shape)     # the whole-grid run it is held against
+    gauss_cli = rewritten["gauss5x5"]
+    add_jobs(gauss_cli, sodac._grid_shape(gauss_cli, sodac.make_parser().parse_args(
+        [str(CORPUS / "gauss5x5.soda")])))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(max_workers=min(len(jobs), 32)) as pool:
         built = list(pool.map(lambda k: (k, k.build()), jobs.values()))
@@ -779,6 +842,7 @@ def main() -> int:
         ok = nf > 1 and ok_bits and ok_plain and ok_oracle
         if main_path:
             ok = ok and launches == it // nf
+            kept = got["t1"]
         del got
 
         def run_fused():
@@ -819,9 +883,34 @@ def main() -> int:
         if not ok:
             log(f"FAILED fused at-size check: {n} {shape}")
             return 1
+        lib_ms = None
+        if main_path:
+            # the library yardstick: `it` chained 3x3 F.conv2d (the five
+            # taps, zero corners, padding 1: zero outside the grid)
+            w = torch.zeros((1, 1, 3, 3), device=dev)
+            for dy, dx in ((1, 1), (1, 2), (2, 1), (1, 0), (0, 1)):
+                w[0, 0, dy, dx] = float(np.float32(0.2))
+            x4 = ins["t0"][None, None]
+
+            def run_library():
+                y = x4
+                for _ in range(it):
+                    y = F.conv2d(y, w, padding=1)
+                return y
+
+            lib_err = float((run_library()[0, 0] - kept).abs().max())
+            lib_ms = (events_ms(run_library, reps) + events_ms(run_library, reps)) / 2 / it
+            log(f"fused at-size {n} {shape}: library {it} chained F.conv2d (TF32 off) "
+                f"{lib_ms:.4f} ms/sweep against the fused kernel's {f_ms:.4f}, "
+                f"max|library-kernel| {lib_err:.3g}; card {card}")
+            if lib_err > LIBRARY_TOL:
+                log(f"FAILED library check: {n} {shape}")
+                return 1
+            del kept, x4
         summary3[(n, shape)] = dict(err=err, ms=f_ms, chained_ms=c_ms, plain_ms=p_ms,
                                     dev_ms=dev_ms, chained_dev_ms=dev_c, launches=launches,
-                                    bound_ms=rep.bound_ms / nf, bound_by=rep.bound_by)
+                                    bound_ms=rep.bound_ms / nf, bound_by=rep.bound_by,
+                                    library_ms=lib_ms)
         del ins, fused, chained
         torch.cuda.empty_cache()
 
@@ -1022,6 +1111,164 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     mark(13)
+
+    # ---- 14. tcse: the rewritten programs through the kernels ---------------
+    for n in TCSE_PROGRAMS:
+        p, q = allp[n], rewritten[n]
+        exact = not any(t.type.is_float for t in q.tensors.values())
+        rim = q.valid_rim()
+        for shape in TCSE_SHAPES:
+            ins, ps = rand_inputs(p, shape, np.random.default_rng(0))
+            pl = plan(q, shape)
+            want = len(pl.groups) * max(q.iterate, 1) // pl.groups[0].sweeps
+            before = launch_count()
+            got_q = cuda.run(q, ins, ps)
+            torch.cuda.synchronize()
+            launched = launch_count() - before
+            got_p = cuda.run(p, ins, ps)
+            ok_plain = device_gate(q, got_q, eager.run(q, ins, ps), exact)
+            ok_q = compare_outputs(q, to_numpy(q, got_q), oracle(q, ins, ps), 0)
+            ok_p = compare_outputs(p, to_numpy(p, got_p), oracle(p, ins, ps), 0)
+            ok_rim = compare_outputs(p, to_numpy(q, got_q), to_numpy(p, got_p), rim)
+            ok = launched == want and ok_plain and ok_q and ok_p and ok_rim
+            log(f"tcse small {n} {shape}: {tcse.count_ops(p)} -> {tcse.count_ops(q)} "
+                f"operations, stages {q.stage_order()}; launches {launched}/{want}, "
+                f"plain {'ok' if ok_plain else 'MISMATCH'}"
+                f"{' (bit for bit)' if exact else ''}, oracle of the rewritten "
+                f"{'ok' if ok_q else 'MISMATCH'}, oracle of the original "
+                f"{'ok' if ok_p else 'MISMATCH'}, original kernel outside the rim "
+                f"{rim} {'ok' if ok_rim else 'MISMATCH'}")
+            if not ok:
+                failures.append(f"tcse {n} {shape}")
+    if failures:
+        log(f"FAILED tcse small-grid checks: {failures}")
+        return 1
+    n, shape = TCSE_MAIN
+    p, q = allp[n], rewritten[n]
+    ins = {"q_in": torch.randint(0, 1 << 16, shape, generator=gen, device=dev,
+                                 dtype=torch.int32).to(torch.uint16)}
+    fns = {"original": cuda.build_fn(p, grid_shape=shape),
+           "tcse": cuda.build_fn(q, grid_shape=shape)}
+    linebuffer2d.LAUNCHES = 0
+    got = {k: fn(ins, {})["q_out"] for k, fn in fns.items()}
+    torch.cuda.synchronize()
+    launches = linebuffer2d.LAUNCHES
+    rim = q.valid_rim()
+    inner = (slice(rim, -rim),) * 2
+    ok_rim = torch.equal(got["original"][inner], got["tcse"][inner])
+    plain = eager.run(q, ins, {})["q_out"]
+    ok_plain = torch.equal(got["tcse"], plain)
+    del plain, got
+    torch.cuda.empty_cache()
+    ok = ok_rim and ok_plain and launches == 2
+    runs = {k: (lambda fn=fn: fn(ins, {})) for k, fn in fns.items()}
+    t = [events_ms(runs[k], 10) for k in ("original", "tcse", "tcse", "original")]
+    ms = {"original": (t[0] + t[3]) / 2, "tcse": (t[1] + t[2]) / 2}
+    alone = {k: device_ms(f, 10) for k, f in runs.items()}
+    for k, fn in fns.items():
+        rep = report.analyze(fn.plan)
+        g = fn.plan.groups[0]
+        log(f"tcse at-size {n} {shape} {k}: {len(g.stages)} stage(s), "
+            f"{fn.plan.ops_per_cell:g} typed operations a cell (plan), "
+            f"{g.cell_ops_per_call / math.prod(shape):.2f} with the tile's overlap; "
+            f"ms {ms[k]:.4f} (events, in turns; alone {fmt(alone[k])}); bound "
+            f"{rep.bound_ms:.4f} ({rep.bound_by}), "
+            f"{100 * rep.bound_ms / ms[k]:.1f}% of it; {g.describe()}; card {card}")
+    log(f"tcse at-size {n} {shape}: launches {launches}/2, original vs rewritten "
+        f"outside the rim {rim} {'bit for bit' if ok_rim else 'MISMATCH'}, rewritten "
+        f"vs its plain version on the whole grid {'bit for bit' if ok_plain else 'MISMATCH'}; "
+        f"rewritten/original time {ms['tcse'] / ms['original']:.3f}")
+    if not ok:
+        log(f"FAILED tcse at-size check: {n} {shape}")
+        return 1
+    del ins, fns, runs
+    torch.cuda.empty_cache()
+
+    mark(14)
+
+    # ---- 15. host tiling: grids beyond the card's memory, tile by tile ----------
+    pinned = torch.empty(PINNED_COPY_BYTES // 4, dtype=torch.float32, pin_memory=True)
+    on_dev = torch.empty(PINNED_COPY_BYTES // 4, dtype=torch.float32, device=dev)
+    bw = {}
+    for way, (dst, src) in (("h2d", (on_dev, pinned)), ("d2h", (pinned, on_dev))):
+        dst.copy_(src, non_blocking=True)
+        bw[way] = PINNED_COPY_BYTES / (events_ms(lambda: dst.copy_(src, non_blocking=True), 5)
+                                       / 1e3)
+    log(f"host link: pinned {PINNED_COPY_BYTES} B copies, host to card "
+        f"{bw['h2d'] / 1e9:.2f} GB/s, card to host {bw['d2h'] / 1e9:.2f} GB/s; card {card}")
+    del pinned, on_dev
+    for n, shape, _, budget in HOST_TILED:
+        p = allp[n]
+        tiles, halos, ext, n_tiles, nf, passes, amp = tilings[(n, shape)]
+        x = torch.randn(shape, generator=gen, device=dev)
+        whole = cuda.run(p, {p.input_names[0]: x}, {})[p.output_names[0]].cpu().numpy()
+        x_host = {p.input_names[0]: x.cpu().numpy()}
+        del x
+        torch.cuda.empty_cache()
+        rim = 0 if nf == 1 else p.valid_rim()
+        inner = tuple(slice(rim, d - rim) for d in shape)
+        tile_plan = plan(p, ext, iterate=None if nf == max(p.iterate, 1) else nf)
+        want = (math.prod(n_tiles) * passes * len(tile_plan.groups)
+                * nf // tile_plan.groups[0].sweeps)
+        seconds = {1: [], 2: []}
+        for k in (2, 1, 1, 2):
+            st = {}
+            before = launch_count()
+            out = host_tile.run_host_tiled(p, x_host, tiles=tiles, sweeps_per_pass=nf,
+                                           in_flight=k, stats=st)
+            launched = launch_count() - before
+            got = out[p.output_names[0]]
+            ok = (launched == want and st["n_tiles"] == n_tiles
+                  and np.array_equal(got[inner].view(np.uint32), whole[inner].view(np.uint32)))
+            seconds[k] += st["pass_seconds"]
+            link = (st["h2d_bytes"] / bw["h2d"] + st["d2h_bytes"] / bw["d2h"]) / passes
+            per_pass = sum(st["pass_seconds"]) / passes
+            log(f"host tiled {n} {shape} in flight {k}: {'x'.join(map(str, n_tiles))} "
+                f"tiles of {'x'.join(map(str, tiles))} (+halo -> "
+                f"{'x'.join(map(str, ext))}), {passes} pass(es) x {nf} sweep(s), read "
+                f"amplification {amp:.4f}; launches {launched}/{want}; "
+                f"{'bit for bit' if ok else 'MISMATCH'} against the whole-grid run "
+                f"{'on the whole grid' if rim == 0 else f'outside the rim {rim}'}; "
+                f"{per_pass:.3f} s a pass; {st['h2d_bytes']} B to the card and "
+                f"{st['d2h_bytes']} B back; the link needs {link:.3f} s a pass at the "
+                f"measured bandwidth, {100 * link / per_pass:.1f}% of the pass; card {card}")
+            del out, got
+            if not ok:
+                log(f"FAILED host-tiling check: {n} {shape} in flight {k}")
+                return 1
+        log(f"host tiled {n} {shape}: s a pass with two tiles in flight "
+            f"{sum(seconds[2]) / len(seconds[2]):.3f} {seconds[2]}, with one "
+            f"{sum(seconds[1]) / len(seconds[1]):.3f} {seconds[1]}; plan of a tile "
+            f"{tile_plan.groups[0].describe()}")
+        del whole, x_host
+        torch.cuda.empty_cache()
+
+    mark(15)
+
+    # ---- 16. the CLI on the card, no --device ----------------------------------
+    n, shape, budget = CLI_HOST_TILED
+    runs = ((["gauss5x5.soda", "--tcse", "--report", "--dump-plan", "--run"], False),
+            ([f"{n}.soda", "--grid-shape", ",".join(map(str, shape)), "--host-tile",
+              "auto", "--hbm-budget", str(budget), "--host-tile-sweeps", "auto",
+              "--run"], False),
+            (["jacobi3d.soda", "--grid-shape", "512,512,512", "--benchmark"], True))
+    for argv, show in runs:
+        buf = io.StringIO()
+        before = launch_count()
+        with contextlib.redirect_stdout(buf):
+            rc = sodac.main([str(CORPUS / argv[0]), *argv[1:]])
+        torch.cuda.synchronize()
+        launched = launch_count() - before
+        text = buf.getvalue()
+        last = [ln for ln in text.splitlines() if ln.startswith(
+            ("OK", "MISMATCH", "host tiling:", "benchmark", "bound:", "  host tiling"))]
+        log(f"cli: sodac {' '.join(argv)}: rc {rc}, kernel launches {launched}; "
+            + " | ".join(last))
+        if rc != 0 or launched < 1 or (not show and "OK" not in last):
+            log(f"FAILED cli check: {argv}")
+            return 1
+
+    mark(16)
     j, b, f = summary["jacobi3d"], summary2[MAIN_2D], summary3[MAIN_SWEEPS]
     log(card)
     log(json.dumps({"kernels": [{
@@ -1044,7 +1291,7 @@ def main() -> int:
         "launches": f["launches"], "max_abs_err": f["err"],
         "ms": f["ms"], "plain_ms": f["plain_ms"], "chained_ms": f["chained_ms"],
         "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
-        "library_ms": None}, {
+        "library_ms": f["library_ms"]}, {
         # smooth1d 2^28 f32 (phase 12)
         "name": "windows", "route": "cuda",
         "source": "soda_tpu_torch/csrc/windows.cuh",

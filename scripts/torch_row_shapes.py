@@ -2,7 +2,8 @@
 
     python3 scripts/torch_row_shapes.py [program,program,...]
 
-For each row (a program, a grid and a fused depth) it times the planner's
+For each row (a program, `+tcse` where it is rewritten by
+`optimize/tcse.py` first, a grid and a fused depth) it times the planner's
 own plan and the pinned variants below: the tile (RB, TX), the order of a
 step's stages (`sync`: "skew", one wait a step, or "barrier", a barrier
 after each stage; pinned with `utils/testing.py::pinned_plan`) and the
@@ -58,6 +59,13 @@ VARIANTS = {
     ("blur", (2048, 4096), 1): [
         ((16, 256), "skew", None), ((16, 256), "barrier", None),
         ((8, 256), "skew", None)],
+    ("gauss5x5", (16384, 16384), 1): [
+        ((16, 256), "barrier", None), ((8, 256), "skew", None)],
+    # rewritten by `optimize/tcse.py`: seven hoisted stages in a chain
+    ("gauss5x5+tcse", (16384, 16384), 1): [
+        ((4, 256), "barrier", None), ((8, 128), "barrier", None),
+        ((4, 128), "skew", None), ((8, 256), "barrier", BIG),
+        ((16, 256), "barrier", BIG)],
 }
 
 
@@ -74,6 +82,7 @@ def main(only: str = "") -> int:
 
     from soda_tpu_torch.backend import cuda
     from soda_tpu_torch.frontend.parser import parse_file
+    from soda_tpu_torch.optimize import tcse
     from soda_tpu_torch.plan import planner
     from soda_tpu_torch.utils import report
     from soda_tpu_torch.utils.testing import pinned_plan
@@ -88,7 +97,10 @@ def main(only: str = "") -> int:
     for (n, shape, nf), variants in VARIANTS.items():
         if keep and n not in keep:
             continue
-        p = parse_file(HERE / "tests" / "soda" / f"{n}.soda")
+        name, _, rewrite = n.partition("+")
+        p = parse_file(HERE / "tests" / "soda" / f"{name}.soda")
+        if rewrite:
+            p = tcse.apply(p)
         plans = [("planner", planner.plan(p, shape, sweeps=nf))]
         for tile, sync, budget in variants:
             pl = pinned_plan(p, shape, {

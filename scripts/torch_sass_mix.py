@@ -2,7 +2,8 @@
 
     python3 scripts/torch_sass_mix.py [out_dir]
 
-For each row below (a program, a grid and a fused depth, at the planner's
+For each row below (a program, `+tcse` where it is rewritten by
+`optimize/tcse.py` first, a grid and a fused depth, at the planner's
 plan) it builds the kernel for `sm_90a` from this checkout, disassembles
 it with `cuobjdump -sass` and counts the instructions of the whole kernel
 by opcode class: shared-memory loads and stores, async copies, global
@@ -27,7 +28,8 @@ import sys
 HERE = pathlib.Path(__file__).resolve().parents[1]
 ROWS = (("blur", (2048, 4096), 1), ("blur", (16384, 16384), 1),
         ("conv5x5", (16384, 16384), 1), ("jacobi2d", (2048, 2048), 4),
-        ("jacobi2d", (16384, 16384), 4), ("jacobi2d", (16384, 16384), 8))
+        ("jacobi2d", (16384, 16384), 4), ("jacobi2d", (16384, 16384), 8),
+        ("gauss5x5", (16384, 16384), 1), ("gauss5x5+tcse", (16384, 16384), 1))
 CLASSES = (
     ("LDS", r"^LDS"), ("STS", r"^STS"), ("LDGSTS", r"^LDGSTS|^LDGDEPBAR|^DEPBAR"),
     ("LDG/STG", r"^LDG|^STG|^LD\.|^ST\."), ("float", r"^F(ADD|MUL|FMA|SETP|SEL|MNMX)|^MUFU"),
@@ -52,6 +54,7 @@ def main(out_dir: str = "") -> int:
     sys.path.insert(0, str(HERE))
     from soda_tpu_torch.backend import cuda
     from soda_tpu_torch.frontend.parser import parse_file
+    from soda_tpu_torch.optimize import tcse
     from soda_tpu_torch.plan.planner import plan
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -59,7 +62,10 @@ def main(out_dir: str = "") -> int:
         print("torch_sass_mix: no cuobjdump", file=sys.stderr)
         return 2
     for n, shape, nf in ROWS:
-        p = parse_file(HERE / "tests" / "soda" / f"{n}.soda")
+        name, _, rewrite = n.partition("+")
+        p = parse_file(HERE / "tests" / "soda" / f"{name}.soda")
+        if rewrite:
+            p = tcse.apply(p)
         g = plan(p, shape, sweeps=nf).groups[0]
         built = cuda.group_kernel(p, g).build()
         sass = subprocess.run([tool, "-sass", str(built.path)], capture_output=True,
@@ -74,7 +80,9 @@ def main(out_dir: str = "") -> int:
                         for k, _ in CLASSES + (("other", ""),) if ops[k])
         print(f"sass {n} {shape} nf {g.sweeps}: {total} instructions, "
               f"{total / cells:.2f} per row-stage (RB {g.tile[0]} x {len(g.stages)} "
-              f"stage(s)); {mix}; {g.describe()}", flush=True)
+              f"stage(s)), {total / (g.tile[0] * g.sweeps):.2f} per cell-update (RB x nf); "
+              f"{mix}; "
+              f"{g.describe()}", flush=True)
     return 0
 
 

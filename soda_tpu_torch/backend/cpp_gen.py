@@ -4,9 +4,8 @@ The port's copy of `soda_tpu/backend/cpp.py::_cpp_float` and `_Gen`: an
 IR expression printed as C++ with the DSL's C semantics, operation for
 operation (int64 accumulators, C division, masking at stores, f32
 literals, per-operation rounding of `half`).  `backend/cuda_codegen.py`
-subclasses `_Gen` for the device.  Left out: the runner itself
-(`generate*`, `compile_and_run`, `NativeOracle`); the port imports
-nothing of `soda_tpu`.
+subclasses `_Gen` for the device, and `backend/cpp.py` prints the golden
+runner with it.  The port imports nothing of `soda_tpu`.
 """
 
 from __future__ import annotations

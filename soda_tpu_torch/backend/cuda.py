@@ -24,7 +24,7 @@ from typing import Mapping
 
 import torch
 
-from ..ir.dtypes import check_types_supported
+from ..ir.dtypes import check_types_supported, torch_dtype
 from ..ir.program import StencilProgram
 from ..plan.planner import GroupPlan, Plan
 from ..plan.planner import plan as make_plan
@@ -51,7 +51,9 @@ def build_fn(program: StencilProgram, the_plan: Plan | None = None,
              iterate: int | None = None, **plan_kwargs):
     """fn(inputs, params) -> outputs for the whole program (all groups, all
     sweeps) on one grid shape.  Inputs and params are tensors on one device
-    in their declared dtypes (`io.to_torch`)."""
+    in their declared dtypes (`io.to_torch`).  The kernels allocate their
+    outputs, unless `fn(..., bufs=fn.alloc(device))` hands them buffers
+    made once (host tiling runs every tile through the same ones)."""
     check_types_supported(program)
     it = max(program.iterate if iterate is None else iterate, 1)
     if the_plan is None:
@@ -70,9 +72,11 @@ def build_fn(program: StencilProgram, the_plan: Plan | None = None,
     in0, out0 = program.input_names[0], program.output_names[0]
 
     def fn(inputs: Mapping[str, torch.Tensor],
-           params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+           params: Mapping[str, torch.Tensor],
+           bufs: list[dict] | None = None) -> dict[str, torch.Tensor]:
         values = dict(inputs)
-        bufs: list[dict | None] = [None, None]
+        bufs = list(bufs or [])
+        bufs += [None] * (2 - len(bufs))
         for c in range(chunks):
             produced: dict[str, torch.Tensor] = {}
             for k in kernels:
@@ -85,7 +89,18 @@ def build_fn(program: StencilProgram, the_plan: Plan | None = None,
                 values[in0] = produced[out0]
         return {n: values[n] for n in program.output_names}
 
+    def alloc(device) -> list[dict[str, torch.Tensor]]:
+        """Buffers for every tensor the groups write, at the plan's grid
+        shape on `device`: one set, two when the calls alternate (`chunks`
+        > 1).  `fn(..., bufs=alloc(device))` writes into them and
+        allocates nothing; its outputs are views of them."""
+        return [{n: torch.empty(the_plan.grid_shape, device=device,
+                                dtype=torch_dtype(program.tensors[n].type))
+                 for k in kernels for n in k.group.outputs}
+                for _ in range(min(chunks, 2))]
+
     fn.plan = the_plan
+    fn.alloc = alloc
     return fn
 
 

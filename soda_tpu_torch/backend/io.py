@@ -60,14 +60,21 @@ def to_torch(program: StencilProgram, inputs_np: Mapping,
     shapes = {tuple(t.shape) for t in ins.values()}
     if len(shapes) != 1:
         raise ValueError(f"inputs disagree on the grid shape: {sorted(shapes)}")
+    return ins, params_to_torch(program, params_np, device)
+
+
+def params_to_torch(program: StencilProgram, params_np: Mapping,
+                    device) -> dict[str, torch.Tensor]:
+    """The params as contiguous tensors on `device` in their declared
+    dtypes; checks their shapes."""
     pars = {}
     for p in program.params.values():
-        t = _as_tensor(params_np[p.name], torch_dtype(p.type), device)
+        t = _as_tensor(params_np[p.name], torch_dtype(p.type), torch.device(device))
         if tuple(t.shape) != tuple(p.shape):
             raise ValueError(
                 f"param {p.name!r} shape {tuple(t.shape)} != declared {p.shape}")
         pars[p.name] = t
-    return ins, pars
+    return pars
 
 
 def finalize_outputs(program: StencilProgram, outs: Mapping) -> dict:

@@ -47,8 +47,9 @@ stays in shared memory.  nf divides the executed `iterate`; with
 `sweeps=None` it is the divisor up to `AUTO_SWEEPS_MAX[rank]` with the
 least modeled time per sweep (`GroupPlan.modeled_seconds`) among the
 cascades that fit the budget, preferring those that fill the card.  A
-fused group holds the whole sweep chain; when no depth above 1 fits, or
-the program's feedback types differ, each call runs one sweep and the
+fused group holds the whole sweep chain; when no depth above 1 fits, the
+program's feedback types differ, or its stages already carry the copies'
+names (a program unrolled before), each call runs one sweep and the
 stage DAG may split into chained groups as for any program.
 
 The windows kernel (TPU kernel 4, `backend/windows.py`): a CTA owns one
@@ -287,12 +288,66 @@ class Plan:
         out += ["  note: " + n for n in self.notes]
         return "\n".join(out)
 
+    def to_json(self) -> dict:
+        """The plan as JSON-ready data (`sodac --dump-plan`): the keys of
+        `soda_tpu/plan/planner.py::Plan.to_json` where they mean the same
+        thing, and the CUDA kernels' own (`kernel`, the CTA shape, rings,
+        windows, threads, load path, step order, levels, CTAs an SM,
+        waves, modeled seconds) in place of the TPU's."""
+        def group(g: GroupPlan) -> dict:
+            return {
+                "stages": g.stages,
+                "kernel": g.kernel,
+                "external_inputs": g.external_inputs,
+                "outputs": g.outputs,
+                "sweeps": g.sweeps,
+                "grid": list(g.grid),
+                "hbm_bytes_per_call": g.hbm_bytes_per_call,
+                "useful_cells_per_call": g.useful_cells_per_call,
+                "bytes_per_cell_update": (g.hbm_bytes_per_call
+                                          / max(g.useful_cells_per_call, 1)),
+                "tile": list(g.tile),
+                "bz": g.bz,
+                "rings": [dataclasses.asdict(r) for r in g.rings],
+                "smem_bytes": g.smem_bytes,
+                "threads": g.threads,
+                "load": g.load,
+                "sync": g.sync,
+                "levels": g.levels,
+                "slots_per_sm": g.slots_per_sm,
+                "waves": g.waves,
+                "block": list(g.block),
+                "windows": [dataclasses.asdict(w) for w in g.windows],
+                "direct": g.direct,
+                "modeled_seconds": g.modeled_seconds,
+            }
+
+        return {
+            "program": self.program_name,
+            "grid_shape": list(self.grid_shape),
+            "groups": [group(g) for g in self.groups],
+            "notes": self.notes,
+            "ideal_bytes_per_cell": self.ideal_bytes_per_cell,
+            "ops_per_cell": self.ops_per_cell,
+            "sweeps_total": self.sweeps_total,
+        }
+
+
+class CascadeNameError(ValueError):
+    """A sweep copy's name (`<stage>__it<k>`) is already a tensor of the
+    program, as in a program unrolled before (`sodac --unroll-iterate`)."""
+
 
 def cascade(program: StencilProgram, nf: int) -> StencilProgram:
     """The program a group of `nf` fused sweeps runs: `nf` chained sweep
     copies (`unroll_iterate`), whatever the program's own `iterate`."""
     if nf <= 1:
         return program
+    taken = [f"{s}__it{k}" for s in program.stage_order() for k in range(nf - 1)
+             if f"{s}__it{k}" in program.tensors]
+    if taken:
+        raise CascadeNameError(f"program {program.name!r}: sweep copies would "
+                               f"reuse the names {taken}")
     one_call = copy.copy(program)
     one_call.iterate = nf
     return unroll_iterate(one_call, nf)
@@ -679,7 +734,7 @@ def _plan_fused(program: StencilProgram, grid_shape: tuple[int, ...], it: int,
                         smem_budget, tile, bz)
         best = min(fits, default=None, key=lambda dg: (
             math.prod(dg[1].grid) < 2 * NUM_SMS, dg[1].modeled_seconds / dg[0]))
-    except FeedbackTypeError as e:
+    except (FeedbackTypeError, CascadeNameError) as e:
         notes.append(f"{e}: no cascade; one sweep per call")
         return None
     if best is None or best[0] == 1:

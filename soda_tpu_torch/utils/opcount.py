@@ -9,13 +9,15 @@ rate and pair-carrier weights are not copied.
 `typed_ops` weights each operation by the H100's rate for the type it
 computes in, so that one number over the published 67 TFLOP/s of f32
 outside the tensor cores (`H100_SXM_PEAK_TFLOPS`) is the operations'
-time.  An H100 SM issues a clock 128 f32 lanes, 64 f64 lanes (34 TFLOP/s)
-and 64 int32 lanes (NVIDIA's H100 data sheet and architecture paper);
-the generated kernels carry every integer as int64 (`backend/cpp_gen.py`),
-and an int64 add, compare or shift takes two int32 instructions.  So an
-f32 (or `half`, computed in f32) operation weighs 1, an f64 one 2 and an
-integer one 4 (`type_weight`).  That is a lower estimate for integers:
-an int64 multiply takes three instructions and a division more.
+least time.  An H100 SM issues a clock 128 f32 lanes, 64 f64 lanes (34
+TFLOP/s) and 64 int32 lanes (NVIDIA's H100 data sheet and architecture
+paper).  So an f32 (or `half`, computed in f32) operation weighs 1 and an
+f64 one 2 (`type_weight`).  An integer operation weighs 2 in a stage the
+kernels carry in int32 (`backend/cuda_codegen.py::int32_exact`): an int32
+instruction can do two of the DSL's operations (IMAD a multiply and an
+add, IADD3 two adds), so 2 is the least; and 4 in a stage carried in
+int64, whose add, compare or shift takes two int32 instructions.  Both
+are lower estimates: a division takes several instructions.
 """
 
 from __future__ import annotations
@@ -35,11 +37,12 @@ _COMPARES = {"==", "!=", "<", ">", "<=", ">=", "&&", "||"}
 H100_SXM_PEAK_TFLOPS = 67.0
 
 
-def type_weight(t: ScalarType) -> float:
-    """f32 lane-slots one operation computed in `t` takes on the H100."""
+def type_weight(t: ScalarType, int32: bool = False) -> float:
+    """f32 lane-slots one operation computed in `t` takes on the H100
+    (`int32`: integers carried in int32)."""
     if t.is_float:
         return 2.0 if t.width > 32 else 1.0
-    return 4.0
+    return 2.0 if int32 else 4.0
 
 
 def _node_ops(n: ir.Expr) -> float:
@@ -83,8 +86,12 @@ def _op_type(program: StencilProgram, n: ir.Expr) -> ScalarType:
 
 
 def typed_ops(program: StencilProgram, e: ir.Expr) -> float:
-    """`expr_ops` with each operation weighted by `type_weight` of its type:
-    f32-equivalent operations on the H100."""
+    """`expr_ops` with each operation weighted by `type_weight` of its type
+    and the stage's integer carrier: f32-equivalent operations on the
+    H100."""
+    from ..backend.cuda_codegen import int32_exact
+
+    int32 = int32_exact(program, e)
     ops = 0.0
     seen: set = set()
     for n in ir.walk(e):
@@ -93,7 +100,7 @@ def typed_ops(program: StencilProgram, e: ir.Expr) -> float:
         seen.add(n)
         w = _node_ops(n)
         if w:
-            ops += w * type_weight(_op_type(program, n))
+            ops += w * type_weight(_op_type(program, n), int32)
     return ops
 
 

@@ -18,7 +18,10 @@ and says which one bounds (`bound_by`); `program_bound_ms` is the bound of
 all `iterate / nf` calls.  Given the time of a call measured on the card,
 `rates` gives the achieved GB/s at the ideal bytes and its share of
 3.35 TB/s, and the time per sweep, with the card's name and power limit
-beside it: a card set below 700 W runs slower under load.
+beside it: a card set below 700 W runs slower under load.  `pretty` is
+the text of `sodac --report` (the counterpart of
+`soda_tpu/utils/report.py::CompileReport.pretty`), with the H100's
+published peaks in place of a TPU's.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ class PlanReport:
     ops_per_cell: float                  # f32-equivalent, one sweep of every stage
     sweeps: int = 1                      # fused sweeps per call
     calls: int = 1                       # calls per program run (iterate / sweeps)
+    plan: Plan | None = None             # the plan reported
 
     @property
     def bytes_bound_ms(self) -> float:
@@ -72,6 +76,28 @@ class PlanReport:
     def plan_bytes_per_cell_update(self) -> float:
         return self.plan_bytes_per_cell / self.sweeps
 
+    def pretty(self) -> str:
+        """The plan's kernels and the bound, as `sodac --report` prints them."""
+        out = [f"=== soda_tpu_torch plan report: {self.program} {self.grid_shape} ==="]
+        for g in self.plan.groups if self.plan else []:
+            out.append(f"  {g.describe()}, modeled {g.modeled_seconds * 1e3:.4f} ms/call")
+        ideal = self.ideal_bytes_per_cell / self.sweeps
+        out.append(
+            f"  analytic: {self.plan_bytes_per_cell_update:.3f} B/cell-update "
+            f"planned vs the ideal {ideal:.3f} ({self.ideal_bytes_per_cell:g} "
+            f"B/cell a call / {self.sweeps} fused sweep(s)): the plan moves "
+            f"{self.plan_bytes_per_cell_update / ideal:.3f}x the ideal")
+        out.append(
+            f"  bound on an H100 SXM (published peaks at 700 W: "
+            f"{H100_SXM_PEAK_GBPS / 1000:.2f} TB/s, {H100_SXM_PEAK_TFLOPS:g} "
+            f"TFLOP/s f32): {self.bound_ms:.4f} ms a call ({self.bound_by}; "
+            f"bytes {self.bytes_bound_ms:.4f}, operations "
+            f"{self.ops_bound_ms:.4f}), {self.program_bound_ms:.4f} ms for "
+            f"{self.calls} call(s) -> at most "
+            f"{self.cells * self.sweeps / (self.bound_ms * 1e6):.1f} "
+            f"GCell-updates/s")
+        return "\n".join(out)
+
 
 def analyze(plan: Plan) -> PlanReport:
     """The report of `plan`: its bytes and its bound."""
@@ -83,7 +109,7 @@ def analyze(plan: Plan) -> PlanReport:
         ideal_bytes_per_cell=plan.ideal_bytes_per_cell,
         plan_bytes_per_cell=total / cells, cells=cells,
         ops_per_cell=plan.ops_per_cell, sweeps=nf,
-        calls=max(plan.sweeps_total // nf, 1))
+        calls=max(plan.sweeps_total // nf, 1), plan=plan)
 
 
 def card() -> str:

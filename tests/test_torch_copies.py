@@ -2,7 +2,8 @@
 originals.
 
 The port imports nothing of soda_tpu, so it carries its own copies of the
-IR, the evaluator and the NumPy oracle, the golden runner's printer, the
+IR, the evaluator and the NumPy oracle, the golden runner (its printer
+and the generated runners), the computation-reuse rewrite (`--tcse`), the
 span arithmetic and the test helpers.  Each copy is fed programs from the
 port's parser and each original programs from the lark parser, on every
 corpus program (every one of at most 64 bits where the copy leaves the
@@ -13,6 +14,7 @@ bit-identical arrays, the spans and the random inputs are equal, and the
 comparison gates give the same verdicts.
 """
 
+import functools
 import pathlib
 
 import numpy as np
@@ -22,15 +24,18 @@ from soda_tpu.backend import cpp as cpp_orig
 from soda_tpu.frontend import parser as lark_parser
 from soda_tpu.interp import numpy_interp
 from soda_tpu.ir import types as types_orig
+from soda_tpu.optimize import tcse as tcse_orig
 from soda_tpu.optimize import unroll as unroll_orig
 from soda_tpu.plan import planner as planner_orig
 from soda_tpu.utils import opcount as opcount_orig
 from soda_tpu.utils import testing as testing_orig
+from soda_tpu_torch.backend import cpp as cpp_port
 from soda_tpu_torch.backend import cpp_gen
 from soda_tpu_torch.frontend import parser as port_parser
 from soda_tpu_torch.interp import numpy_ref
 from soda_tpu_torch.ir import types as types_port
 from soda_tpu_torch.ir.types import UnsupportedTypeError
+from soda_tpu_torch.optimize import tcse as tcse_port
 from soda_tpu_torch.optimize import unroll as unroll_port
 from soda_tpu_torch.plan import spans
 from soda_tpu_torch.utils import opcount as opcount_port
@@ -42,7 +47,10 @@ SHAPES = {1: (70,), 2: (13, 21), 3: (5, 7, 9)}
 ITERATE = [p for p in CORPUS if port_parser.parse_file(p).iterate > 1]
 
 
+@functools.cache
 def _both(path):
+    """The port's and the lark parser's program (parsed once a module: the
+    rewrites and printers below build new programs and mutate none)."""
     return port_parser.parse_file(path), lark_parser.parse_file(path)
 
 
@@ -151,3 +159,34 @@ def test_expr_ops_copy_equals_the_original(path):
     for name in port.stage_order():
         assert (opcount_port.expr_ops(port.tensors[name].expr)
                 == opcount_orig.expr_ops(orig.tensors[name].expr)), name
+
+
+@pytest.mark.parametrize("path", CORPUS, ids=lambda p: p.stem)
+def test_tcse_copy_equals_the_original(path):
+    port, orig = _both(path)
+    a, b = tcse_port.apply(port), tcse_orig.apply(orig)
+    assert a.describe() == b.describe()
+    assert a.stage_order() == b.stage_order()
+    for f in ("count_adds", "count_muls", "count_minmax", "count_ops"):
+        assert getattr(tcse_port, f)(a) == getattr(tcse_orig, f)(b), f
+        assert getattr(tcse_port, f)(port) == getattr(tcse_orig, f)(orig), f
+    for n in a.tensors:
+        assert repr(a.tensors[n].type) == repr(b.tensors[n].type), n
+        assert repr(a.tensors[n].expr) == repr(b.tensors[n].expr), n
+
+
+@pytest.mark.parametrize("path", CORPUS, ids=lambda p: p.stem)
+def test_golden_runner_copy_generates_the_original_text(path):
+    port, orig = _both(path)
+    shape = SHAPES[port.rank]
+    if path.stem == "accum128":
+        for gen in (cpp_port.generate, cpp_port.generate_shared):
+            with pytest.raises(UnsupportedTypeError, match="wider than 64 bits"):
+                gen(port, shape)
+        return
+    for it in (None, 3):
+        assert cpp_port.generate(port, shape, it) == cpp_orig.generate(orig, shape, it)
+        assert (cpp_port.generate_shared(port, shape, it)
+                == cpp_orig.generate_shared(orig, shape, it))
+    tp, to = tcse_port.apply(port), tcse_orig.apply(orig)
+    assert cpp_port.generate(tp, shape) == cpp_orig.generate(to, shape)

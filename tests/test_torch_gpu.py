@@ -270,3 +270,65 @@ def test_rank1_windows_kernel_past_2_to_31_cells(cuda_device):
         lo, hi = max(a - 2, 0), min(b + 2, n)
         want = eager.run(p, {"w_in": x[lo:hi].contiguous()}, device=cuda_device)["w_out"]
         assert torch.equal(_bits(got[a:b]), _bits(want[a - lo:b - lo])), (a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,grid,tiles,nf", [
+    ("jacobi2d", (300, 520), (64, 0), 1), ("jacobi2d", (300, 520), (64, 256), None),
+    ("blur", (301, 517), (64, 128), None), ("jacobi3d", (40, 50, 130), (16, 16, 0), None),
+    ("residual2d", (200, 264), (48, 0), 2)])
+@pytest.mark.parametrize("in_flight", [1, 2])
+def test_host_tiled_on_the_card(cuda_device, name, grid, tiles, nf, in_flight):
+    """Host tiling with its copy and compute streams: bit for bit against
+    the whole-grid kernels (outside the rim for deeper passes) and against
+    the same tiles on the CPU's plain versions (`compare_outputs`)."""
+    from soda_tpu_torch.parallel.host_tile import run_host_tiled
+
+    p = _program(name)
+    ins, ps = rand_inputs(p, grid, np.random.default_rng(91))
+    stats = {}
+    before = _launches()
+    got = run_host_tiled(p, ins, ps, tiles=tiles, sweeps_per_pass=nf,
+                         in_flight=in_flight, stats=stats)
+    assert _launches() > before and stats["in_flight"] == in_flight
+    assert stats["h2d_bytes"] > 0 and stats["d2h_bytes"] > 0
+    whole = to_numpy(p, cuda.run(p, ins, ps, device=cuda_device))
+    depth = nf or max(p.iterate, 1)
+    rim = 0 if depth == 1 else p.valid_rim()
+    inner = tuple(slice(rim, d - rim) for d in grid)
+    for k in whole:
+        assert np.array_equal(got[k][inner].view(np.uint8), whole[k][inner].view(np.uint8)), k
+    cpu = run_host_tiled(p, ins, ps, tiles=tiles, sweeps_per_pass=nf, device="cpu")
+    assert compare_outputs(p, got, cpu, 0)
+
+
+@pytest.mark.gpu
+def test_build_fn_writes_into_buffers_made_once(cuda_device):
+    p = _program("residual2d")
+    ins, ps = rand_inputs(p, (96, 136), np.random.default_rng(92))
+    tins, tps = to_torch(p, ins, ps, cuda_device)
+    fn = cuda.build_fn(p, grid_shape=(96, 136), sweeps=1)
+    bufs = fn.alloc(cuda_device)
+    got = fn(tins, tps, bufs=bufs)
+    assert any(got[k].data_ptr() == b[k].data_ptr() for b in bufs for k in got)
+    want = fn(tins, tps)
+    assert all(torch.equal(got[k], want[k]) for k in got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["gauss5x5", "erode2d", "seidel2d"])
+@pytest.mark.parametrize("shape", [(64, 256), (37, 45)])
+def test_tcse_programs_on_the_card(cuda_device, name, shape):
+    """The rewritten program's kernels against its plain version and its
+    oracle on the whole grid, and against the original's kernels outside
+    the rewritten program's rim."""
+    from soda_tpu_torch.optimize import tcse
+
+    p = _program(name)
+    q = tcse.apply(p)
+    ins, ps = rand_inputs(p, shape, np.random.default_rng(93))
+    got = to_numpy(q, cuda.run(q, ins, ps, device=cuda_device))
+    assert compare_outputs(q, got, to_numpy(q, eager.run(q, ins, ps, device=cuda_device)), 0)
+    assert compare_outputs(q, got, oracle(q, ins, ps), 0)
+    orig = to_numpy(p, cuda.run(p, ins, ps, device=cuda_device))
+    assert compare_outputs(p, got, orig, q.valid_rim())

@@ -11,7 +11,11 @@ other stage keeps int64_t.  No card here, so:
   using every integer operator, one whose product overflows int32), runs
   as its row-march compiled to host C++ (`-DSODA_HOST_EMULATION`) on
   inputs at the extremes of their dtypes (all max, all min, alternating),
-  bit for bit against the JAX package's NumPy oracle.
+  bit for bit against the JAX package's NumPy oracle;
+- so do the integer rank-3 programs (`INT3D_SOURCES`) through kernel 1's
+  z-march and a hand-made rank-1 program using every integer operator
+  through kernel 4 (the windows kernel), which print their stages with the
+  same `column_run`.
 """
 
 import math
@@ -24,13 +28,13 @@ import torch
 
 from soda_tpu.frontend import parser as lark_parser
 from soda_tpu.interp import numpy_interp
-from soda_tpu_torch.backend import linebuffer2d, sweeps
+from soda_tpu_torch.backend import linebuffer, linebuffer2d, sweeps, windows
 from soda_tpu_torch.backend.cuda_codegen import int32_exact, int_range
 from soda_tpu_torch.backend.io import to_numpy, to_torch
 from soda_tpu_torch.frontend.parser import parse
 from soda_tpu_torch.ir.dtypes import torch_dtype
 from soda_tpu_torch.plan.planner import plan
-from soda_tpu_torch.utils.testing import RANK2_CORPUS
+from soda_tpu_torch.utils.testing import INT3D_SOURCES, RANK2_CORPUS
 
 torch.set_num_threads(1)
 
@@ -49,6 +53,13 @@ output int16: d(0, 0) = int16(((c(0, 0) & 1023) | (c(-1, 0) ^ c(1, 0))) + (~c(0,
 MUL32 = """kernel: mul32
 input int32: x(64, *)
 output int32: y(0, 0) = x(0, 0) * x(0, 1) + x(1, 0)
+"""
+# the same operators on rank 1, for the windows kernel
+OPS1D = """kernel: ops1d
+input int16: a(*)
+input uint8: b(*)
+local int32: c(0) = (a(-1) % 7) + (a(1) >> 3) + (int32(b(0)) << 4) - (a(0) / -5) + (!(a(2) > 0)) + a(-2) * b(2)
+output int16: d(0) = int16(((c(0) & 1023) | (c(-1) ^ c(1))) + (~c(0)) + (c(0) > 0 ? -c(0) : abs(c(1))) + max(c(0), c(-1)) - min(int32(b(0)), int32(b(1))))
 """
 SOURCES = {n: (SODA / f"{n}.soda").read_text() for n in RANK2_CORPUS}
 SOURCES.update(ops16=OPS16, mul32=MUL32)
@@ -112,6 +123,17 @@ def test_a_stage_tap_ranges_over_what_the_stage_stores():
     # a tap of a stage whose expression can leave its type: the type's range
     q = PROGRAMS["ops16"]
     assert int_range(q, q.tensors["d"].expr) == (-32768, 32767)
+
+
+def test_rank1_and_rank3_integer_stages_narrow_where_proven():
+    r1 = parse(OPS1D)
+    assert {s: int32_exact(r1, r1.tensors[s].expr) for s in r1.stage_order()} == {
+        "c": True, "d": True}
+    r3 = {n: parse(s) for n, s in INT3D_SOURCES.items()}
+    assert {(n, s): int32_exact(p, p.tensors[s].expr)
+            for n, p in r3.items() for s in p.stage_order()} == {
+        ("box7_u16", "b"): True, ("divneg_i16", "d"): True,
+        ("divneg_i16", "o"): True}
 
 
 @pytest.mark.parametrize("name,narrow", [
@@ -193,5 +215,39 @@ def test_emulated_integer_programs_at_dtype_extremes(gxx, name):
             values.update(outs)
         got = to_numpy(p, {o: values[o] for o in p.output_names})
         gold = numpy_interp.run(ref, ins, {}, iterate=1)
+        for o in gold:
+            assert np.array_equal(got[o], gold[o]), (pattern, o)
+
+
+@pytest.mark.parametrize("name,shape,plan_kw", [
+    ("box7_u16", (6, 21, 40), dict(tile=(8, 32), bz=4)),
+    ("divneg_i16", (6, 21, 40), dict(tile=(8, 32), bz=4)),
+    ("ops1d", (300,), dict(block=(32,))),
+])
+def test_emulated_rank1_and_rank3_integer_programs_at_dtype_extremes(
+        gxx, name, shape, plan_kw):
+    """The integer rank-3 programs through kernel 1 and a rank-1 program
+    through kernel 4 (host C++), on grids of several CTAs a dim, at their
+    dtype extremes, bit for bit against the oracle."""
+    src = INT3D_SOURCES.get(name, OPS1D)
+    p, ref = parse(src), lark_parser.parse(src)
+    wrapper = linebuffer.GroupKernel if p.rank == 3 else windows.GroupKernel
+    pl = plan(p, shape, **plan_kw)
+    assert {g.kernel for g in pl.groups} == {
+        "linebuffer3d" if p.rank == 3 else "windows"}
+    kernels = []
+    for g in pl.groups:
+        k = wrapper(p, g)
+        kernels.append((k, g, k.build(emulate=True).lib.soda_launch))
+    for pattern, ins in _extremes(p, shape):
+        values, tps = to_torch(p, ins, {}, "cpu")
+        values = dict(values)
+        for k, g, entry in kernels:
+            outs = {o: torch.empty(shape, dtype=torch_dtype(p.tensors[o].type))
+                    for o in g.outputs}
+            k.launch(entry, values, tps, outs, 0)
+            values.update(outs)
+        got = to_numpy(p, {o: values[o] for o in p.output_names})
+        gold = numpy_interp.run(ref, ins, {})
         for o in gold:
             assert np.array_equal(got[o], gold[o]), (pattern, o)

@@ -390,10 +390,14 @@ def test_report_bound_per_call_and_per_program():
 
 
 @pytest.mark.parametrize("src,ops", [
-    # f32: 3 adds, a multiply; f64 twice that; integers (int64) four times
+    # f32: 3 adds, a multiply; f64 twice that; integers carried in int64 four times
     ("input float: a(16, *)\noutput float: b(0, 0) = (a(0, 1) + a(0, -1) + a(1, 0) + a(-1, 0)) * 0.25f", 4),
     ("input double: a(16, *)\noutput double: b(0, 0) = (a(0, 1) + a(0, -1) + a(1, 0) + a(-1, 0)) * 0.25", 8),
     ("input int64: a(16, *)\noutput int64: b(0, 0) = (a(0, 1) + a(0, -1) + a(1, 0) + a(-1, 0)) / 4", 16),
+    # integers carried in int32 (the range analysis proves it) twice
+    ("input uint16: a(16, *)\noutput uint16: b(0, 0) = (a(0, 1) + a(0, -1) + a(1, 0) + a(-1, 0)) / 4", 8),
+    # an int32 product that leaves int32 keeps int64 carriers: four times
+    ("input int32: a(16, *)\noutput int32: b(0, 0) = a(0, 1) * a(0, -1) + a(1, 0)", 8),
     # a float compare weighs 1 though its result is an int; the select 1
     ("input float: a(16, *)\noutput float: b(0, 0) = a(0, 1) > a(0, 0) ? a(0, 1) : a(0, 0)", 2),
 ])
