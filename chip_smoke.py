@@ -54,7 +54,8 @@ Phases (any failure exits nonzero):
    (8 / nf launches, nf > 1); then jacobi2d 16384^2 iterate 8 (1 GiB per
    array, beyond L2), jacobi2d_i64 2048^2 iterate 20, residual2d and
    denoise2p 8192^2, heat3d 256^3 and 512^3 iterate 4, each checked as in
-   phase 8 (the NumPy reference on the whole grid too) and timed with CUDA
+   phase 8 (the NumPy reference on the whole grid too, up to
+   `ORACLE_MAX_CELLS`) and timed with CUDA
    events three ways in turns (fused, chained, plain, plain, chained,
    fused), beside the device time of the fused kernel alone and of the
    chained kernels alone (`device_ms`), its bound per call (and what
@@ -114,7 +115,21 @@ Phases (any failure exits nonzero):
 16. the CLI on the card with no --device: `--tcse --report --dump-plan
    --run` on gauss5x5, `--host-tile auto --hbm-budget 8 MiB
    --host-tile-sweeps auto --run` on jacobi2d 2048^2, and `--benchmark`
-   on jacobi3d 512^3 (CUDA events, beside phase 4's figure).
+   on jacobi3d 512^3 (CUDA events, beside phase 4's figure);
+17. the mesh on the card (`parallel/mesh.py`), every shard on cuda:0: the
+   on-card copy rate of a 1 GiB copy; then (`MESH_ROWS`) a. jacobi3d
+   512^3 (kernel 1) on a 2x2 mesh, synchronous and overlapped, each bit for
+   bit against the whole-grid kernel and the overlap against the
+   synchronous run; b. jacobi2d 2048^2 x 8 (kernel 3) on 4 shards at one
+   sweep an exchange (bit for bit) and at the automatic cadence (8, bit
+   for bit outside `valid_rim()`); c. the same on `dcn:2,x:2` with the
+   nested cadence {dcn: 8, x: 2} (outside the rim); d. blur 2047x4095
+   uint16 (kernel 2) and e. smooth1d 2^24 + 3 (kernel 4) on 4 shards,
+   padded to shard, bit for bit; each run's kernel launches must equal the
+   group calls its shards made, and each prints ms a call by CUDA events
+   beside the whole-grid `build_fn` in turns (whole, mesh, whole), the
+   bytes exchanged a call, and the shards' plans; f. `sodac jacobi3d.soda
+   --grid-shape 512,512,512 --mesh 2,2 --device cuda:0 --run` exits 0.
 
 Each phase logs the seconds since the start when it ends.  Phases 4 and
 7 run their programs one sweep per call (`sweeps=1`), so
@@ -168,6 +183,10 @@ AT_SIZE_SWEEPS = (("jacobi2d", (2048, 2048)), ("jacobi2d", (16384, 16384)),
                   ("denoise2p", (8192, 8192)), ("heat3d", (256, 256, 256)),
                   ("heat3d", (512, 512, 512)))
 MAIN_SWEEPS = AT_SIZE_SWEEPS[0]
+# phase 9 runs the NumPy oracle on the host up to this many cells (the same
+# programs at 2048^2 and 256^3 have it); past it, a row is held against the
+# chained kernels and the plain version on the card
+ORACLE_MAX_CELLS = 2**26
 DEPTH_SWEEP = AT_SIZE_SWEEPS   # every fused row at every depth that fits
 KERNEL_TOL = 1e-4   # f32 kernel vs plain (the same IEEE operations, no FMA)
 LIBRARY_TOL = 1e-4  # the library call vs the kernel (another summation order)
@@ -188,6 +207,23 @@ TCSE_MAIN = ("gauss5x5", (16384, 16384))
 HOST_TILED = (("jacobi3d", (1024, 1024, 1024), 1, 2 * 2**30),
               ("jacobi2d", (32768, 32768), "auto", 2 * 2**30))
 CLI_HOST_TILED = ("jacobi2d", (2048, 2048), 8 * 2**20)
+# the mesh on the card (phase 17), every shard on cuda:0: (row, program,
+# grid, axis sizes, axis names, sharded dims, runs of (cadence, overlap,
+# bit for bit on the whole grid: else outside `valid_rim()`))
+MESH_ROWS = (
+    ("a", "jacobi3d", (512, 512, 512), (2, 2), None, (0, 1),
+     ((1, False, True), (1, True, True))),
+    ("b", "jacobi2d", (2048, 2048), (4,), None, (0,),
+     ((1, False, True), (None, False, False))),
+    ("c", "jacobi2d", (2048, 2048), (2, 2), ("dcn", "x"), (0, 1),
+     (({"dcn": 8, "x": 2}, False, False),)),
+    ("d", "blur", (2047, 4095), (4,), None, (0,), ((None, False, True),)),
+    ("e", "smooth1d", (2**24 + 3,), (4,), None, (0,), ((None, False, True),)),
+)
+MESH_CLI = ["jacobi3d.soda", "--grid-shape", "512,512,512", "--mesh", "2,2",
+            "--device", "cuda:0", "--run"]
+MESH_REPS = 10
+MESH_SLEEPS = 4      # the sleep that covers a mesh call's enqueue: 6 ms
 PINNED_COPY_BYTES = 2**30
 SLEEP_CYCLES = 3_000_000   # at most 1.98 GHz: at least 1.5 ms
 SLEEP_COVERS_S = 1e-3
@@ -209,19 +245,20 @@ def events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float | None:
+def device_ms(fn, reps: int, sleeps: int = 1) -> float | None:
     """Device time of the kernels one `fn()` enqueues, in ms (the mean of
-    `reps`), by CUDA events: a sleep kernel holds the stream while the host
-    enqueues the start event, `fn`'s kernels and the end event, so no host
-    gap is timed.  None ("not measured") where the host took longer to
-    enqueue than the sleep lasts.  (torch.profiler on the card's machine
-    dropped kernel records after a few profiles in one process.)"""
+    `reps`), by CUDA events: a sleep kernel (`sleeps` x SLEEP_CYCLES) holds
+    the stream while the host enqueues the start event, `fn`'s kernels and
+    the end event, so no host gap is timed.  None ("not measured") where
+    the host took longer to enqueue than the sleep lasts.  (torch.profiler
+    on the card's machine dropped kernel records after a few profiles in
+    one process.)"""
     import torch
 
     total = 0.0
     for _ in range(reps):
         torch.cuda.synchronize()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(SLEEP_CYCLES * sleeps)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
@@ -229,7 +266,7 @@ def device_ms(fn, reps: int) -> float | None:
         end.record()
         host_s = time.perf_counter() - t0
         torch.cuda.synchronize()
-        if host_s > SLEEP_COVERS_S:
+        if host_s > SLEEP_COVERS_S * sleeps:
             log(f"device time: the host enqueued for {host_s * 1e3:.3f} ms, longer "
                 f"than the sleep; not measured")
             return None
@@ -325,7 +362,7 @@ def main() -> int:
     from soda_tpu_torch.cli import sodac
     from soda_tpu_torch.frontend.parser import parse, parse_file
     from soda_tpu_torch.optimize import tcse
-    from soda_tpu_torch.parallel import host_tile
+    from soda_tpu_torch.parallel import host_tile, mesh
     from soda_tpu_torch.plan.planner import fused_depths, plan
     from soda_tpu_torch.utils import report
     from soda_tpu_torch.utils.testing import (CORPUS, INT3D_SOURCES,
@@ -442,6 +479,17 @@ def main() -> int:
         it = max(p.iterate, 1)
         add_jobs(p, tilings[(n, shape)][2], iterate=None if nf == it else nf)
         add_jobs(p, shape)     # the whole-grid run it is held against
+    # the mesh's shards (phase 17): each run's local plans, and the whole grid
+    mesh_fns = {}
+    for row, n, shape, sizes, names, dims, runs in MESH_ROWS:
+        on_card = mesh.make_mesh(sizes, names, [dev] * math.prod(sizes))
+        for i, (cadence, overlap, _) in enumerate(runs):
+            mesh_fns[(row, i)] = fn = mesh.build_sharded_fn(
+                allp[n], on_card, grid_shape=shape, dims=dims,
+                sweeps_per_exchange=cadence, overlap=overlap)
+            for pl in fn.local_plans().values():
+                add_plan(allp[n], pl)
+        add_jobs(allp[n], shape)
     gauss_cli = rewritten["gauss5x5"]
     add_jobs(gauss_cli, sodac._grid_shape(gauss_cli, sodac.make_parser().parse_args(
         [str(CORPUS / "gauss5x5.soda")])))
@@ -836,8 +884,8 @@ def main() -> int:
         del plain
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        ok_oracle = compare_outputs(p, to_numpy(p, got),
-                                    oracle(p, {k: v.cpu().numpy() for k, v in ins.items()}, {}), 0)
+        ok_oracle = math.prod(shape) > ORACLE_MAX_CELLS or compare_outputs(
+            p, to_numpy(p, got), oracle(p, {k: v.cpu().numpy() for k, v in ins.items()}, {}), 0)
         oracle_s = time.perf_counter() - t0
         ok = nf > 1 and ok_bits and ok_plain and ok_oracle
         if main_path:
@@ -871,8 +919,9 @@ def main() -> int:
             f"{f', launches {launches}' if main_path else ''}; chained "
             f"{'bit for bit' if ok_bits else 'MISMATCH'}, max|fused-plain| {err:.3g} "
             f"plain {'ok' if ok_plain else 'MISMATCH'}, oracle "
-            f"{'ok' if ok_oracle else 'MISMATCH'} ({oracle_s:.1f} s on the host); "
-            f"ms/sweep fused {f_ms:.4f} [{t[0]:.4f}, {t[5]:.4f}]/{it} (kernel alone "
+            + (f"{'ok' if ok_oracle else 'MISMATCH'} ({oracle_s:.1f} s on the host); "
+               if math.prod(shape) <= ORACLE_MAX_CELLS else "not run (past 2^26 cells); ")
+            + f"ms/sweep fused {f_ms:.4f} [{t[0]:.4f}, {t[5]:.4f}]/{it} (kernel alone "
             f"{fmt(dev_ms)}) chained {c_ms:.4f} [{t[1]:.4f}, {t[4]:.4f}]/{it} (kernels "
             f"alone {fmt(dev_c)}) "
             f"plain {p_ms:.4f} [{t[2]:.4f}, {t[3]:.4f}]/{it}; bound per call "
@@ -1269,6 +1318,84 @@ def main() -> int:
             return 1
 
     mark(16)
+
+    # ---- 17. the mesh on the card: every shard on cuda:0 -----------------------
+    src = torch.empty(PINNED_COPY_BYTES // 4, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    copy_ms = events_ms(lambda: dst.copy_(src), 5)
+    log(f"mesh: on-card copy of {PINNED_COPY_BYTES} B in {copy_ms:.4f} ms: "
+        f"{PINNED_COPY_BYTES / (copy_ms / 1e3) / 1e9:.1f} GB/s copied (each byte read "
+        f"once and written once); card {card}")
+    del src, dst
+    for row, n, shape, sizes, names, dims, runs in MESH_ROWS:
+        p = allp[n]
+        ins = device_inputs(p, shape, gen, dev)
+        whole_fn = cuda.build_fn(p, grid_shape=shape)
+        whole = whole_fn(ins, {})
+        whole_ms = [events_ms(lambda: whole_fn(ins, {}), MESH_REPS)]
+        got_runs = []
+        for i, (cadence, overlap, exact) in enumerate(runs):
+            fn = mesh_fns[(row, i)]
+            before = launch_count()
+            got = fn(ins, {})
+            torch.cuda.synchronize()
+            launched = launch_count() - before
+            calls = fn.stats["group_calls"]
+            rim = 0 if exact else p.valid_rim()
+            inner = tuple(slice(rim, d - rim) for d in shape)
+            ok = launched == calls > 0 and bitwise_equal(
+                {k: v[inner].contiguous() for k, v in got.items()},
+                {k: whole[k][inner].contiguous() for k in got})
+            ms = events_ms(lambda: fn(ins, {}), MESH_REPS)
+            whole_ms.append(events_ms(lambda: whole_fn(ins, {}), MESH_REPS))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MESH_REPS):
+                fn(ins, {})
+            host_ms = (time.perf_counter() - t0) * 1e3 / MESH_REPS
+            alone = device_ms(lambda: fn(ins, {}), 3, MESH_SLEEPS)
+            whole_alone = device_ms(lambda: whole_fn(ins, {}), 3)
+            plans = "; ".join(
+                f"{'x'.join(map(str, key[0]))} x{key[1]}: "
+                + ", ".join(f"{g.kernel} sweeps={g.sweeps}" for g in pl.groups)
+                for key, pl in fn.local_plans().items())
+            log(f"mesh {row} {n} {shape} over {'x'.join(map(str, sizes))}"
+                f"{' ' + ','.join(names) if names else ''} on cuda:0, dims {dims}, "
+                f"cadence {fn.sweeps_per_exchange}, {'overlap' if overlap else 'sync'}: "
+                f"shards of {'x'.join(map(str, fn.shard_shape))} ({plans}); launches "
+                f"{launched}/{calls}; {'bit for bit' if ok else 'MISMATCH'} against the "
+                f"whole grid{'' if exact else f' outside the rim {rim}'}; "
+                f"{fn.stats['exchange_bytes']} B exchanged a call; {ms:.4f} ms a call "
+                f"(events), whole grid {whole_ms[-2]:.4f} / {whole_ms[-1]:.4f}; alone "
+                f"{fmt(alone)}, whole grid alone {fmt(whole_alone)}; the host's enqueue "
+                f"{host_ms:.4f} ms a call; card {card}")
+            if not ok:
+                log(f"FAILED mesh check: row {row} run {i}")
+                return 1
+            got_runs.append(got)
+        if row == "a" and not bitwise_equal(got_runs[1], got_runs[0]):
+            log("FAILED mesh check: row a, overlap against the synchronous run")
+            return 1
+        del ins, whole, got_runs, whole_fn
+        for i in range(len(runs)):
+            del mesh_fns[(row, i)]
+        torch.cuda.empty_cache()
+    buf = io.StringIO()
+    before = launch_count()
+    with contextlib.redirect_stdout(buf):
+        rc = sodac.main([str(CORPUS / MESH_CLI[0]), *MESH_CLI[1:]])
+    torch.cuda.synchronize()
+    launched = launch_count() - before
+    last = [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith(("mesh:", "executed", "OK", "MISMATCH"))]
+    log(f"mesh f: sodac {' '.join(MESH_CLI)}: rc {rc}, kernel launches {launched}; "
+        + " | ".join(last))
+    if rc != 0 or launched < 1 or "OK" not in last:
+        log("FAILED mesh check: row f (the CLI)")
+        return 1
+
+    mark(17)
     j, b, f = summary["jacobi3d"], summary2[MAIN_2D], summary3[MAIN_SWEEPS]
     log(card)
     log(json.dumps({"kernels": [{

@@ -34,11 +34,17 @@ the kernel's at the extended tile shape.  `--sweeps N` asks for N fused
 sweeps a kernel call, `--block` pins the windows kernel, `--smem-budget`
 bounds a CTA's shared memory (the counterpart of `--vmem-budget`).
 
+`--mesh 2,2` (or named axes, `dcn:2,x:2`) shards the grid over a mesh of
+devices (`parallel/mesh.py`): `--device cuda` over the visible cards,
+`--device cuda:N` every shard on card N, `--device cpu` on CPU shards; with
+`--host-tile`, every tile is sharded.  `--sweeps-per-exchange K[,K..]` sets
+the exchange cadence, `--mesh-local-backend cuda|eager` what each shard
+runs, `--mesh-overlap` overlaps the exchange with the shards' interiors,
+`--link-model` calibrates the links that choose the automatic cadence (an
+axis named `dcn*` rides the slow link).
+
 Not ported: `--interpret` (use `--device cpu`), `--lb-engine` and
-`--compile-cache` (TPU-only), `--pallas-driver` (here `--torch-driver`),
-and the mesh flags (`--mesh`, `--sweeps-per-exchange`,
-`--mesh-local-backend`, `--mesh-overlap`, `--link-model`), which wait for
-the port of `parallel/mesh.py`.
+`--compile-cache` (TPU-only), `--pallas-driver` (here `--torch-driver`).
 
     python -m soda_tpu_torch.cli.sodac tests/soda/blur.soda \\
         --grid-shape 2048,4096 --run
@@ -97,6 +103,58 @@ def _count_or_auto(s: str):
     return k
 
 
+def _parse_mesh(s: str):
+    """'2,4' (or '2x4') or 'dcn:2,x:4' -> (sizes, names, link classes).
+
+    An axis named dcn* rides the slow link between hosts
+    (`mesh.SLOW_LINK`), every other axis the fast one (`mesh.FAST_LINK`).
+    Unnamed axes are ax0, ax1, ...  The 'x' separator applies only to the
+    unnamed form ('x' is an axis name in the named form)."""
+    from ..parallel.mesh import FAST_LINK, SLOW_LINK
+
+    if ":" not in s:
+        s = s.replace("x", ",")
+    sizes, names = [], []
+    for i, part in enumerate(p for p in s.split(",") if p):
+        name, size = part.split(":", 1) if ":" in part else (f"ax{i}", part)
+        names.append(name)
+        sizes.append(int(size))
+    links = {n: (SLOW_LINK if n.startswith("dcn") else FAST_LINK) for n in names}
+    return tuple(sizes), tuple(names), links
+
+
+def _parse_cadence(s: str | None, axis_names):
+    """'4' (every axis) or '4,2' (one per mesh axis) -> int | dict | None."""
+    if s is None:
+        return None
+    try:
+        ks = [int(x) for x in s.split(",") if x]
+    except ValueError:
+        raise SystemExit(f"--sweeps-per-exchange: want integers, got {s!r}") from None
+    if len(ks) == 1:
+        return ks[0]
+    if len(ks) != len(axis_names):
+        raise SystemExit(f"--sweeps-per-exchange: {len(ks)} values for "
+                         f"{len(axis_names)} mesh axes")
+    return dict(zip(axis_names, ks))
+
+
+def _make_mesh(args):
+    """The --mesh over --device: 'cpu' CPU shards, 'cuda:N' every shard on
+    card N, 'cuda' one shard a visible card."""
+    from ..parallel.mesh import make_mesh
+
+    sizes, names, _ = args.mesh
+    n = math.prod(sizes)
+    devices = (["cpu"] * n if args.device == "cpu"
+               else [args.device] * n if ":" in args.device else None)
+    try:
+        return make_mesh(sizes, names, devices)
+    except ValueError as e:
+        raise SystemExit(f"--mesh: {e}; --device cuda:0 puts every shard on "
+                         f"card 0") from None
+
+
 def make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="sodac-torch",
@@ -148,6 +206,30 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hbm-budget", type=int, default=None,
                     help="device bytes for --host-tile auto (default: half "
                          "the card's free memory)")
+    ap.add_argument("--mesh", type=str, default=None,
+                    help="shard over a mesh of devices: sizes ('2,2') or named "
+                         "axes ('dcn:2,x:2'; an axis named dcn* rides the slow "
+                         "link and exchanges its halo less often); --device "
+                         "cuda shards over the visible cards, cuda:N puts "
+                         "every shard on card N, cpu on CPU shards")
+    ap.add_argument("--sweeps-per-exchange", type=str, default=None,
+                    metavar="K[,K...]",
+                    help="halo-exchange cadence for --mesh: one value, or one "
+                         "per mesh axis (each divides iterate, together a "
+                         "divisor chain); default: the modeled automatic one")
+    ap.add_argument("--mesh-local-backend", choices=["cuda", "eager"],
+                    default="cuda",
+                    help="what each shard runs under --mesh: the kernels "
+                         "(default) or the plain PyTorch sweeps")
+    ap.add_argument("--mesh-overlap", action="store_true",
+                    help="exchange the halos while the shards' interiors run "
+                         "(equal results; see parallel/mesh.py)")
+    ap.add_argument("--link-model", type=str, default=None,
+                    metavar="CLASS=GBPS:LAT[,...]",
+                    help="calibrate the links that pick the automatic "
+                         "cadence, e.g. 'nvlink=450:5e-6,ib=50:2e-5' (also "
+                         "SODA_LINK_MODEL); the defaults are modeled, not "
+                         "measured: see parallel/mesh.py")
     ap.add_argument("--unroll-iterate", type=int, nargs="?", const=0,
                     default=None, metavar="N",
                     help="unroll N sweeps into chained stage copies (no N: "
@@ -287,9 +369,10 @@ def _write_artifacts(program, grid_shape, args) -> bool:
     return did
 
 
-def _host_tiling(program, grid_shape, args):
+def _host_tiling(program, grid_shape, args, mesh_shape=None):
     """Resolve --host-tile / --host-tile-sweeps / --hbm-budget into the
-    tiling's geometry (`plan_host_tiling`), or exit naming the flag."""
+    tiling's geometry (`plan_host_tiling`), or exit naming the flag.  Under
+    --mesh (`mesh_shape`) the budget is a device's."""
     from ..parallel import host_tile
 
     budget = args.hbm_budget
@@ -306,9 +389,10 @@ def _host_tiling(program, grid_shape, args):
         nf = args.host_tile_sweeps
         if nf == "auto":
             nf, tiles = host_tile.choose_sweeps_per_pass(
-                program, grid_shape, tiles, budget)
+                program, grid_shape, tiles, budget, mesh_shape=mesh_shape)
         elif tiles is None:
-            tiles = host_tile.choose_host_tiles(program, grid_shape, budget, nf)
+            tiles = host_tile.choose_host_tiles(program, grid_shape, budget, nf,
+                                                mesh_shape=mesh_shape)
             logger.info("--host-tile auto -> %s", "x".join(map(str, tiles)))
         return host_tile.plan_host_tiling(program, grid_shape, tiles, nf)
     except ValueError as e:
@@ -335,6 +419,25 @@ def _footprint_warning(program, grid_shape, args) -> None:
             "whole-grid run will likely run out of memory; use --host-tile auto",
             grid_shape, foot / 2**30, budget / 2**30,
             "budget" if args.hbm_budget is not None else "free on the card")
+
+
+def _mesh_report_line(program, shape, tiling, mesh) -> str:
+    """The modeled halo exchange of a shard (of a tile, with --host-tile)
+    over a pass, beside the bytes of the shard's state with its halos."""
+    from ..parallel import host_tile
+
+    sizes, _, links = mesh
+    ext, nf = (tiling[2], tiling[4]) if tiling else (shape, max(program.iterate, 1))
+    xbytes, shard = host_tile.model_mesh_exchange(program, ext, sizes, None, nf)
+    state = math.prod(shard) * host_tile.storage_bytes(program, program.input_names)
+    xh = (f"{xbytes / 2**20:.1f} MiB" if xbytes >= 2**20
+          else f"{xbytes / 2**10:.1f} KiB")
+    return (f"  mesh{' per tile' if tiling else ''}: shards of "
+            f"{'x'.join(map(str, shard))} over {'x'.join(map(str, sizes))} "
+            f"devices; modeled {'+'.join(sorted(set(links.values())))} halo "
+            f"exchange {xh}/device/pass ({100 * xbytes / state:.2f}% of the "
+            f"shard's state bytes; cadence-invariant total, see "
+            f"parallel/host_tile.model_mesh_exchange)")
 
 
 def _verify(program, outs, gold, rim) -> bool:
@@ -419,6 +522,37 @@ def main(argv=None) -> int:
         raise SystemExit("--host-tile-sweeps needs --host-tile")
     if args.host_tile and args.backend == "eager":
         raise SystemExit("--host-tile runs the kernels: use --backend cuda")
+    mesh_flags = [f for f, v in (("--sweeps-per-exchange", args.sweeps_per_exchange),
+                                 ("--mesh-overlap", args.mesh_overlap),
+                                 ("--link-model", args.link_model)) if v]
+    if args.mesh_local_backend != "cuda":
+        mesh_flags.append("--mesh-local-backend")
+    if args.mesh is None and mesh_flags:
+        raise SystemExit(f"{', '.join(mesh_flags)} needs --mesh")
+    if args.mesh is not None:
+        if args.benchmark:
+            # refused from argv, as the reference does
+            raise SystemExit("--benchmark times one card's kernels on the whole "
+                             "grid: drop --mesh")
+        if args.backend != "cuda":
+            raise SystemExit("--mesh runs --mesh-local-backend on every shard: "
+                             "drop --backend")
+        if args.sweeps is not None or args.block or args.smem_budget is not None:
+            raise SystemExit("--sweeps, --block and --smem-budget plan the whole "
+                             "grid; under --mesh every shard is planned for its "
+                             "own shape")
+        try:
+            args.mesh = _parse_mesh(args.mesh)
+        except ValueError:
+            raise SystemExit(f"--mesh: want sizes ('2,2') or named axes "
+                             f"('dcn:2,x:2'), got {args.mesh!r}") from None
+        args.sweeps_per_exchange = _parse_cadence(args.sweeps_per_exchange, args.mesh[1])
+        if args.link_model:
+            from ..parallel.mesh import set_link_model
+            try:
+                set_link_model(args.link_model)
+            except ValueError as e:
+                raise SystemExit(str(e)) from None
     program = parse_file(args.soda_src, _overrides(args))
     updates_per_cell = 1
     if args.unroll_iterate is not None:
@@ -440,6 +574,12 @@ def main(argv=None) -> int:
         logger.info("tcse: %d adds -> %d", before, tcse.count_adds(program))
     print(program.describe())
     shape = _grid_shape(program, args)
+    if args.mesh is not None:
+        from ..parallel.host_tile import check_mesh_dims
+        try:
+            check_mesh_dims(program.rank, args.mesh[0])
+        except ValueError as e:
+            raise SystemExit(f"--mesh: {e}") from None
 
     plan_kw = {k: v for k, v in (("sweeps", args.sweeps), ("block", args.block),
                                  ("smem_budget", args.smem_budget))
@@ -449,13 +589,15 @@ def main(argv=None) -> int:
         if args.host_tile:
             # the plan (and the report) of the kernel every tile runs: at
             # the halo-extended tile shape and the pass's sweeps
-            tiling = _host_tiling(program, shape, args)
+            tiling = _host_tiling(program, shape, args,
+                                  args.mesh[0] if args.mesh else None)
             _, _, ext, _, nf, _, _ = tiling
             the_plan = plan(program, ext, **plan_kw,
                             iterate=None if nf == max(program.iterate, 1) else nf)
         else:
             the_plan = plan(program, shape, **plan_kw)
-            _footprint_warning(program, shape, args)
+            if args.mesh is None:
+                _footprint_warning(program, shape, args)
     except ValueError as e:
         raise SystemExit(f"no CUDA plan: {e}") from None
     print(the_plan.describe())
@@ -487,6 +629,8 @@ def main(argv=None) -> int:
                   f"{rep.plan_bytes_per_cell_update * ov:.3f} B/cell-update on "
                   f"the card = per tile x amplification; {link / 2**20:.1f} MiB "
                   f"across the host link a pass")
+        if args.mesh is not None:
+            print(_mesh_report_line(program, shape, tiling, args.mesh))
     _write_artifacts(program, shape, args)
 
     if not (args.run or args.benchmark):
@@ -529,20 +673,45 @@ def _run_and_verify(program, the_plan, tiling, shape, ins, ps, args, plan_kw) ->
         from ..parallel.host_tile import run_host_tiled
         tiles, _, _, _, nf, _, _ = tiling
         st = {}
+        mesh_kw = {}
+        if args.mesh is not None:
+            # every tile sharded over the mesh
+            mesh_kw = dict(
+                mesh=_make_mesh(args), link_classes=args.mesh[2],
+                local_backend=args.mesh_local_backend,
+                sweeps_per_exchange=args.sweeps_per_exchange, overlap=args.mesh_overlap)
         outs = run_host_tiled(program, ins, ps, tiles=tiles, sweeps_per_pass=nf,
-                              device=args.device, stats=st, **plan_kw)
-        # deeper passes differ from the whole grid inside the rim, by design
-        rim = 0 if nf == 1 else program.valid_rim()
+                              device=args.device, stats=st, **plan_kw, **mesh_kw)
+        # deeper passes differ from the whole grid inside the rim, by design,
+        # and so do a mesh's shards of a multi-stage program at the grid's edge
+        rim = 0 if nf == 1 and not mesh_kw else program.valid_rim()
         print(f"host tiling: {st['n_tiles']} tiles, {st['passes']} pass(es), "
               f"{sum(st['pass_seconds']):.3f} s; {st['h2d_bytes']} B to the "
-              f"card, {st['d2h_bytes']} B back")
+              f"card, {st['d2h_bytes']} B back"
+              + (f"; {st['mesh_exchange_bytes']} B between shards" if mesh_kw else ""))
+    elif args.mesh is not None:
+        from ..parallel.mesh import run_sharded
+        sizes, _, links = args.mesh
+        st = {}
+        outs = to_numpy(program, run_sharded(
+            program, ins, ps, mesh=_make_mesh(args), link_classes=links,
+            sweeps_per_exchange=args.sweeps_per_exchange,
+            local_backend=args.mesh_local_backend, overlap=args.mesh_overlap,
+            stats=st))
+        rim = program.valid_rim()
+        print(f"mesh: {'x'.join(map(str, sizes))} shards of "
+              f"{'x'.join(map(str, st['shard_shape']))} on {st['devices']}, "
+              f"{st['sweeps_per_exchange']} sweep(s) an exchange; "
+              f"{st['exchange_bytes']} B between shards, {st['group_calls']} "
+              f"group calls")
     elif args.backend == "eager":
         outs = to_numpy(program, eager.run(program, ins, ps, device=args.device))
     else:
         outs = to_numpy(program, cuda.run(program, ins, ps, device=args.device,
                                           the_plan=the_plan))
     wall = time.perf_counter() - t0
-    print(f"executed {program.name} on {shape} ({args.backend}, {args.device}): "
+    print(f"executed {program.name} on {shape} ({args.backend}"
+          f"{' mesh' if args.mesh else ''}, {args.device}): "
           f"{wall:.3f} s (kernel builds included)")
     if args.backend == "numpy":
         return 0

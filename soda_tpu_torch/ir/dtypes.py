@@ -45,8 +45,8 @@ def torch_dtype(t: ScalarType) -> torch.dtype:
     if t.is_int and t.width > 64:
         raise UnsupportedTypeError(
             f"{t}: integers wider than 64 bits are not ported to torch yet "
-            f"(ROADMAP.md queue 1, item 8); run soda_tpu's XLA backend or "
-            f"the NumPy oracle")
+            f"(ROADMAP.md queue 1, the `wide128` item); run soda_tpu's XLA "
+            f"backend or the NumPy oracle")
     return from_numpy_dtype(t.np_dtype())
 
 
@@ -63,4 +63,4 @@ def check_types_supported(program) -> None:
             raise UnsupportedTypeError(
                 f"{name}: {t} needs an unsigned 64-bit carrier, and torch "
                 f"has no uint64 arithmetic; not ported yet (ROADMAP.md "
-                f"queue 1, item 8)")
+                f"queue 1, the `wide128` item)")

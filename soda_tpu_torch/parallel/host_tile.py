@@ -1,14 +1,17 @@
 """Host tiling: a grid larger than the card runs as a loop over
 overlapping tiles.
 
-The port of `soda_tpu/parallel/host_tile.py`, without the mesh (its
-arguments, `_shard_ext_shape` and `model_mesh_exchange` come with the
-port of `parallel/mesh.py`).  The full grid lives in host memory as numpy
-arrays; each tile is extended by a zero-filled halo, runs through the
-port's main path (`backend/cuda.py::build_fn`: kernels 1 to 4 and the
-fused sweeps), and the tile's interior is stitched back on the host.  Only
-two extended tiles at a time touch the card, so the grid is bounded by host
-memory, not by the card's 80 GB.
+The port of `soda_tpu/parallel/host_tile.py`.  The full grid lives in host
+memory as numpy arrays; each tile is extended by a zero-filled halo, runs
+through the port's main path (`backend/cuda.py::build_fn`: kernels 1 to 4
+and the fused sweeps), and the tile's interior is stitched back on the
+host.  Only two extended tiles at a time touch the card, so the grid is
+bounded by host memory, not by the card's 80 GB.  With a mesh
+(`run_host_tiled(mesh=...)`) each tile runs sharded over it
+(`parallel/mesh.py::build_sharded_fn`): host tiles, then mesh shards, then
+the kernels' tiles, for a grid larger than all the mesh's devices; the
+budget is then per device (`_shard_ext_shape`), and `model_mesh_exchange`
+models the halo bytes a tile's shards exchange.
 
 The geometry is the reference's:
 - halo per tiled dim = the chain creep of one sweep x sweeps per pass,
@@ -112,9 +115,73 @@ def storage_bytes(program: StencilProgram, names) -> int:
     return sum(program.tensors[n].type.np_dtype().itemsize for n in names)
 
 
+def check_mesh_dims(rank: int, mesh_shape, mesh_dims=None) -> tuple[int, ...]:
+    """The grid dims that the axes of a mesh of `mesh_shape` shard (default:
+    the leading ones), one distinct dim of the grid per axis; a ValueError
+    names the mesh and the grid's rank otherwise."""
+    mesh_shape = tuple(mesh_shape)
+    if mesh_dims is None:
+        if len(mesh_shape) > rank:
+            raise ValueError(
+                f"a mesh of {len(mesh_shape)} axes {mesh_shape} cannot shard a "
+                f"grid of rank {rank}: one tensor dim per mesh axis")
+        return tuple(range(len(mesh_shape)))
+    dims = tuple(int(d) for d in mesh_dims)
+    if len(dims) != len(mesh_shape):
+        raise ValueError(f"mesh dims {dims} for a mesh of {len(mesh_shape)} axes "
+                         f"{mesh_shape}: one tensor dim per mesh axis")
+    if any(not 0 <= d < rank for d in dims) or len(set(dims)) != len(dims):
+        raise ValueError(f"mesh dims {dims} of the mesh {mesh_shape} must be "
+                         f"distinct dims of a grid of rank {rank}")
+    return dims
+
+
+def _shard_ext_shape(program: StencilProgram, ext_shape, mesh_shape,
+                     mesh_dims, nf: int) -> tuple[int, ...]:
+    """Shape of one device's shard when a (halo-extended) host tile of
+    `ext_shape` is sharded over a mesh of `mesh_shape` along `mesh_dims`
+    (default: the leading dims, as `mesh.build_sharded_fn`): each sharded
+    dim becomes ceil(ext / m) plus the exchange halo, at most the chain
+    creep x nf (the automatic cadence only shrinks it)."""
+    dims = check_mesh_dims(program.rank, mesh_shape, mesh_dims)
+    creep = program.chain_creep()
+    shard = list(ext_shape)
+    for m, d in zip(mesh_shape, dims):
+        lo, hi = -creep[d][0] * nf, creep[d][1] * nf
+        shard[d] = -(-ext_shape[d] // int(m)) + lo + hi
+    return tuple(shard)
+
+
+def model_mesh_exchange(program: StencilProgram, ext_shape, mesh_shape,
+                        mesh_dims, nf: int):
+    """Modelled halo-exchange bytes of one device in the middle of every
+    axis, for one mesh-sharded host tile over one pass of `nf` sweeps: each
+    sharded axis moves nf x (lo + hi) rows (lo, hi: the chain creep of one
+    sweep) whatever the cadence (cadence k moves k x (lo + hi) rows nf / k
+    times), which is what `mesh.halo_exchange` moves.  A row spans the
+    halos of the axes exchanged before it and the centres of those after
+    it (the exchange goes axis by axis in mesh order); its payload is the
+    inputs in their storage dtypes.  Returns (bytes, the shard's shape
+    with its halos)."""
+    dims = check_mesh_dims(program.rank, mesh_shape, mesh_dims)
+    shard = _shard_ext_shape(program, ext_shape, mesh_shape, dims, nf)
+    creep = program.chain_creep()
+    state = storage_bytes(program, program.input_names)
+    centre = {d: -(-ext_shape[d] // int(m)) for m, d in zip(mesh_shape, dims)}
+    per_dev = 0
+    for q, (m, d) in enumerate(zip(mesh_shape, dims)):
+        if int(m) <= 1:
+            continue
+        cross = math.prod(centre[e] if e in dims[q + 1:] else shard[e]
+                          for e in range(len(shard)) if e != d)
+        per_dev += nf * (-creep[d][0] + creep[d][1]) * cross * state
+    return per_dev, shard
+
+
 def choose_sweeps_per_pass(program: StencilProgram, grid_shape,
                            tiles=None, hbm_budget: int | None = None,
-                           iterate: int | None = None):
+                           iterate: int | None = None, mesh_shape=None,
+                           mesh_dims=None):
     """Pick `sweeps_per_pass` minimizing modeled streamed traffic: each
     pass streams every (halo-extended) tile across the host link once,
     and halos grow with chain-creep x nf, so small nf pays more passes
@@ -122,11 +189,14 @@ def choose_sweeps_per_pass(program: StencilProgram, grid_shape,
     every divisor nf of iterate by passes x (the tiles' extended input
     bytes + the grid's output bytes); ties prefer the DEEPER nf (fewer
     passes).  With tiles=None ('--host-tile auto'), tiles are re-chosen
-    per candidate under `hbm_budget`.  Returns (nf, tiles)."""
+    per candidate under `hbm_budget` (per device with `mesh_shape`, as
+    `choose_host_tiles`).  Returns (nf, tiles)."""
     if tiles is None and hbm_budget is None:
         raise ValueError(
             "choose_sweeps_per_pass needs explicit tiles or an "
             "hbm_budget to choose them under")
+    if mesh_shape:
+        check_mesh_dims(program.rank, mesh_shape, mesh_dims)
     it = max(program.iterate if iterate is None else iterate, 1)
     divisors = [k for k in range(1, it + 1) if it % k == 0]
     in_b = storage_bytes(program, program.input_names)
@@ -135,7 +205,8 @@ def choose_sweeps_per_pass(program: StencilProgram, grid_shape,
     for nf in divisors:
         try:
             ts = tiles if tiles is not None else choose_host_tiles(
-                program, grid_shape, hbm_budget, nf, iterate)
+                program, grid_shape, hbm_budget, nf, iterate, mesh_shape,
+                mesh_dims)
             _, _, ext, nt, _, passes, _ = plan_host_tiling(
                 program, grid_shape, ts, nf, iterate)
         except ValueError:
@@ -156,18 +227,26 @@ def choose_sweeps_per_pass(program: StencilProgram, grid_shape,
 
 def choose_host_tiles(program: StencilProgram, grid_shape,
                       hbm_budget: int, sweeps_per_pass: int | None = None,
-                      iterate: int | None = None) -> tuple[int, ...]:
+                      iterate: int | None = None, mesh_shape=None,
+                      mesh_dims=None) -> tuple[int, ...]:
     """Pick a tile shape whose device footprint fits `hbm_budget` bytes:
     repeatedly halve the largest leading dim (the last, contiguous dim
     last, floored at 256) until it fits.  Footprint = every program tensor
     at the halo-extended tile shape in its storage dtype (`half` 2 B, 64-bit
-    values 8 B), x 2 (two tiles in flight, or the feedback's two copies)."""
+    values 8 B), x 2 (two tiles in flight, or the feedback's two copies).
+    With `mesh_shape` (the tile runs sharded over a mesh) the budget is per
+    device: the footprint is taken at a shard's shape with its exchange
+    halos (`_shard_ext_shape`)."""
+    if mesh_shape:
+        check_mesh_dims(program.rank, mesh_shape, mesh_dims)
     tiles = list(normalize_tiles(grid_shape, (0,) * len(grid_shape)))
     per_cell = storage_bytes(program, program.tensors)
 
     def footprint(ts) -> int:
-        _, _, ext, _, _, _, _ = plan_host_tiling(
+        _, _, ext, _, nf, _, _ = plan_host_tiling(
             program, grid_shape, ts, sweeps_per_pass, iterate)
+        if mesh_shape:
+            ext = _shard_ext_shape(program, ext, mesh_shape, mesh_dims, nf)
         return math.prod(ext) * per_cell * 2
 
     rank = program.rank
@@ -220,7 +299,9 @@ def _fill(buf: torch.Tensor, grid: torch.Tensor, starts) -> None:
 def run_host_tiled(program: StencilProgram, inputs, params=None, *,
                    tiles, grid_shape=None, sweeps_per_pass=None,
                    iterate=None, device="cuda", in_flight: int = 2,
-                   stats: dict | None = None, **plan_kwargs) -> dict:
+                   stats: dict | None = None, mesh=None, mesh_dims=None,
+                   sweeps_per_exchange=None, local_backend="cuda",
+                   overlap=False, link_classes=None, **plan_kwargs) -> dict:
     """Run `program` over a grid held in host memory by looping
     overlapping tiles through the port's main path on `device` ("cuda",
     the default, or "cpu").  Inputs are numpy arrays (or CPU tensors) of
@@ -229,7 +310,17 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
     `in_flight` tiles share the card (2: tile k+1's copies overlap tile
     k's kernels; 1: one tile at a time).  `stats`, if given, receives the
     geometry, the wall seconds of each pass, and the bytes copied to and
-    from the card."""
+    from the card (and, with a mesh, between its shards).
+
+    With `mesh` (`parallel/mesh.py::Mesh`) each tile runs sharded over it
+    along `mesh_dims`, with the mesh's cadence, local backend, overlap and
+    link classes (`mesh.build_sharded_fn`); `device` is then the mesh's
+    first device, where a tile enters the sharded fn and its interior
+    comes back from.  A stitched cell lies at least creep x nf inside its
+    tile, outside the cadence's rim, so the contract is unchanged."""
+    if mesh is not None:
+        check_mesh_dims(program.rank, mesh.devices.shape, mesh_dims)
+        device = mesh.devices.flat[0]
     dev = resolve(device)
     if in_flight not in (1, 2):
         raise ValueError(f"in_flight is 1 or 2, not {in_flight}")
@@ -261,7 +352,19 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
     it_arg = None if (iterate is None and nf == max(program.iterate, 1)) else nf
     if plan_kwargs.get("sweeps") is None:
         plan_kwargs.pop("sweeps", None)
-    fn = build_fn(program, grid_shape=ext_shape, iterate=it_arg, **plan_kwargs)
+    if mesh is not None and plan_kwargs:
+        raise ValueError(f"{sorted(plan_kwargs)} plan a whole tile; over a mesh "
+                         f"every shard is planned for its own shape")
+    if mesh is not None:
+        # the sharded fn plans its shards' kernels itself and gathers a
+        # tile's outputs into tensors of its own, kept until stitched
+        from .mesh import build_sharded_fn
+        fn = build_sharded_fn(
+            program, mesh, grid_shape=ext_shape, dims=mesh_dims, iterate=nf,
+            sweeps_per_exchange=sweeps_per_exchange, local_backend=local_backend,
+            overlap=overlap, link_classes=link_classes)
+    else:
+        fn = build_fn(program, grid_shape=ext_shape, iterate=it_arg, **plan_kwargs)
     pars = params_to_torch(program, params, dev)
     on_card = dev.type == "cuda"
     slots = in_flight if on_card else 1
@@ -271,7 +374,7 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
     if on_card:
         dev_in = [{n: torch.empty(ext_shape, dtype=a.dtype, device=dev)
                    for n, a in host.items()} for _ in range(slots)]
-        dev_bufs = [fn.alloc(dev) for _ in range(slots)]
+        dev_bufs = [None if mesh is not None else fn.alloc(dev) for _ in range(slots)]
         stage_out = [{n: torch.empty(math.prod(tiles), dtype=dt, pin_memory=True)
                       for n, dt in outs_t.items()} for _ in range(slots)]
         copy_stream = torch.cuda.Stream(dev)
@@ -288,7 +391,15 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
     record = {"tiles": tuple(tiles), "halos": halos, "ext_shape": ext_shape,
               "n_tiles": n_tiles, "sweeps_per_pass": nf, "passes": passes,
               "read_amplification": overhead, "in_flight": slots,
-              "pass_seconds": [], "h2d_bytes": 0, "d2h_bytes": 0}
+              "pass_seconds": [], "h2d_bytes": 0, "d2h_bytes": 0,
+              "mesh_exchange_bytes": 0}
+
+    def run_tile(values, bufs):
+        if mesh is None:
+            return fn(values, pars, bufs=bufs)
+        outs = fn(values, pars)
+        record["mesh_exchange_bytes"] += fn.stats["exchange_bytes"]
+        return outs
 
     in0, out0 = program.input_names[0], program.output_names[0]
     values = host
@@ -296,12 +407,12 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
     for _ in range(passes):
         t0 = time.perf_counter()
         host_out = {n: torch.empty(grid_shape, dtype=dt) for n, dt in outs_t.items()}
-        pending: list = [None] * slots      # per slot: (dst, its cells' shape)
+        pending: list = [None] * slots   # per slot: (dst, cells' shape, outputs)
 
         def stitch(s: int) -> None:
             # the slot's copy to the host has landed: its interior goes
             # into the grid, and the slot's buffers may be reused
-            dst, shape = pending[s]
+            dst, shape, _ = pending[s]
             d2h_done[s].synchronize()
             for n, buf in stage_out[s].items():
                 host_out[n][dst].copy_(buf[:math.prod(shape)].view(shape))
@@ -316,7 +427,7 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
             for n, buf in stage_in[s].items():
                 _fill(buf, values[n], tuple(st - lo for st, (lo, _) in zip(starts, halos)))
             if not on_card:
-                outs = fn(dev_in[s], pars)
+                outs = run_tile(dev_in[s], None)
                 for n in outs_t:
                     host_out[n][dst].copy_(outs[n][src])
                 continue
@@ -326,7 +437,7 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
                 h2d_done[s].record(copy_stream)
             compute_stream.wait_event(h2d_done[s])
             with torch.cuda.stream(compute_stream):
-                outs = fn(dev_in[s], pars, bufs=dev_bufs[s])
+                outs = run_tile(dev_in[s], dev_bufs[s])
                 computed[s].record(compute_stream)
             copy_stream.wait_event(computed[s])
             shape = tuple(sl.stop - sl.start for sl in dst)
@@ -335,7 +446,7 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
                     buf[:math.prod(shape)].view(shape).copy_(outs[n][src],
                                                              non_blocking=True)
                 d2h_done[s].record(copy_stream)
-            pending[s] = (dst, shape)
+            pending[s] = (dst, shape, outs)
             record["h2d_bytes"] += in_bytes
             record["d2h_bytes"] += math.prod(shape) * out_cell
         if on_card:

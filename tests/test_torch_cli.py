@@ -9,7 +9,11 @@ which g++ compiles and which agrees with the NumPy reference bit for bit
 -v` logs the adds; `--backend eager|numpy`, `--unroll-iterate` and the
 host tiling run and pass; bad flags exit with a message naming the flag;
 `--benchmark` is refused before anything runs where it cannot time the
-card.  Tolerance: the CLI's own gate (`compare_outputs`).
+card.  The mesh flags: `--mesh 2,2 --device cpu --run` (and with named
+axes, overlap, a cadence, host tiles) run on CPU shards and pass;
+`--report --mesh` prints the modeled exchange over the shard's own bytes;
+`--benchmark --mesh`, a bad `--link-model` and a mesh the grid cannot hold
+are refused.  Tolerance: the CLI's own gate (`compare_outputs`).
 """
 
 import json
@@ -168,3 +172,58 @@ def test_torch_driver_runs_the_program(capsys, tmp_path):
                        env={"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin"})
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("blur_y (21, 40) uint16")
+
+
+@pytest.mark.parametrize("extra", [
+    ["--mesh", "2,2"],
+    ["--mesh", "dcn:2,x:2", "--mesh-overlap", "--sweeps-per-exchange", "1"],
+    ["--mesh", "4", "--mesh-local-backend", "eager", "--link-model", "nvlink=400:4e-6"],
+    ["--mesh", "2x2", "--host-tile", "24,0,0", "--host-tile-sweeps", "1"],
+])
+def test_mesh_runs_on_cpu_shards(capsys, monkeypatch, extra):
+    from soda_tpu_torch.parallel import mesh
+
+    # --link-model recalibrates the module's links: keep it to this test
+    monkeypatch.setattr(mesh, "LINK_MODEL", dict(mesh.LINK_MODEL))
+    rc, out = _main(capsys, "jacobi3d.soda", "--grid-shape", "40,13,30", "--device", "cpu",
+                    "--run", *extra)
+    assert rc == 0 and "OK" in out.out and "(cuda mesh, cpu)" in out.out
+    assert "B between shards" in out.out
+
+
+def test_mesh_report_divides_by_the_shards_own_bytes(capsys):
+    from soda_tpu_torch.parallel import host_tile
+
+    rc, out = _main(capsys, "jacobi3d.soda", "--grid-shape", "64,64,64", "--mesh", "4,2",
+                    "--report")
+    assert rc == 0
+    xbytes, shard = host_tile.model_mesh_exchange(
+        parse_file(SODA / "jacobi3d.soda"), (64, 64, 64), (4, 2), None, 1)
+    assert shard == (18, 34, 64)
+    line = next(ln for ln in out.out.splitlines() if ln.startswith("  mesh:"))
+    assert "shards of 18x34x64 over 4x2 devices" in line and "modeled nvlink" in line
+    assert f"({100 * xbytes / (18 * 34 * 64 * 4):.2f}% of the shard's state bytes" in line
+    rc, out = _main(capsys, "jacobi2d.soda", "--grid-shape", "200,300", "--mesh",
+                    "dcn:2,x:2", "--host-tile", "100,0", "--report")
+    assert rc == 0 and "  mesh per tile: shards of " in out.out
+    assert "modeled ib+nvlink halo exchange" in out.out
+
+
+def test_mesh_flags_refused_before_running(capsys, monkeypatch):
+    from soda_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "LINK_MODEL", dict(mesh.LINK_MODEL))
+    jacobi = str(SODA / "jacobi2d.soda")
+    with pytest.raises(SystemExit, match="--benchmark .* drop --mesh"):
+        sodac.main([jacobi, "--mesh", "2,2", "--benchmark"])
+    with pytest.raises(SystemExit, match="bad --link-model entry 'ib=fast'"):
+        sodac.main([jacobi, "--mesh", "2,2", "--link-model", "ib=fast", "--device", "cpu",
+                    "--run"])
+    with pytest.raises(SystemExit, match="cannot shard a grid of rank 2"):
+        sodac.main([jacobi, "--mesh", "2,2,2", "--device", "cpu", "--run"])
+    with pytest.raises(SystemExit, match="--mesh-overlap needs --mesh"):
+        sodac.main([jacobi, "--mesh-overlap", "--device", "cpu", "--run"])
+    with pytest.raises(SystemExit, match="--sweeps-per-exchange: 3 values for 2 mesh axes"):
+        sodac.main([jacobi, "--grid-shape", "64,64", "--mesh", "2,2", "--sweeps-per-exchange",
+                    "4,2,1", "--device", "cpu", "--run"])
+    assert "executed jacobi2d" not in capsys.readouterr().out

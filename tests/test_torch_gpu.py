@@ -1,7 +1,9 @@
 """The line-buffer kernels (1: 3-D z-march, 2: 2-D row-march), the fused
 `iterate` cascades (`backend/sweeps.py`) and the windows kernel
 (`backend/windows.py`, kernel 4) on the card against their plain version,
-and the cascades and the windows kernel against the line-buffer kernels.
+and the cascades and the windows kernel against the line-buffer kernels;
+host tiling and the mesh (`parallel/mesh.py`, shards on one card) against
+the whole-grid kernels.
 
 Marked `gpu`; each test asks the `cuda_device` fixture for a card and skips
 without one.  This file imports neither jax nor soda_tpu's TPU backends, so
@@ -332,3 +334,41 @@ def test_tcse_programs_on_the_card(cuda_device, name, shape):
     assert compare_outputs(q, got, oracle(q, ins, ps), 0)
     orig = to_numpy(p, cuda.run(p, ins, ps, device=cuda_device))
     assert compare_outputs(p, got, orig, q.valid_rim())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,grid,sizes,kw", [
+    ("jacobi2d", (64, 96), [4], {"sweeps_per_exchange": 1}),
+    ("jacobi2d", (100, 251), [4], {}),
+    ("jacobi3d", (20, 21, 40), [2, 2], {}),
+    ("blur", (67, 93), [4], {}),
+    ("residual2d", (64, 96), [2, 2], {"sweeps_per_exchange": {"ax0": 4, "ax1": 2}}),
+])
+@pytest.mark.parametrize("overlap", [False, True])
+def test_mesh_of_shards_on_one_card(cuda_device, name, grid, sizes, kw, overlap):
+    """Every shard's local evaluation launches the kernels; the result
+    equals the whole-grid kernels bit for bit outside the rim (on the whole
+    grid for a single-stage program at one sweep an exchange) and the same
+    mesh of CPU shards (`compare_outputs`)."""
+    from soda_tpu_torch.parallel import mesh
+
+    p = _program(name)
+    ins, ps = rand_inputs(p, grid, np.random.default_rng(94))
+    n = int(np.prod(sizes))
+    m = mesh.make_mesh(sizes, devices=[cuda_device] * n)
+    st = {}
+    before = _launches()
+    got = mesh.run_sharded(p, ins, ps, mesh=m, overlap=overlap, stats=st, **kw)
+    torch.cuda.synchronize()
+    assert _launches() - before == st["group_calls"] > 0
+    assert st["exchange_bytes"] > 0 and got[p.output_names[0]].device == cuda_device
+    whole = cuda.run(p, ins, ps, device=cuda_device)
+    one = max(p.iterate, 1) == 1 or kw.get("sweeps_per_exchange") == 1
+    rim = 0 if one and len(p.stage_order()) == 1 else p.valid_rim()
+    inner = tuple(slice(rim, g - rim) for g in grid)
+    for k in whole:
+        assert torch.equal(_bits(got[k][inner].contiguous()),
+                           _bits(whole[k][inner].contiguous())), k
+    cpu = mesh.run_sharded(p, ins, ps, axis_sizes=sizes, devices=["cpu"] * n,
+                           overlap=overlap, **kw)
+    assert compare_outputs(p, to_numpy(p, got), to_numpy(p, cpu), 0)

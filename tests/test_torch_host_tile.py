@@ -1,5 +1,5 @@
 """Host tiling in the port (`soda_tpu_torch/parallel/host_tile.py`), the
-cases of `tests/test_host_tile.py` without the mesh.
+cases of `tests/test_host_tile.py`.
 
 - The geometry (`plan_host_tiling`, `choose_host_tiles`,
   `choose_sweeps_per_pass`) equals `soda_tpu`'s over a parametrised set of
@@ -18,9 +18,18 @@ cases of `tests/test_host_tile.py` without the mesh.
 - `normalize_tiles` refuses a wrong rank and the entry point refuses a
   grid that disagrees with the inputs; without a card it raises
   `NoCudaDevice`.
+- The mesh part: `_shard_ext_shape` and the mesh-aware tile choosers
+  equal the reference's; `model_mesh_exchange` charges nf x (lo + hi)
+  rows an axis, what the exchange moves (the reference charges 2 x nf x
+  max(|lo|, hi), pinned on blur's one-sided creep); `run_host_tiled(mesh=
+  ...)` on CPU shards equals the whole-grid run bit for bit at one sweep a
+  pass and the reference's within `compare_outputs`; a mesh of more axes
+  than the grid, or a mesh dim outside it, raises a ValueError naming
+  both.
 The overlap of two tiles on the card is checked by `chip_smoke.py`.
 """
 
+import math
 import pathlib
 
 import numpy as np
@@ -29,11 +38,12 @@ import torch
 
 from soda_tpu.frontend import parser as lark_parser
 from soda_tpu.parallel import host_tile as ref_tile
+from soda_tpu.parallel import mesh as ref_mesh
 from soda_tpu.utils.testing import compare_outputs
 from soda_tpu_torch.backend import cuda
 from soda_tpu_torch.backend.io import to_numpy
 from soda_tpu_torch.frontend.parser import parse
-from soda_tpu_torch.parallel import host_tile
+from soda_tpu_torch.parallel import host_tile, mesh
 from soda_tpu_torch.utils.device import NoCudaDevice
 from soda_tpu_torch.utils.testing import rand_inputs
 
@@ -165,3 +175,93 @@ def test_normalize_tiles_and_the_entry_point_refuse_bad_input():
             host_tile.run_host_tiled(p, {"input": x}, tiles=(8, 8))
         with pytest.raises(NoCudaDevice):
             host_tile.default_hbm_budget()
+
+
+@pytest.mark.parametrize("name,ext,mesh_shape,mesh_dims,nf", [
+    ("blur", (64, 256), (4,), None, 1), ("blur", (64, 256), (2, 2), None, 1),
+    ("jacobi3d", (64, 64, 64), (4, 2), None, 1), ("jacobi2d", (64, 256), (4,), None, 8),
+    ("heat3d", (32, 32, 64), (2, 2), (1, 2), 2), ("residual2d", (40, 150), (3, 2), (1, 0), 4),
+    ("smooth1d", (700,), (8,), None, 1),
+])
+def test_shard_ext_shape_equals_the_reference(name, ext, mesh_shape, mesh_dims, nf):
+    assert (host_tile._shard_ext_shape(PROGRAMS[name], ext, mesh_shape, mesh_dims, nf)
+            == ref_tile._shard_ext_shape(REF[name], ext, mesh_shape, mesh_dims, nf))
+
+
+@pytest.mark.parametrize("name,grid,budget,mesh_shape,mesh_dims", [
+    ("jacobi3d", (2048, 2048, 2048), 12 * 2**30, (4, 2), None),
+    ("jacobi3d", (1024, 1024, 1024), 2**30, (2, 2), (1, 2)),
+    ("jacobi2d", (32768, 32768), 2 * 2**30, (8,), None),
+    ("heat3d", (512, 512, 512), 2**28, (2, 2), None),
+])
+def test_mesh_aware_tile_choice_equals_the_reference(name, grid, budget, mesh_shape,
+                                                     mesh_dims):
+    p, r = PROGRAMS[name], REF[name]
+    got = host_tile.choose_host_tiles(p, grid, budget, 1, None, mesh_shape, mesh_dims)
+    assert got == ref_tile.choose_host_tiles(r, grid, budget, 1, None, mesh_shape,
+                                             mesh_dims)
+    assert math.prod(got) > math.prod(host_tile.choose_host_tiles(p, grid, budget, 1))
+    assert (host_tile.choose_sweeps_per_pass(p, grid, None, budget, None, mesh_shape,
+                                             mesh_dims)
+            == ref_tile.choose_sweeps_per_pass(r, grid, None, budget, None, mesh_shape,
+                                               mesh_dims))
+
+
+def test_model_mesh_exchange_charges_lo_plus_hi():
+    # blur's creep is one-sided along its last dim (0, 2): two rows an
+    # exchange, where the reference charges 2 x max(|lo|, hi) = 4
+    p, r = PROGRAMS["blur"], REF["blur"]
+    assert p.chain_creep()[1] == (0, 2)
+    got, shard = host_tile.model_mesh_exchange(p, (64, 256), (4,), (1,), 1)
+    assert shard == (64, 66) and got == 1 * (0 + 2) * 64 * 2
+    assert ref_tile.model_mesh_exchange(r, (64, 256), (4,), (1,), 1)[0] == 2 * got
+    # two axes: the first axis's rows span the second's centre, the
+    # second's span the first's halos (the exchange's order)
+    p3 = PROGRAMS["jacobi3d"]
+    got3, shard3 = host_tile.model_mesh_exchange(p3, (64, 64, 64), (4, 2), None, 1)
+    assert shard3 == (18, 34, 64)
+    assert got3 == (2 * 32 * 64 + 2 * 18 * 64) * 4
+    # axes of one device exchange nothing
+    assert host_tile.model_mesh_exchange(p3, (64, 64, 64), (1, 1), None, 1)[0] == 0
+
+
+@pytest.mark.parametrize("name,grid,tiles,sizes,nf", [
+    ("jacobi2d", (64, 192), (32, 96), [4], 1),
+    ("jacobi2d", (64, 192), (32, 96), [4], None),
+    ("accum64", (48, 160), (24, 80), [2, 2], None),
+    ("heat3d", (12, 20, 70), (6, 8, 32), [2, 2], 2),
+])
+def test_host_tiles_over_a_mesh_of_cpu_shards(name, grid, tiles, sizes, nf):
+    p, r = PROGRAMS[name], REF[name]
+    ins, ps = rand_inputs(p, grid, np.random.default_rng(73))
+    n = math.prod(sizes)
+    stats = {}
+    got = host_tile.run_host_tiled(p, ins, ps, tiles=tiles, sweeps_per_pass=nf,
+                                   mesh=mesh.make_mesh(sizes, devices=["cpu"] * n),
+                                   stats=stats)
+    assert stats["mesh_exchange_bytes"] > 0
+    whole = to_numpy(p, cuda.run(p, ins, ps, device="cpu"))
+    rim = 0 if (nf or max(p.iterate, 1)) == 1 else p.valid_rim()
+    inner = tuple(slice(rim, g - rim) for g in grid)
+    for k in whole:
+        assert np.array_equal(_bits(got[k][inner]), _bits(whole[k][inner])), k
+    ref = ref_tile.run_host_tiled(r, ins, ps, tiles=tiles, sweeps_per_pass=nf,
+                                  mesh=ref_mesh.make_mesh(sizes), interpret=True)
+    assert compare_outputs(r, got, ref, 0)
+
+
+def test_a_mesh_the_grid_cannot_hold_raises_before_tiling():
+    p = PROGRAMS["jacobi2d"]
+    x = {"t0": np.zeros((64, 96), np.float32)}
+    cube = mesh.make_mesh([2, 2, 2], devices=["cpu"] * 8)
+    with pytest.raises(ValueError, match=r"mesh of 3 axes \(2, 2, 2\) cannot shard a "
+                                         r"grid of rank 2"):
+        host_tile.run_host_tiled(p, x, tiles=(32, 48), mesh=cube)
+    with pytest.raises(ValueError, match="cannot shard a grid of rank 2"):
+        host_tile.choose_host_tiles(p, (64, 96), 2**20, mesh_shape=(2, 2, 2))
+    with pytest.raises(ValueError, match="cannot shard a grid of rank 2"):
+        host_tile.model_mesh_exchange(p, (64, 96), (2, 2, 2), None, 1)
+    with pytest.raises(ValueError, match=r"mesh dims \(2,\) of the mesh \(4,\) must be "
+                                         r"distinct dims of a grid of rank 2"):
+        host_tile.choose_sweeps_per_pass(p, (64, 96), None, 2**20, mesh_shape=(4,),
+                                         mesh_dims=(2,))
