@@ -129,7 +129,20 @@ Phases (any failure exits nonzero):
    group calls its shards made, and each prints ms a call by CUDA events
    beside the whole-grid `build_fn` in turns (whole, mesh, whole), the
    bytes exchanged a call, and the shards' plans; f. `sodac jacobi3d.soda
-   --grid-shape 512,512,512 --mesh 2,2 --device cuda:0 --run` exits 0.
+   --grid-shape 512,512,512 --mesh 2,2 --device cuda:0 --run` exits 0;
+18. wide integers (`wide_phase`): the uint64 programs of `U64_SOURCES`
+   at size with inputs over the whole range [0, 2^64), each through its
+   kernel (`U64_ROWS`: u64_3d 512^3 kernel 1, u64_2d and u64_param 8192^2
+   kernel 2, u64_iter 8192^2 x4 kernel 3 at the planner's depth, u64_1d
+   2^27 kernel 4) with every launch counter reset just before and read
+   just after, bit for bit against the plain version on the whole grid and
+   the NumPy reference (on a grid cut to 2^26 cells past that), timed in
+   turns (plain, kernel, kernel, plain) and alone beside the bound; u64_2d
+   8192^2 on 4 shards of cuda:0 and u64_2d 16384^2 host-tiled under a 1
+   GiB budget, bit for bit against the whole grid; accum128 (128-bit
+   integers) at 4096^2 on the plain path's limbs on the card, bit for bit
+   against the C++ golden runner at that size and the NumPy reference at
+   512^2, and `cuda.build_fn` refusing it with a typed error.
 
 Each phase logs the seconds since the start when it ends.  Phases 4 and
 7 run their programs one sweep per call (`sweeps=1`), so
@@ -224,6 +237,19 @@ MESH_CLI = ["jacobi3d.soda", "--grid-shape", "512,512,512", "--mesh", "2,2",
             "--device", "cuda:0", "--run"]
 MESH_REPS = 10
 MESH_SLEEPS = 4      # the sleep that covers a mesh call's enqueue: 6 ms
+# wide integers (phase 18): the uint64 programs of `U64_SOURCES` at size,
+# each with the kernel that must run it; u64_param's k lies above 2^63
+# (u64_iter first: its oracle, four sweeps, takes the longest)
+U64_ROWS = (("u64_iter", (8192, 8192), "sweeps"),
+            ("u64_3d", (512, 512, 512), "linebuffer3d"),
+            ("u64_2d", (8192, 8192), "linebuffer2d"),
+            ("u64_param", (8192, 8192), "linebuffer2d"),
+            ("u64_1d", (2**27,), "windows"))
+U64_K = 2**63 + 10_000_000_019
+U64_MESH = ("u64_2d", (8192, 8192), (4,))
+U64_HOST_TILED = ("u64_2d", (16384, 16384), 2**30)   # 2 GiB an array, 1 GiB budget
+W128_MAIN = ("accum128", (4096, 4096))
+W128_ORACLE = (512, 512)
 PINNED_COPY_BYTES = 2**30
 SLEEP_CYCLES = 3_000_000   # at most 1.98 GHz: at least 1.5 ms
 SLEEP_COVERS_S = 1e-3
@@ -322,10 +348,33 @@ def launch_count() -> int:
             + windows.LAUNCHES)
 
 
+def random_bits(shape, gen, dev):
+    """Uniform 64-bit words made on the card from `gen`, as int64."""
+    import torch
+
+    hi = torch.randint(-2**31, 2**31, shape, generator=gen, device=dev, dtype=torch.int64)
+    lo = torch.randint(0, 2**32, shape, generator=gen, device=dev, dtype=torch.int64)
+    return (hi << 32) | lo
+
+
+def oracle_shape(shape) -> tuple[int, ...]:
+    """`shape`, cut along dim 0 to at most ORACLE_MAX_CELLS cells."""
+    return (min(shape[0], ORACLE_MAX_CELLS * shape[0] // math.prod(shape)), *shape[1:])
+
+
+def host_arrays(values: dict) -> dict:
+    """Tensors on the card as numpy arrays (uint64 through its int64 view)."""
+    import numpy as np
+    import torch
+
+    return {k: (v.view(torch.int64).cpu().numpy().view(np.uint64) if v.dtype == torch.uint64
+                else v.cpu().numpy()) for k, v in values.items()}
+
+
 def device_inputs(p, shape, gen, dev) -> dict:
     """Random inputs made on the card from `gen`, in the distributions of
     `rand_inputs` (uint16 in [0, 250), int64 in [-2^40, 2^40), floats
-    standard normal)."""
+    standard normal), but uint64 over its whole range [0, 2^64)."""
     import torch
 
     from soda_tpu_torch.ir.dtypes import torch_dtype
@@ -334,7 +383,9 @@ def device_inputs(p, shape, gen, dev) -> dict:
     for n in p.input_names:
         t = p.tensors[n].type
         dt = torch_dtype(t)
-        if t.is_float:
+        if dt == torch.uint64 and t.width == 64:
+            ins[n] = random_bits(shape, gen, dev).view(torch.uint64)
+        elif t.is_float:
             ins[n] = torch.randn(shape, generator=gen, device=dev, dtype=dt)
         elif t.kind == "int" and t.width > 32:
             ins[n] = torch.randint(-(1 << 40), 1 << 40, shape, generator=gen,
@@ -343,6 +394,183 @@ def device_inputs(p, shape, gen, dev) -> dict:
             ins[n] = torch.randint(0, 250, shape, generator=gen, device=dev,
                                    dtype=torch.int32).to(dt)
     return ins
+
+
+def wide_phase(dev, gen, card, u64p, u64_mesh_fn, u64_tiling) -> bool:
+    """Phase 18: the uint64 rows through kernels 1-4 (`U64_ROWS`), the mesh
+    (`U64_MESH`) and host tiling (`U64_HOST_TILED`), each bit for bit; the
+    128-bit program on the plain path's limbs against the golden runner and
+    the oracle, and `cuda.build_fn` refusing it.  The NumPy oracles (about
+    70 s of host work at 2^26 cells) run in threads beside the card's
+    rows; host tiling runs first, on a quiet host, since its time is the
+    host's copies.  Logs each row; False on the first failure."""
+    import numpy as np
+    import torch
+
+    from soda_tpu_torch.backend import (cpp, cuda, eager, linebuffer, linebuffer2d,
+                                        sweeps, windows)
+    from soda_tpu_torch.backend.io import to_numpy, to_torch
+    from soda_tpu_torch.frontend.parser import parse_file
+    from soda_tpu_torch.ir.types import UnsupportedTypeError
+    from soda_tpu_torch.parallel import host_tile
+    from soda_tpu_torch.utils import report
+    from soda_tpu_torch.utils.testing import CORPUS, oracle
+
+    t18 = time.perf_counter()
+    # host tiling: 2 GiB arrays under a 1 GiB budget, against the whole grid
+    n, shape, budget = U64_HOST_TILED
+    p = u64p[n]
+    tiles, _, ext, n_tiles, _, _, amp = u64_tiling
+    x = random_bits(shape, gen, dev).view(torch.uint64)
+    whole = host_arrays(cuda.run(p, {"a": x}, {}, device=dev))["o"]
+    x_host = host_arrays({"a": x})
+    del x
+    torch.cuda.empty_cache()
+    st = {}
+    before = launch_count()
+    out = host_tile.run_host_tiled(p, x_host, tiles=tiles, sweeps_per_pass=1, device=dev,
+                                   stats=st)
+    launched = launch_count() - before
+    ok = (launched == math.prod(n_tiles) and st["n_tiles"] == n_tiles
+          and np.array_equal(out["o"], whole))
+    log(f"wide u64 host tiled {n} {shape} under {budget} B: {'x'.join(map(str, n_tiles))} "
+        f"tiles of {'x'.join(map(str, tiles))} (+halo -> {'x'.join(map(str, ext))}), "
+        f"read amplification {amp:.4f}; launches {launched}/{math.prod(n_tiles)}; "
+        f"{'bit for bit' if ok else 'MISMATCH'} against the whole-grid run; "
+        f"{sum(st['pass_seconds']):.3f} s; {st['h2d_bytes']} B to the card and "
+        f"{st['d2h_bytes']} B back; card {card}")
+    if not ok:
+        log("FAILED wide check: host tiling")
+        return False
+    del whole, x_host, out
+
+    oracles = concurrent.futures.ThreadPoolExecutor(max_workers=4)
+    try:
+        checks = []    # (what, the result's host arrays, the oracle's future)
+        counters = {"linebuffer3d": linebuffer, "linebuffer2d": linebuffer2d,
+                    "sweeps": sweeps, "windows": windows}
+        u64_whole = {}
+        for n, shape, kernel in U64_ROWS:
+            p = u64p[n]
+            k_np = {"k": np.uint64(U64_K)} if p.params else {}
+            ins, pars = to_torch(p, device_inputs(p, shape, gen, dev), k_np, dev)
+            fn = cuda.build_fn(p, grid_shape=shape)
+            want = len(fn.plan.groups) * max(p.iterate, 1) // fn.plan.groups[0].sweeps
+            for m in counters.values():
+                m.LAUNCHES = 0
+            got = fn(ins, pars)
+            torch.cuda.synchronize()
+            counts = {name: m.LAUNCHES for name, m in counters.items()}
+            # the NumPy oracle on the leading 2^26 cells, through the kernel at
+            # that grid past the cap
+            cut = oracle_shape(shape)
+            if cut == shape:
+                cut_ins, cut_got = ins, got
+            else:
+                cut_ins = {k: v[:cut[0]].contiguous() for k, v in ins.items()}
+                cut_got = cuda.build_fn(p, grid_shape=cut)(cut_ins, pars)
+            checks.append((f"{n} {cut}", host_arrays(cut_got),
+                           oracles.submit(oracle, p, host_arrays(cut_ins), k_np)))
+            del cut_ins, cut_got
+            plain = eager.run(p, ins, pars, device=dev)
+            ok_plain = bitwise_equal(got, plain)
+            del plain
+            torch.cuda.empty_cache()
+
+            def run_kernel():
+                fn(ins, pars)
+
+            def run_plain():
+                eager.run(p, ins, pars, device=dev)
+
+            t = [events_ms(run_plain, 3), events_ms(run_kernel, 5),
+                 events_ms(run_kernel, 5), events_ms(run_plain, 3)]
+            k_ms, p_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            alone = device_ms(run_kernel, 3, 2)
+            rep = report.analyze(fn.plan)
+            ok = ok_plain and counts[kernel] == want and sum(counts.values()) == want
+            log(f"wide u64 {n} {shape} (kernel {kernel}): launches {counts[kernel]}/{want} "
+                f"({counts}); {'bit for bit' if ok_plain else 'MISMATCH'} against the plain "
+                f"version on the whole grid; ms a run kernel {k_ms:.4f} [{t[1]:.4f}, "
+                f"{t[2]:.4f}] (alone {fmt(alone)}) plain {p_ms:.4f} [{t[0]:.4f}, {t[3]:.4f}]; "
+                f"bound {rep.program_bound_ms:.4f} ({rep.bound_by}: bytes "
+                f"{rep.bytes_bound_ms * rep.calls:.4f}, operations "
+                f"{rep.ops_bound_ms * rep.calls:.4f}), {100 * rep.program_bound_ms / k_ms:.1f}% "
+                f"of the bound; {fn.plan.groups[0].describe()}; card {card}")
+            if not ok:
+                log(f"FAILED wide check: {n} {shape}")
+                return False
+            if (n, shape) == U64_MESH[:2]:
+                u64_whole = {"ins": ins, "out": got, "fn": fn}
+            else:
+                del ins, got
+            del fn
+            torch.cuda.empty_cache()
+        # the mesh: 4 shards of cuda:0, against the whole grid
+        n, shape, sizes = U64_MESH
+        ins, whole, whole_fn = u64_whole["ins"], u64_whole["out"], u64_whole["fn"]
+        before = launch_count()
+        got = u64_mesh_fn(ins, {})
+        torch.cuda.synchronize()
+        launched = launch_count() - before
+        calls = u64_mesh_fn.stats["group_calls"]
+        ok = launched == calls > 0 and bitwise_equal(got, whole)
+        ms = events_ms(lambda: u64_mesh_fn(ins, {}), 5)
+        whole_ms = events_ms(lambda: whole_fn(ins, {}), 5)
+        log(f"wide u64 mesh {n} {shape} over {'x'.join(map(str, sizes))} on cuda:0: shards of "
+            f"{'x'.join(map(str, u64_mesh_fn.shard_shape))}; launches {launched}/{calls}; "
+            f"{'bit for bit' if ok else 'MISMATCH'} against the whole grid; "
+            f"{u64_mesh_fn.stats['exchange_bytes']} B exchanged a call; {ms:.4f} ms a call "
+            f"(events), whole grid {whole_ms:.4f}; card {card}")
+        if not ok:
+            log("FAILED wide check: the mesh")
+            return False
+        del ins, whole, whole_fn, got, u64_whole
+        torch.cuda.empty_cache()
+        # 128 bits: the plain path's limbs on the card, the golden runner, the oracle
+        n, shape = W128_MAIN
+        p = parse_file(CORPUS / f"{n}.soda")
+        try:
+            cuda.build_fn(p, grid_shape=shape)
+            log(f"FAILED wide check: cuda.build_fn took {n}, which has >64-bit integers")
+            return False
+        except UnsupportedTypeError as e:
+            log(f"wide 128 {n}: cuda.build_fn refuses it: {e}")
+        words = random_bits(shape + (2,), gen, dev).view(torch.uint64)
+        t0 = time.perf_counter()
+        golden = oracles.submit(cpp.compile_and_run, p, host_arrays({"a": words}), pairs=True)
+        small = words[:W128_ORACLE[0], :W128_ORACLE[1]].contiguous()
+        checks.append((f"{n} {W128_ORACLE}", to_numpy(p, eager.run(p, {"a": small}, device=dev)),
+                       oracles.submit(oracle, p, to_numpy(p, {"a": small}), {})))
+        secs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = eager.run(p, {"a": words}, device=dev)["o"]
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+        ok_golden = np.array_equal(host_arrays({"o": out})["o"], golden.result()["o"])
+        log(f"wide 128 {n} {shape} on {dev} (eager, quad limbs): {secs[0]:.3f} s, "
+            f"{secs[1]:.3f} s a run (host clock, synchronized); golden runner (g++, "
+            f"__int128) {'bit for bit' if ok_golden else 'MISMATCH'} at {shape}, done "
+            f"{time.perf_counter() - t0:.3f} s after its start, its build included; card {card}")
+        if not ok_golden:
+            log("FAILED wide check: 128 bits against the golden runner")
+            return False
+        del words, out, small
+        torch.cuda.empty_cache()
+        for what, got, gold in checks:
+            gold = gold.result()
+            ok = all(np.array_equal(got[o], gold[o]) for o in gold)
+            log(f"wide oracle {what}: {'bit for bit' if ok else 'MISMATCH'} against the NumPy "
+                f"reference")
+            if not ok:
+                log(f"FAILED wide check: {what} against the oracle")
+                return False
+    finally:
+        oracles.shutdown(cancel_futures=True)
+    log(f"wide: phase 18 took {time.perf_counter() - t18:.1f} s")
+    return True
 
 
 def main() -> int:
@@ -356,11 +584,12 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from soda_tpu_torch.backend import (cuda, eager, linebuffer, linebuffer2d, sweeps,
-                                        windows)
+    from soda_tpu_torch.backend import (cpp, cuda, eager, linebuffer, linebuffer2d,
+                                        sweeps, windows)
     from soda_tpu_torch.backend.io import to_numpy, to_torch
     from soda_tpu_torch.cli import sodac
     from soda_tpu_torch.frontend.parser import parse, parse_file
+    from soda_tpu_torch.ir.types import UnsupportedTypeError
     from soda_tpu_torch.optimize import tcse
     from soda_tpu_torch.parallel import host_tile, mesh
     from soda_tpu_torch.plan.planner import fused_depths, plan
@@ -368,8 +597,8 @@ def main() -> int:
     from soda_tpu_torch.utils.testing import (CORPUS, INT3D_SOURCES,
                                               RANK1_CORPUS, RANK2_CORPUS,
                                               RANK3_CORPUS, STAR3D_R8,
-                                              compare_outputs, oracle,
-                                              pinned_plan, rand_inputs)
+                                              U64_SOURCES, compare_outputs,
+                                              oracle, pinned_plan, rand_inputs)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -493,6 +722,23 @@ def main() -> int:
     gauss_cli = rewritten["gauss5x5"]
     add_jobs(gauss_cli, sodac._grid_shape(gauss_cli, sodac.make_parser().parse_args(
         [str(CORPUS / "gauss5x5.soda")])))
+    # wide integers (phase 18): every uint64 row at size and cut to the
+    # oracle's cells, the mesh's shards, the host tiles and their whole grid
+    u64p = {n: parse(s) for n, s in U64_SOURCES.items()}
+    for n, shape, _ in U64_ROWS:
+        add_jobs(u64p[n], shape)
+        add_jobs(u64p[n], oracle_shape(shape))
+    n, shape, sizes = U64_MESH
+    u64_mesh_fn = mesh.build_sharded_fn(
+        u64p[n], mesh.make_mesh(sizes, None, [dev] * math.prod(sizes)),
+        grid_shape=shape, dims=(0,))
+    for pl in u64_mesh_fn.local_plans().values():
+        add_plan(u64p[n], pl)
+    n, shape, budget = U64_HOST_TILED
+    u64_tiling = host_tile.plan_host_tiling(
+        u64p[n], shape, host_tile.choose_host_tiles(u64p[n], shape, budget, 1), 1)
+    add_jobs(u64p[n], u64_tiling[2])
+    add_jobs(u64p[n], shape)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(max_workers=min(len(jobs), 32)) as pool:
         built = list(pool.map(lambda k: (k, k.build()), jobs.values()))
@@ -1396,6 +1642,12 @@ def main() -> int:
         return 1
 
     mark(17)
+
+    # ---- 18. wide integers on the card -------------------------------------------
+    if not wide_phase(dev, gen, card, u64p, u64_mesh_fn, u64_tiling):
+        return 1
+
+    mark(18)
     j, b, f = summary["jacobi3d"], summary2[MAIN_2D], summary3[MAIN_SWEEPS]
     log(card)
     log(json.dumps({"kernels": [{

@@ -12,9 +12,13 @@ against native C++ as well as against the NumPy reference
 no reassociation.
 
 The generated source is the original's text, character for character,
-for every program of at most 64 bits (`tests/test_torch_copies.py`).
-Left out: integers wider than 64 bits, which the port refuses
-(`ir/types.py::UnsupportedTypeError`).
+for every program (`tests/test_torch_copies.py`).  Integers wider than
+64 bits are carried as gcc's `__int128` and cross as 16 little-endian
+bytes a value, as in the original: `compile_and_run` and `NativeOracle`
+take them as object arrays of Python ints or as (..., 2) uint64 words
+(`interp/wide128.py::object_to_pairs`), and return object arrays;
+`compile_and_run(..., pairs=True)` returns the words instead (no Python
+int a cell, for large grids).
 """
 
 from __future__ import annotations
@@ -26,9 +30,10 @@ from typing import Mapping
 
 import numpy as np
 
+from ..interp.wide128 import is_wide, object_to_pairs, pairs_to_object
 from ..ir.program import StencilProgram
-from ..ir.types import ScalarType, UnsupportedTypeError
-from .cpp_gen import _Gen, program_is_128
+from ..ir.types import ScalarType
+from .cpp_gen import _Gen
 
 _HEADER = r"""
 #include <cstdint>
@@ -63,12 +68,33 @@ template <typename T> static inline T c_abs(T a) { return a < 0 ? T(-a) : a; }
 """
 
 
+def _host_array(v, t: ScalarType, shape=None, what: str = "") -> np.ndarray:
+    """`v` (`what`, for the error) as a contiguous array in the runner's
+    layout: the storage dtype, or 16 bytes a value ((..., 2) uint64 words)
+    above 64 bits; its shape checked against `shape` if given."""
+    if is_wide(t):
+        a = np.asarray(v)
+        a = a if a.dtype == np.uint64 else object_to_pairs(a)
+        got = a.shape[:-1]
+    else:
+        a = np.asarray(v, dtype=t.np_dtype())
+        got = a.shape
+    if shape is not None and tuple(got) != tuple(shape):
+        raise ValueError(f"{what} shape {tuple(got)} != {tuple(shape)}")
+    return np.ascontiguousarray(a)
 
-def _check_width(program: StencilProgram) -> None:
-    if program_is_128(program):
-        raise UnsupportedTypeError(
-            f"program {program.name!r} uses integers wider than 64 bits, "
-            f"which the port does not run")
+
+def _result(words: np.ndarray, t: ScalarType, pairs: bool) -> np.ndarray:
+    """An output in the runner's layout as the caller asked for it."""
+    if is_wide(t) and not pairs:
+        return pairs_to_object(words, t.is_signed)
+    return words
+
+
+def _out_buffer(t: ScalarType, shape) -> np.ndarray:
+    if is_wide(t):
+        return np.empty(tuple(shape) + (2,), dtype=np.uint64)
+    return np.empty(shape, dtype=t.np_dtype())
 
 
 def generate(program: StencilProgram, grid_shape: tuple[int, ...],
@@ -78,7 +104,6 @@ def generate(program: StencilProgram, grid_shape: tuple[int, ...],
     CLI of the generated binary:
         ./golden <in0.bin> [<in1.bin> ...] [<param0.bin> ...] <out0.bin> [...]
     Raw little-endian row-major arrays in declared storage dtypes."""
-    _check_width(program)
     it = max(program.iterate if iterate is None else iterate, 1)
     rank = program.rank
     idx = [f"i{d}" for d in range(rank)]
@@ -159,7 +184,6 @@ def generate_shared(program: StencilProgram, grid_shape: tuple[int, ...],
     ..., <o0>* out0, ...)` operating on caller-owned row-major buffers — the
     in-process native oracle (ctypes binding in NativeOracle), avoiding
     subprocess + file IO per verification."""
-    _check_width(program)
     it = max(program.iterate if iterate is None else iterate, 1)
     rank = program.rank
     idx = [f"i{d}" for d in range(rank)]
@@ -244,31 +268,20 @@ class NativeOracle:
         self._fn.restype = ctypes.c_int
 
     def run(self, inputs: Mapping[str, np.ndarray],
-            params: Mapping[str, np.ndarray] | None = None
-            ) -> dict[str, np.ndarray]:
+            params: Mapping[str, np.ndarray] | None = None) -> dict[str, np.ndarray]:
         params = dict(params or {})
         p = self.program
-        bufs = []
-        for n in p.input_names:
-            t = p.tensors[n].type
-            a = np.ascontiguousarray(np.asarray(inputs[n], dtype=t.np_dtype()))
-            if a.shape != self.grid_shape:
-                raise ValueError(f"input {n!r} shape {a.shape} != {self.grid_shape}")
-            bufs.append(a)
-        for pr in p.params.values():
-            a = np.ascontiguousarray(np.asarray(params[pr.name], dtype=pr.type.np_dtype()))
-            if a.shape != tuple(pr.shape):
-                raise ValueError(f"param {pr.name!r} shape {a.shape} != {tuple(pr.shape)}")
-            bufs.append(a)
-        outs = {}
-        for n in p.output_names:
-            t = p.tensors[n].type
-            outs[n] = np.empty(self.grid_shape, dtype=t.np_dtype())
-            bufs.append(outs[n])
+        bufs = [_host_array(inputs[n], p.tensors[n].type, self.grid_shape, f"input {n!r}")
+                for n in p.input_names]
+        bufs += [_host_array(params[pr.name], pr.type, pr.shape, f"param {pr.name!r}")
+                 for pr in p.params.values()]
+        outs = {n: _out_buffer(p.tensors[n].type, self.grid_shape)
+                for n in p.output_names}
+        bufs += outs.values()
         rc = self._fn(*(b.ctypes.data for b in bufs))
         if rc != 0:
             raise RuntimeError(f"native oracle failed rc={rc}")
-        return outs
+        return {n: _result(a, p.tensors[n].type, False) for n, a in outs.items()}
 
 
 def compile_and_run(
@@ -277,12 +290,17 @@ def compile_and_run(
     params: Mapping[str, np.ndarray] | None = None,
     iterate: int | None = None,
     workdir: str | pathlib.Path | None = None,
+    pairs: bool = False,
 ) -> dict[str, np.ndarray]:
     """Generate, g++ -O2 compile, and execute the golden runner, in a
     temporary directory (removed afterwards) unless `workdir` is given;
-    returns the outputs in their declared storage dtypes."""
+    returns the outputs in their declared storage dtypes (integers wider
+    than 64 bits: object arrays of Python ints, or (..., 2) uint64 words
+    with `pairs`)."""
     params = dict(params or {})
-    grid_shape = tuple(np.asarray(next(iter(inputs.values()))).shape)
+    first = program.tensors[program.input_names[0]].type
+    grid_shape = _host_array(inputs[program.input_names[0]], first).shape
+    grid_shape = tuple(grid_shape[:program.rank])
     src = generate(program, grid_shape, iterate)
     with tempfile.TemporaryDirectory(prefix="soda_golden_") as tmp:
         d = pathlib.Path(workdir or tmp)
@@ -291,7 +309,7 @@ def compile_and_run(
         _gxx(["-o", "golden", "golden.cpp"], d)
 
         def tofile(arr, t: ScalarType, name: str) -> str:
-            np.ascontiguousarray(np.asarray(arr, dtype=t.np_dtype())).tofile(d / name)
+            _host_array(arr, t).tofile(d / name)
             return str(d / name)
 
         args = [str(d / "golden")]
@@ -303,6 +321,11 @@ def compile_and_run(
         r = subprocess.run(args, capture_output=True, text=True)
         if r.returncode != 0:
             raise RuntimeError(f"the golden runner exited {r.returncode}:\n{r.stderr}")
-        return {n: np.fromfile(d / f"out_{n}.bin",
-                               dtype=program.tensors[n].type.np_dtype()).reshape(grid_shape)
-                for n in program.output_names}
+        res = {}
+        for n in program.output_names:
+            t = program.tensors[n].type
+            shape = _out_buffer(t, grid_shape).shape
+            words = np.fromfile(d / f"out_{n}.bin", dtype=np.uint64 if is_wide(t)
+                                else t.np_dtype()).reshape(shape)
+            res[n] = _result(words, t, pairs)
+        return res

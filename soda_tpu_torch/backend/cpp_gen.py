@@ -12,18 +12,10 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..interp.wide128 import program_is_128
 from ..ir import expr as ir
 from ..ir.program import StencilProgram
 from ..ir.types import ScalarType
-
-
-def program_is_128(program: StencilProgram) -> bool:
-    """True when any tensor or param is an integer wider than 64 bits
-    (`soda_tpu/interp/wide128.py::program_is_128`)."""
-    return (any(t.type.is_int and t.type.width > 64
-                for t in program.tensors.values())
-            or any(p.type.is_int and p.type.width > 64
-                   for p in program.params.values()))
 
 
 def _cpp_float(v: float, width: int) -> str:

@@ -15,7 +15,11 @@ tensors every group runs its kernel or raises: kernel 1 (the 3-D z-march,
 fused cascade (`sweeps.py`, kernel 3's counterpart), `iterate / nf` calls
 of it, and for a windows group (every rank-1 program, a group pinned with
 `block=`, a stage whose rings fit no tile) the windows kernel
-(`windows.py`, kernel 4's counterpart).
+(`windows.py`, kernel 4's counterpart).  Every kernel takes integers up
+to 64 bits, full-width uint64 included (`uint64_t` carriers);
+wider ones are refused with a typed error naming `--backend eager`
+(`ir/dtypes.py::check_kernel_types`), as `soda_tpu`'s kernels refuse
+them naming `--backend xla`.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Mapping
 
 import torch
 
-from ..ir.dtypes import check_types_supported, torch_dtype
+from ..ir.dtypes import check_kernel_types, torch_dtype
 from ..ir.program import StencilProgram
 from ..plan.planner import GroupPlan, Plan
 from ..plan.planner import plan as make_plan
@@ -54,7 +58,7 @@ def build_fn(program: StencilProgram, the_plan: Plan | None = None,
     in their declared dtypes (`io.to_torch`).  The kernels allocate their
     outputs, unless `fn(..., bufs=fn.alloc(device))` hands them buffers
     made once (host tiling runs every tile through the same ones)."""
-    check_types_supported(program)
+    check_kernel_types(program)
     it = max(program.iterate if iterate is None else iterate, 1)
     if the_plan is None:
         if grid_shape is None:
@@ -110,6 +114,7 @@ def run(program: StencilProgram, inputs: Mapping, params: Mapping | None = None,
     """Run `program` on `device` ("cuda", the default, or "cpu"); inputs
     and params may be numpy arrays or tensors.  Returns tensors on
     `device` in the declared storage dtypes."""
+    check_kernel_types(program)
     dev = resolve(device)
     ins, pars = to_torch(program, inputs, params, dev)
     grid_shape = tuple(next(iter(ins.values())).shape)

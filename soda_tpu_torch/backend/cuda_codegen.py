@@ -43,7 +43,8 @@ import numpy as np
 
 from ..ir import expr as ir
 from ..ir.program import StencilProgram
-from ..ir.types import ScalarType, UnsupportedTypeError, promote
+from ..ir.dtypes import check_kernel_types
+from ..ir.types import ScalarType, promote
 from ..utils.opcount import has_transcendental
 from .cpp_gen import _Gen
 
@@ -249,8 +250,7 @@ class DeviceGen(_Gen):
             raise ValueError(f"the device kernels take ranks 1 to 3, not {program.rank}")
         super().__init__(program, ["p", "ly", "lx"][3 - program.rank:])
         if self.acc128:
-            raise UnsupportedTypeError(
-                f"program {program.name!r} uses >64-bit integers")
+            check_kernel_types(program)
         self.rings = rings
         self.narrow = False
 

@@ -25,6 +25,9 @@ the plan, and then does what the flags ask:
 
 `--backend` picks what runs: `cuda` (the default: the hand-written
 kernels), `eager` (the plain PyTorch path) or `numpy` (the reference).
+Integers wider than 64 bits run on `eager` and `numpy` (and in the golden
+runner); `cuda`, and so `--mesh` and `--host-tile`, refuse them with a
+message naming `--backend eager`, as the reference names `--backend xla`.
 `--device` is `cuda` (the default: the card, never a fallback) or `cpu`
 (every kernel's plain version).  `--host-tile T0,..|auto` runs a grid
 larger than the card as overlapping tiles (`parallel/host_tile.py`),
@@ -635,6 +638,15 @@ def main(argv=None) -> int:
 
     if not (args.run or args.benchmark):
         return 0
+    if args.backend == "cuda":
+        # the kernels (and so the mesh and host tiling) take integers up
+        # to 64 bits; the message names the backends that take wider ones
+        from ..ir.dtypes import check_kernel_types
+        from ..ir.types import UnsupportedTypeError
+        try:
+            check_kernel_types(program)
+        except UnsupportedTypeError as e:
+            raise SystemExit(str(e)) from None
     ins, ps = rand_inputs(program, shape, np.random.default_rng(args.seed))
     profiler = None
     if args.profile:

@@ -1,11 +1,13 @@
 """The port's copy of `soda_tpu/interp/evaluator.py`, for the oracle's
-64-bit accumulator only.
+64-bit accumulator and the quad-limb carriers of integers wider than 64
+bits.
 
 The port imports nothing of `soda_tpu`.  Left out: the TPU's 32-bit
-accumulator (`int_width == 32`), the paired-32-bit carriers (`tpu_wide`,
-`interp/wide64.py`) and the quad-limb carriers (`int_width == 128`,
-`interp/wide128.py`).  The namespace is numpy (`interp/numpy_ref.py`)
-or torch (`interp/torch_xp.py`).
+accumulator (`int_width == 32`) and the paired-32-bit carriers
+(`tpu_wide`, `interp/wide64.py`).  At `int_width == 64` the namespace is
+numpy (`interp/numpy_ref.py`) or torch (`interp/torch_xp.py`); at
+`int_width == 128` the quad-limb namespace over numpy
+(`interp/wide128.py`) or over torch (`interp/torch_wide128.py`).
 
 The original's notes follow.
 
@@ -49,13 +51,17 @@ class EvalContext:
     xp: Any                                   # numpy or the torch namespace
     tap: Callable[[str, tuple[int, ...]], Any]  # materialize Ref
     params: dict[str, Any]
-    int_width: int = 64                        # the oracle's accumulator
+    int_width: int = 64                        # 64, or 128 (quad limbs)
 
     def __post_init__(self):
-        if self.int_width != 64:
-            raise ValueError("the port evaluates with the 64-bit accumulator only")
+        if self.int_width not in (64, 128):
+            raise ValueError("the port evaluates with the 64-bit accumulator "
+                             "or the 128-bit quad limbs")
 
     def int_dtype(self, signed: bool = True):
+        if self.int_width == 128:
+            # quad-limb carriers (the Wide128XP namespaces)
+            return self.xp.int128 if signed else self.xp.uint128
         return self.xp.int64 if signed else self.xp.uint64
 
     def acc_of(self, t: ScalarType):
@@ -63,7 +69,8 @@ class EvalContext:
         EXCEPT unsigned types at/above the accumulator width, which ride an
         unsigned carrier so value-dependent ops (/ % < >>) see true values.
         (C integer promotion: narrower unsigned types promote to signed int,
-        so only full-width unsigned stays unsigned: uint64.)"""
+        so only full-width unsigned stays unsigned: uint64, or uint128 on
+        the quad-limb path.)"""
         unsigned = t.is_int and t.kind == "uint" and t.width >= self.int_width
         return self.int_dtype(signed=not unsigned)
 
@@ -178,7 +185,8 @@ _FLOAT_FNS2 = {"atan2": "arctan2", "copysign": "copysign",
 # the composed implementations in interp/mathfns.py so the SAME formula
 # runs compiled-on-TPU and interpreted-on-CPU.  numpy (the oracle) keeps
 # native fns; the port's torch namespace takes the composed ones, as the
-# JAX package's plain paths do.
+# JAX package's plain paths do; the quad-limb namespaces (which have a
+# `base`) keep their base's native fns, as the original's do.
 _MOSAIC_MISSING = {"atan", "asin", "acos", "atan2", "sinh", "cosh",
                    "expm1"}
 
@@ -186,7 +194,9 @@ _MOSAIC_MISSING = {"atan", "asin", "acos", "atan2", "sinh", "cosh",
 def _use_composed(ctx: EvalContext, fn: str, t: ScalarType) -> bool:
     import numpy as _np
 
-    return fn in _MOSAIC_MISSING and ctx.xp is not _np and t.width <= 32
+    xp = ctx.xp
+    return (fn in _MOSAIC_MISSING and xp is not _np
+            and not hasattr(xp, "base") and t.width <= 32)
 
 
 def eval_expr(e: ir.Expr, ctx: EvalContext) -> tuple[Any, ScalarType]:
@@ -408,4 +418,13 @@ def store_cast(ctx: EvalContext, v, vt: ScalarType, t: ScalarType, storage=True)
 
 
 def _storage_dtype(ctx: EvalContext, t: ScalarType):
+    xp = ctx.xp
+    if ctx.int_width == 128:
+        # quad-limb path: >64-bit ints stay limb vectors; narrower types
+        # and floats use native numpy dtypes
+        if t.is_int and t.width > 64:
+            return ctx.acc_of(t)
+        if t.is_float:
+            return {16: xp.float16, 32: xp.float32,
+                    64: xp.float64}[t.width]
     return t.np_dtype()

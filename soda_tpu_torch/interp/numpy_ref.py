@@ -1,11 +1,12 @@
 """The NumPy reference: the port's oracle.
 
-The port's copy of `soda_tpu/interp/numpy_interp.py` for types up to 64
-bits: every stage evaluated over the whole grid by the evaluator with
-numpy as the namespace, zero-fill taps, int64 accumulators, C division,
-masking at stores.  It is what the port's kernels and plain path are held
-against.  Integers wider than 64 bits (the original's quad-limb path,
-`wide128`) raise `UnsupportedTypeError`.
+The port's copy of `soda_tpu/interp/numpy_interp.py`: every stage
+evaluated over the whole grid by the evaluator with numpy as the
+namespace, zero-fill taps, int64 accumulators, C division, masking at
+stores.  Programs with integers wider than 64 bits run the same walk on
+the quad-limb namespace (`interp/wide128.py`) at `int_width=128`, with
+object arrays of Python ints at the boundary.  It is what the port's
+kernels and plain path are held against.
 
 Border convention: `border: ignore` -- out-of-grid taps read zeros; the
 whole grid is defined, and every path of the port matches it there.
@@ -18,7 +19,7 @@ from typing import Mapping
 import numpy as np
 
 from ..ir.program import StencilProgram
-from ..ir.types import UnsupportedTypeError
+from . import wide128
 from .evaluator import EvalContext, eval_expr, store_cast
 
 
@@ -56,6 +57,36 @@ def run_once(
         arrays[name] = np.asarray(store_cast(ctx, v, vt, t.type))
 
 
+def run_once_128(
+    program: StencilProgram,
+    arrays: dict,
+    params: Mapping,
+) -> None:
+    """One sweep of a >64-bit program: the SAME evaluator walk with the
+    quad-limb namespace (interp/wide128.Wide128XP) at int_width=128 —
+    values flow as V limb vectors (ints >64) or plain numpy arrays."""
+    def tap(name, off):
+        v = arrays[name]
+        if isinstance(v, wide128.V):
+            return v.map(lambda p: shifted(p, off))
+        return shifted(v, off)
+
+    ctx = EvalContext(
+        program=program,
+        xp=wide128.Wide128XP(np),
+        tap=tap,
+        params=dict(params),
+        int_width=128,
+    )
+    for name in program.stage_order():
+        t = program.tensors[name]
+        v, vt = eval_expr(t.expr, ctx)
+        s = store_cast(ctx, v, vt, t.type)
+        if isinstance(s, wide128.V) and s.rep == "p":
+            s = np.asarray(s.l)
+        arrays[name] = s
+
+
 def run(
     program: StencilProgram,
     inputs: Mapping[str, np.ndarray],
@@ -68,20 +99,18 @@ def run(
     output feeds back into the first input each sweep; further outputs
     take their final-sweep values (docs/SEMANTICS.md "multi-output
     iterate")."""
-    wide = [n for n, t in list(program.tensors.items()) + list(program.params.items())
-            if t.type.is_int and t.type.width > 64]
-    if wide:
-        raise UnsupportedTypeError(
-            f"program {program.name!r}: {wide} wider than 64 bits; the port's "
-            f"reference carries integers up to 64 bits (ROADMAP.md queue 1)")
     it = program.iterate if iterate is None else iterate
     params = dict(params or {})
+    w128 = wide128.program_is_128(program)
     arrays: dict = {}
     for n in program.input_names:
-        t = program.tensors[n]
-        a = np.asarray(inputs[n], dtype=t.type.np_dtype())
+        t = program.tensors[n].type
+        a = np.asarray(inputs[n], dtype=t.np_dtype())
         if a.ndim != program.rank:
             raise ValueError(f"input {n!r} rank {a.ndim} != program rank {program.rank}")
+        if w128 and wide128.is_wide(t):
+            # >64-bit inputs: object arrays of Python ints -> limb vectors
+            a = wide128._object_to_limbs(a, wide128.carrier_rep(t), np)
         arrays[n] = a
 
     for p in program.params.values():
@@ -91,10 +120,21 @@ def run(
         if tuple(pv.shape) != tuple(p.shape):
             raise ValueError(
                 f"param {p.name!r} shape {pv.shape} != declared {p.shape}")
+        if w128 and wide128.is_wide(p.type):
+            pv = wide128._object_to_limbs(pv, wide128.carrier_rep(p.type), np)
         params[p.name] = pv
 
     for sweep in range(max(it, 1)):
-        run_once(program, arrays, params)
+        (run_once_128 if w128 else run_once)(program, arrays, params)
         if it > 1 and sweep + 1 < it:
             arrays[program.input_names[0]] = arrays[program.output_names[0]]
-    return {n: arrays[n] for n in program.output_names}
+
+    out = {}
+    for n in program.output_names:
+        v = arrays[n]
+        if isinstance(v, wide128.V):
+            out[n] = (wide128.to_object_array(v, program.tensors[n].type.is_signed)
+                      if v.rep != "p" else np.asarray(v.l))
+        else:
+            out[n] = v
+    return out

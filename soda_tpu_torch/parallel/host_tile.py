@@ -43,7 +43,10 @@ device buffers (inputs, and every output through `build_fn`'s `bufs=`)
 are allocated once a run and stay alive until the run has synchronised,
 so the caching allocator never hands them to another stream meanwhile.
 On the CPU (`device="cpu"`) each tile runs the plain versions, as
-`cuda.run(device="cpu")` does.
+`cuda.run(device="cpu")` does.  Every integer up to 64 bits runs, uint64
+copied and zeroed through its int64 view (`ir/dtypes.py::bits`); wider
+ones are refused, as the reference refuses them
+(`ir/dtypes.py::check_kernel_types`).
 
 Cost (`sodac --report`): per pass each tile reads (T + 2h)^d cells to
 produce T^d, the reference host's halo recompute, and `passes = iterate /
@@ -62,7 +65,7 @@ import torch
 
 from ..backend.cuda import build_fn
 from ..backend.io import check_io, params_to_torch
-from ..ir.dtypes import check_types_supported, torch_dtype
+from ..ir.dtypes import bits, check_kernel_types, torch_dtype
 from ..ir.program import StencilProgram
 from ..utils.device import resolve
 
@@ -291,6 +294,7 @@ def _fill(buf: torch.Tensor, grid: torch.Tensor, starts) -> None:
         src.append(slice(s0, max(s1, s0)))
         dst.append(slice(s0 - st, max(s1, s0) - st))
     whole = all(d.start == 0 and d.stop == sz for d, sz in zip(dst, buf.shape))
+    buf, grid = bits(buf), bits(grid)
     if not whole:
         buf.zero_()
     buf[tuple(dst)].copy_(grid[tuple(src)])
@@ -324,7 +328,7 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
     dev = resolve(device)
     if in_flight not in (1, 2):
         raise ValueError(f"in_flight is 1 or 2, not {in_flight}")
-    check_types_supported(program)
+    check_kernel_types(program)
     params = dict(params or {})
     check_io(program, inputs, params)
     host = {n: torch.from_numpy(np.ascontiguousarray(
@@ -415,7 +419,7 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
             dst, shape, _ = pending[s]
             d2h_done[s].synchronize()
             for n, buf in stage_out[s].items():
-                host_out[n][dst].copy_(buf[:math.prod(shape)].view(shape))
+                bits(host_out[n])[dst].copy_(bits(buf)[:math.prod(shape)].view(shape))
             pending[s] = None
 
         for k, idx in enumerate(itertools.product(*(range(m) for m in n_tiles))):
@@ -429,11 +433,11 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
             if not on_card:
                 outs = run_tile(dev_in[s], None)
                 for n in outs_t:
-                    host_out[n][dst].copy_(outs[n][src])
+                    bits(host_out[n])[dst].copy_(bits(outs[n])[src])
                 continue
             with torch.cuda.stream(copy_stream):
                 for n, buf in stage_in[s].items():
-                    dev_in[s][n].copy_(buf, non_blocking=True)
+                    bits(dev_in[s][n]).copy_(bits(buf), non_blocking=True)
                 h2d_done[s].record(copy_stream)
             compute_stream.wait_event(h2d_done[s])
             with torch.cuda.stream(compute_stream):
@@ -443,8 +447,8 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
             shape = tuple(sl.stop - sl.start for sl in dst)
             with torch.cuda.stream(copy_stream):
                 for n, buf in stage_out[s].items():
-                    buf[:math.prod(shape)].view(shape).copy_(outs[n][src],
-                                                             non_blocking=True)
+                    bits(buf)[:math.prod(shape)].view(shape).copy_(
+                        bits(outs[n])[src], non_blocking=True)
                 d2h_done[s].record(copy_stream)
             pending[s] = (dst, shape, outs)
             record["h2d_bytes"] += in_bytes
@@ -461,5 +465,5 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
         torch.cuda.synchronize(dev)
     if stats is not None:
         stats.update(record)
-    return {n: t.numpy().astype(program.tensors[n].type.np_dtype(), copy=False)
+    return {n: bits(t).numpy().view(program.tensors[n].type.np_dtype())
             for n, t in host_out.items()}

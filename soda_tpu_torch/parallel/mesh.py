@@ -36,10 +36,12 @@ program equals the whole-grid run bit for bit; deeper cadences, and the
 intermediate stages of a multi-stage program evaluated in a halo past the
 grid's edge, differ only inside `valid_rim()`.
 
-Shards keep the declared storage dtypes between chunks: int64 and f64
-shard natively (the reference's f32/int32 local cast and 64-bit plane
-pairs are TPU workarounds); integers wider than 64 bits keep the port's
-typed rejection (`ir/dtypes.py::check_types_supported`).
+Shards keep the declared storage dtypes between chunks: int64, uint64
+and f64 shard natively (the reference's f32/int32 local cast and 64-bit
+plane pairs are TPU workarounds; uint64 is copied and zeroed through its
+int64 view, `ir/dtypes.py::bits`); integers wider than 64 bits are
+refused with a typed error naming `--backend eager`, as the reference
+refuses them (`ir/dtypes.py::check_kernel_types`).
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ import torch
 
 from ..backend import cuda, eager
 from ..backend.io import check_io, finalize_outputs, params_to_torch, to_torch
-from ..ir.dtypes import check_types_supported, torch_dtype
+from ..ir.dtypes import bits, check_kernel_types, torch_dtype
 from ..ir.program import StencilProgram
 from ..utils.device import resolve
 from ..utils.opcount import H100_SXM_PEAK_TFLOPS, ops_per_cell
@@ -132,9 +134,9 @@ def _exchange(ext: Sequence[torch.Tensor], dim: int, lo: int, hi: int) -> int:
     moved = 0
     for i, x in enumerate(ext):
         for hop, cnt, at, src in _halo_rows(n_loc, lo, hi):
-            dst = x.narrow(dim, at, cnt)
+            dst = bits(x).narrow(dim, at, cnt)
             if 0 <= i + hop < len(ext):
-                dst.copy_(ext[i + hop].narrow(dim, lo + src, cnt))
+                dst.copy_(bits(ext[i + hop]).narrow(dim, lo + src, cnt))
                 moved += dst.numel() * dst.element_size()
             else:
                 dst.zero_()
@@ -156,7 +158,7 @@ def halo_exchange(shards: Sequence[torch.Tensor], dim: int, lo: int,
         shape = list(x.shape)
         shape[dim] += lo + hi
         e = torch.empty(shape, dtype=x.dtype, device=x.device)
-        e.narrow(dim, lo, x.shape[dim]).copy_(x)
+        bits(e).narrow(dim, lo, x.shape[dim]).copy_(bits(x))
         ext.append(e)
     _exchange(ext, dim, lo, hi)
     return ext
@@ -288,8 +290,14 @@ def _narrow(x: torch.Tensor, spans: Mapping[int, tuple[int, int]]) -> torch.Tens
     return x
 
 
+def _copy(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst[...] = src (uint64 through the int64 views)."""
+    bits(dst).copy_(bits(src))
+
+
 def _copy_padded(dst: torch.Tensor, src: torch.Tensor) -> None:
     """dst[:src.shape] = src, zeros in the rest of dst (src may be empty)."""
+    dst, src = bits(dst), bits(src)
     if tuple(src.shape) != tuple(dst.shape):
         dst.zero_()
         if src.numel() == 0:
@@ -334,7 +342,7 @@ def build_sharded_fn(
     `fn.stats` holds the last call's `exchange_bytes` (copied between
     shards) and `group_calls` (calls of a group's kernel, or of its plain
     version on CPU shards)."""
-    check_types_supported(program)
+    check_kernel_types(program)
     if local_backend not in ("cuda", "eager"):
         raise ValueError(f"local_backend is 'cuda' or 'eager', not {local_backend!r}")
     it = max(program.iterate if iterate is None else iterate, 1)
@@ -482,7 +490,7 @@ def build_sharded_fn(
                 valid = max(pads[a] - idx[a] * shard[d], 0)
                 if valid < shard[d]:
                     for v in vals.values():
-                        v.narrow(d, valid, shard[d] - valid).zero_()
+                        bits(v).narrow(d, valid, shard[d] - valid).zero_()
 
     def run_level(level: int, source, sweeps: int, pars: dict) -> dict:
         """`sweeps` sweeps of every shard at this level: every `k` of them
@@ -515,7 +523,7 @@ def build_sharded_fn(
                 exchange(level, ins, [in0])
             else:
                 for idx in positions:
-                    centre(ext[idx][in0], level).copy_(outs[idx][out0])
+                    _copy(centre(ext[idx][in0], level), outs[idx][out0])
                 exchange(level, ext, [in0])
                 ins = ext
             if inner:
@@ -568,7 +576,7 @@ def build_sharded_fn(
                     on_copy.enter_context(torch.cuda.stream(s))
                 for idx in positions:
                     for n in names:
-                        centre(ext[idx][n], 0).copy_(state[idx][n])
+                        _copy(centre(ext[idx][n], 0), state[idx][n])
                 exchange(0, ext, names)
                 copied = {dev: s.record_event() for dev, s in copy_streams.items()}
             # meanwhile the interiors, from the shards' own rows
@@ -585,11 +593,11 @@ def build_sharded_fn(
                 for idx in positions:
                     slab_in, bufs = slab_bufs[(a, start)][idx]
                     for n in program.input_names:
-                        slab_in[n].copy_(ext[idx][n].narrow(d, start, rows))
+                        _copy(slab_in[n], ext[idx][n].narrow(d, start, rows))
                     res = call(f, k, slab_in, pars[device_of[idx]], bufs)
                     for n in program.output_names:
                         strip = _narrow(res[n], others).narrow(d, halo(a, k)[0], width)
-                        outs[idx][n].narrow(d, start, width).copy_(strip)
+                        _copy(outs[idx][n].narrow(d, start, width), strip)
             mask_pads(outs, 0)
         return outs
 
@@ -622,7 +630,7 @@ def build_sharded_fn(
             for idx in positions:
                 spans = region(idx)
                 if all(size > 0 for _, size in spans.values()):
-                    _narrow(result[n], spans).copy_(_narrow(
+                    _copy(_narrow(result[n], spans), _narrow(
                         outs[idx][n], {d: (0, size) for d, (_, size) in spans.items()}))
         return result
 

@@ -55,6 +55,41 @@ output int16: o(0, 0, 0) = (d(0, 1, 0) - d(-1, 0, 0)) % 7 + (d(0, 0, 0) >> 2) - 
 # the rank-1 corpus: every program that only the windows kernel runs
 RANK1_CORPUS = ("smooth1d",)
 
+# full-width uint64 through each kernel: rank 3 (kernel 1), rank 2 (kernel
+# 2; U64_PARAM is soda_tpu's tests/test_backends.py::
+# test_pallas_wide_params_run_in_kernel, a uint64 param), fused iterate
+# sweeps (kernel 3) and rank 1 (kernel 4), with compares, shifts, division
+# and remainder on values above 2^63
+U64_SOURCES = {
+    "u64_3d": """
+kernel: u64_3d
+input uint64: a(32, 32, *)
+output uint64: o(0, 0, 0) = (a(0, 0, -1) + a(0, 0, 1) + a(0, -1, 0) + a(0, 1, 0) + a(-1, 0, 0) + a(1, 0, 0)) / uint64(6) ^ (a(0, 0, 0) >> 61)
+""",
+    "u64_2d": """
+kernel: u64_2d
+input uint64: a(128, *)
+output uint64: o(0, 0) = (a(0, 0) > a(0, 1)) ? (a(0, 0) / uint64(3) + (a(-1, 0) & a(1, 0))) : (a(0, 1) >> 2) % uint64(1000000007)
+""",
+    "u64_param": """
+kernel: wp
+param uint64: k
+input uint16: a(64, *)
+output uint64: out(0, 0) = uint64(a(0, 0)) * k + uint64(a(0, 1))
+""",
+    "u64_iter": """
+kernel: u64_iter
+iterate: 4
+input uint64: a(128, *)
+output uint64: o(0, 0) = ((a(0, -1) >> 2) + (a(0, 1) >> 2) + (a(-1, 0) >> 2) + (a(1, 0) >> 2)) ^ a(0, 0)
+""",
+    "u64_1d": """
+kernel: u64_1d
+input uint64: a(4096)
+output uint64: o(0) = (a(0) > a(1)) ? a(-1) / uint64(3) : a(1) % uint64(1000000007)
+""",
+}
+
 
 def _star3d(radius: int) -> str:
     taps = ["u(0, 0, 0)"] + [
@@ -129,6 +164,25 @@ def rand_inputs(p, shape, rng):
                                   shape).astype(t.np_dtype())
     ps = {pp.name: rng.standard_normal(pp.shape).astype(pp.type.np_dtype())
           for pp in p.params.values()}
+    return ins, ps
+
+
+def u64_inputs(p, shape, rng):
+    """`rand_inputs`, with every uint64 input and param drawn again over
+    the whole range [0, 2^64), so that values above 2^63 reach every
+    compare, shift and division (the same draws as `rand_inputs` for a
+    program without uint64)."""
+    def u64(t):
+        return t.is_int and t.kind == "uint" and t.width == 64
+
+    ins, ps = rand_inputs(p, shape, rng)
+    full = dict(dtype=np.uint64, endpoint=True)
+    for n in p.input_names:
+        if u64(p.tensors[n].type):
+            ins[n] = rng.integers(0, 2**64 - 1, shape, **full)
+    for pp in p.params.values():
+        if u64(pp.type):
+            ps[pp.name] = rng.integers(0, 2**64 - 1, pp.shape, **full)
     return ins, ps
 
 

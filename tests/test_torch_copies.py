@@ -2,12 +2,13 @@
 originals.
 
 The port imports nothing of soda_tpu, so it carries its own copies of the
-IR, the evaluator and the NumPy oracle, the golden runner (its printer
-and the generated runners), the computation-reuse rewrite (`--tcse`), the
-span arithmetic and the test helpers.  Each copy is fed programs from the
-port's parser and each original programs from the lark parser, on every
-corpus program (every one of at most 64 bits where the copy leaves the
-wider ones out).
+IR, the evaluator and the NumPy oracle with its quad-limb integers
+(`interp/wide128.py`), the golden runner (its printer and the generated
+runners), the computation-reuse rewrite (`--tcse`), the span arithmetic
+and the test helpers.  Each copy is fed programs from the port's parser
+and each original programs from the lark parser, on every corpus
+program; the quad-limb copy is fed the original's limbs, operation by
+operation.
 
 Tolerance: none.  The printers print the same strings, the oracles give
 bit-identical arrays, the spans and the random inputs are equal, and the
@@ -23,6 +24,7 @@ import pytest
 from soda_tpu.backend import cpp as cpp_orig
 from soda_tpu.frontend import parser as lark_parser
 from soda_tpu.interp import numpy_interp
+from soda_tpu.interp import wide128 as wide128_orig
 from soda_tpu.ir import types as types_orig
 from soda_tpu.optimize import tcse as tcse_orig
 from soda_tpu.optimize import unroll as unroll_orig
@@ -33,8 +35,8 @@ from soda_tpu_torch.backend import cpp as cpp_port
 from soda_tpu_torch.backend import cpp_gen
 from soda_tpu_torch.frontend import parser as port_parser
 from soda_tpu_torch.interp import numpy_ref
+from soda_tpu_torch.interp import wide128 as wide128_port
 from soda_tpu_torch.ir import types as types_port
-from soda_tpu_torch.ir.types import UnsupportedTypeError
 from soda_tpu_torch.optimize import tcse as tcse_port
 from soda_tpu_torch.optimize import unroll as unroll_port
 from soda_tpu_torch.plan import spans
@@ -73,15 +75,13 @@ def test_numpy_reference_equals_the_oracle_bit_for_bit(path):
     port, orig = _both(path)
     ins, ps = testing_orig.rand_inputs(orig, SHAPES[orig.rank],
                                        np.random.default_rng(21))
-    if path.stem == "accum128":
-        with pytest.raises(UnsupportedTypeError, match="wider than 64 bits"):
-            numpy_ref.run(port, ins, ps)
-        return
     got, gold = numpy_ref.run(port, ins, ps), numpy_interp.run(orig, ins, ps)
     assert list(got) == list(gold)
     for k in gold:
         assert got[k].dtype == gold[k].dtype
-        assert np.array_equal(got[k], gold[k], equal_nan=True), k
+        # object arrays (Python ints above 64 bits) have no NaN
+        nan = gold[k].dtype != object
+        assert np.array_equal(got[k], gold[k], equal_nan=nan), k
 
 
 @pytest.mark.parametrize("path", CORPUS, ids=lambda p: p.stem)
@@ -106,8 +106,6 @@ def test_rand_inputs_and_compare_outputs_equal_the_originals():
             assert list(x) == list(y)
             for k in x:
                 assert x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]), (path, k)
-        if path.stem == "accum128":
-            continue
         gold = numpy_interp.run(orig, *b)
         for rim in (0, 1):
             for scale in (0.0, 1e-5, 1e-2, 1.0):
@@ -179,14 +177,71 @@ def test_tcse_copy_equals_the_original(path):
 def test_golden_runner_copy_generates_the_original_text(path):
     port, orig = _both(path)
     shape = SHAPES[port.rank]
-    if path.stem == "accum128":
-        for gen in (cpp_port.generate, cpp_port.generate_shared):
-            with pytest.raises(UnsupportedTypeError, match="wider than 64 bits"):
-                gen(port, shape)
-        return
     for it in (None, 3):
         assert cpp_port.generate(port, shape, it) == cpp_orig.generate(orig, shape, it)
         assert (cpp_port.generate_shared(port, shape, it)
                 == cpp_orig.generate_shared(orig, shape, it))
     tp, to = tcse_port.apply(port), tcse_orig.apply(orig)
     assert cpp_port.generate(tp, shape) == cpp_orig.generate(to, shape)
+
+
+def _limb_ops(m):
+    """Every operation of a quad-limb module `m` (the original or the
+    port's copy), on `m`'s own values: name -> fn(a, b, s) of two limb
+    vectors and a per-element shift amount."""
+    xp = m.Wide128XP(np)
+    return {
+        "add": lambda a, b, s: a + b, "sub": lambda a, b, s: a - b,
+        "mul": lambda a, b, s: a * b, "neg": lambda a, b, s: -a,
+        "invert": lambda a, b, s: ~a, "and": lambda a, b, s: a & b,
+        "or": lambda a, b, s: a | b, "xor": lambda a, b, s: a ^ b,
+        "lt": lambda a, b, s: a < b, "le": lambda a, b, s: a <= b,
+        "gt": lambda a, b, s: a > b, "ge": lambda a, b, s: a >= b,
+        "eq": lambda a, b, s: a == b, "ne": lambda a, b, s: a != b,
+        "min": lambda a, b, s: xp.minimum(a, b), "max": lambda a, b, s: xp.maximum(a, b),
+        "abs": lambda a, b, s: xp.abs(a),
+        "floordiv": lambda a, b, s: xp.floor_divide(a, b),
+        "shl": lambda a, b, s: xp.left_shift(a, s), "shr": lambda a, b, s: xp.right_shift(a, s),
+        "shl_const": lambda a, b, s: m._shl_const(a, 37),
+        "shr_const": lambda a, b, s: m._shr_const(a, 70),
+        "to_f64": lambda a, b, s: a.astype(np.float64),
+        "to_i32": lambda a, b, s: a.astype(np.int32),
+        "from_f64": lambda a, b, s: xp.asarray(np.linspace(-3e30, 3e30, 64)).astype(a.dtype),
+        "from_i64": lambda a, b, s: xp.asarray(np.arange(-32, 32) * (2**61 - 1)).astype(a.dtype),
+    }
+
+
+@pytest.mark.parametrize("rep", ["i", "u"])
+@pytest.mark.parametrize("op", sorted(_limb_ops(wide128_port)))
+def test_wide128_copy_equals_the_original_operation_for_operation(op, rep):
+    rng = np.random.default_rng(17)
+    vals = [np.array([int.from_bytes(rng.bytes(16), "little") for _ in range(64)],
+                     dtype=object) for _ in range(2)]
+    vals[1][::7] = 0   # zero divisors: the division's defined result
+    vals[1][1::5] = vals[0][1::5]   # equal pairs for the compares
+    s = rng.integers(0, 140, 64)
+    out = []
+    for m in (wide128_port, wide128_orig):
+        a, b = (m._object_to_limbs(v, rep, np) for v in vals)
+        r = _limb_ops(m)[op](a, b, s)
+        out.append(r.l if r.rep == "p" else tuple(np.asarray(x) for x in r.l))
+    if isinstance(out[0], tuple):
+        assert all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(*out))
+    else:
+        assert out[0].dtype == out[1].dtype and np.array_equal(out[0], out[1])
+
+
+@pytest.mark.parametrize("name", sorted(testing_port.U64_SOURCES) + ["w128", "w96"])
+def test_rand_inputs_equal_the_originals_on_wide_integers(name):
+    """uint64 inputs and params, and integers of 96 and 128 bits."""
+    from test_wide128 import SRC_I, SRC_U
+
+    src = {"w128": SRC_U, "w96": SRC_I}.get(name) or testing_port.U64_SOURCES[name]
+    port, orig = port_parser.parse(src), lark_parser.parse(src)
+    shape = SHAPES[port.rank]
+    a = testing_port.rand_inputs(port, shape, np.random.default_rng(3))
+    b = testing_orig.rand_inputs(orig, shape, np.random.default_rng(3))
+    for x, y in zip(a, b):
+        assert list(x) == list(y)
+        for k in x:
+            assert x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]), k

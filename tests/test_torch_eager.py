@@ -2,7 +2,8 @@
 NumPy oracle and soda_tpu's XLA backend, on every corpus program.
 
 Inputs come from `numpy.random.default_rng` (`rand_inputs`) and go to both
-packages.  Gates are `soda_tpu.utils.testing.compare_outputs`: integers
+packages; accum128 (128-bit integers, the quad-limb path) is held against
+the oracle as object arrays of Python ints.  Gates are `soda_tpu.utils.testing.compare_outputs`: integers
 bit-exact; f32 at 1e-4, f32 programs with libm transcendentals at 2e-3,
 half at 2e-2.  Against the oracle the whole grid is compared (the eager
 path has the oracle's semantics); against XLA the border-invalid rim is
@@ -23,7 +24,6 @@ from soda_tpu_torch.backend import eager
 from soda_tpu_torch.frontend.parser import parse_file as port_parse_file
 from soda_tpu_torch.backend.io import to_numpy, to_torch
 from soda_tpu_torch.interp.torch_xp import TorchXP
-from soda_tpu_torch.ir.dtypes import UnsupportedTypeError
 
 torch.set_num_threads(1)
 
@@ -45,10 +45,6 @@ def _max_diff(got, gold):
 def test_eager_matches_oracle(path):
     p = port_parse_file(path)
     ins, ps = _io(p)
-    if path.stem == "accum128":
-        with pytest.raises(UnsupportedTypeError, match="wider than 64 bits"):
-            eager.run(p, ins, ps, device="cpu")
-        return
     got = to_numpy(p, eager.run(p, ins, ps, device="cpu"))
     gold = numpy_interp.run(parse_file(path), ins, ps)
     for k in gold:
@@ -91,11 +87,17 @@ def test_to_torch_checks_names_ranks_and_param_shapes():
 
 
 def test_full_width_uint64_is_refused_with_a_typed_error():
+    """Full-width uint64 RUNS, bit for bit with the oracle on values
+    across the whole range.  The name is kept from when this test pinned
+    the refusal that the unsigned carrier (`torch_xp.U64`) lifted."""
+    from soda_tpu.frontend.parser import parse as lark_parse
     from soda_tpu_torch.frontend.parser import parse
 
-    p = parse("kernel: k\ninput uint64: a(8, *)\noutput uint64: b(0, 0) = a(0, 1)\n")
-    with pytest.raises(UnsupportedTypeError, match="uint64"):
-        eager.run(p, {"a": np.zeros((4, 4), np.uint64)}, {}, device="cpu")
+    src = "kernel: k\ninput uint64: a(8, *)\noutput uint64: b(0, 0) = a(0, 1)\n"
+    x = np.random.default_rng(4).integers(0, 2**64 - 1, (4, 4), np.uint64, endpoint=True)
+    got = to_numpy(parse(src), eager.run(parse(src), {"a": x}, {}, device="cpu"))["b"]
+    assert got.dtype == np.uint64
+    assert np.array_equal(got, numpy_interp.run(lark_parse(src), {"a": x})["b"])
 
 
 def test_torch_namespace_numpy_semantics():

@@ -45,7 +45,7 @@ from soda_tpu_torch.backend.io import to_numpy
 from soda_tpu_torch.frontend.parser import parse
 from soda_tpu_torch.parallel import host_tile, mesh
 from soda_tpu_torch.utils.device import NoCudaDevice
-from soda_tpu_torch.utils.testing import rand_inputs
+from soda_tpu_torch.utils.testing import U64_SOURCES, rand_inputs, u64_inputs
 
 torch.set_num_threads(1)
 
@@ -53,6 +53,7 @@ SODA = pathlib.Path(__file__).parent / "soda"
 NAMES = ("blur", "sobel2d", "jacobi2d", "jacobi3d", "denoise3d", "residual2d",
          "smooth1d", "accum64", "smooth_half", "erode2d", "heat3d", "poisson3d_f64")
 SOURCES = {n: (SODA / f"{n}.soda").read_text() for n in NAMES}
+SOURCES["u64_2d"] = U64_SOURCES["u64_2d"]
 PROGRAMS = {n: parse(s) for n, s in SOURCES.items()}
 REF = {n: lark_parser.parse(s) for n, s in SOURCES.items()}
 
@@ -113,10 +114,11 @@ def test_choose_sweeps_per_pass_equals_the_reference(name, grid, tiles, budget):
     ("blur", (67, 201), (32, 96)),
     ("jacobi2d", (45, 131), (16, 64)),
     ("jacobi3d", (11, 13, 70), (4, 8, 32)),
+    ("u64_2d", (45, 131), (16, 64)),
 ])
 def test_one_sweep_a_pass_equals_the_reference_and_the_whole_grid(name, grid, tiles):
     p, r = PROGRAMS[name], REF[name]
-    ins, ps = rand_inputs(p, grid, np.random.default_rng(71))
+    ins, ps = u64_inputs(p, grid, np.random.default_rng(71))
     stats = {}
     got = host_tile.run_host_tiled(p, ins, ps, tiles=tiles, sweeps_per_pass=1,
                                    device="cpu", stats=stats)

@@ -46,7 +46,8 @@ from soda_tpu_torch.frontend.parser import parse
 from soda_tpu_torch.ir.types import UnsupportedTypeError
 from soda_tpu_torch.parallel import host_tile, mesh
 from soda_tpu_torch.utils.device import NoCudaDevice
-from soda_tpu_torch.utils.testing import build_emulated, compare_outputs, rand_inputs
+from soda_tpu_torch.utils.testing import (U64_SOURCES, build_emulated, compare_outputs,
+                                          rand_inputs, u64_inputs)
 
 torch.set_num_threads(1)
 
@@ -60,7 +61,7 @@ SOURCES = {n: (SODA / f"{n}.soda").read_text() for n in (
     "jacobi2d", "seidel2d", "jacobi3d", "denoise3d", "blur", "heat3d",
     "residual2d", "denoise2p", "gaussian2d", "poisson_f64", "accum64",
     "jacobi2d_i64", "smooth_half", "smooth1d", "accum128")}
-SOURCES.update(m64=M64, mw=MW)
+SOURCES.update(m64=M64, mw=MW, u64_2d=U64_SOURCES["u64_2d"])
 PROGRAMS = {n: parse(s) for n, s in SOURCES.items()}
 REF = {n: lark_parser.parse(s) for n, s in SOURCES.items()}
 # the reference's link classes and the port's for the same axes
@@ -111,6 +112,7 @@ CASES = {
                                                   links=True)),
     "uniform-mapping": ("jacobi2d", (64, 96), dict(names=("dcn", "x"), axis_sizes=[2, 4],
                                                    sweeps_per_exchange={"dcn": 2, "x": 2})),
+    "u64_2d-4": ("u64_2d", (64, 96), dict(axis_sizes=[4])),
 }
 
 
@@ -119,7 +121,7 @@ def _bits(a):
 
 
 def _inputs(name, grid, seed=5):
-    return rand_inputs(PROGRAMS[name], grid, np.random.default_rng(seed))
+    return u64_inputs(PROGRAMS[name], grid, np.random.default_rng(seed))
 
 
 def _port_kwargs(kw):
@@ -291,7 +293,7 @@ def test_the_typed_rejections():
         mesh.run_sharded(p, x, mesh=m, dims=[0, 2])
     with pytest.raises(ValueError, match="local_backend is 'cuda' or 'eager'"):
         mesh.run_sharded(p, x, mesh=m, local_backend="pallas")
-    with pytest.raises(UnsupportedTypeError, match="wider than 64 bits"):
+    with pytest.raises(UnsupportedTypeError, match="wider than 64 bits.*--backend eager"):
         mesh.build_sharded_fn(PROGRAMS["accum128"], m, grid_shape=(64, 96))
 
 

@@ -141,6 +141,21 @@ for name, shape in [("jacobi3d", (9, 14, 40)), ("denoise3d", (8, 12, 40)),
     ins, ps = rand_inputs(p, shape, np.random.default_rng(0))
     got = to_numpy(p, cuda.run(p, ins, ps, device="cpu"))
     res[name] = bool(compare_outputs(p, got, oracle(p, ins, ps), 0))
+# wide integers: uint64 through the kernels' plain versions, 128 bits
+# through the plain path's limbs (interp/torch_wide128.py) and the oracle's
+from soda_tpu_torch.backend import eager
+from soda_tpu_torch.frontend.parser import parse
+from soda_tpu_torch.utils.testing import U64_SOURCES, u64_inputs
+q = parse(U64_SOURCES["u64_2d"])
+q_ins, q_ps = u64_inputs(q, (19, 40), np.random.default_rng(0))
+res["u64_2d"] = bool(compare_outputs(q, to_numpy(q, cuda.run(q, q_ins, q_ps, device="cpu")),
+                                     oracle(q, q_ins, q_ps), 0))
+q = parse_file(CORPUS / "accum128.soda")
+q_ins, q_ps = rand_inputs(q, (13, 21), np.random.default_rng(0))
+res["accum128"] = bool(compare_outputs(q, to_numpy(q, eager.run(q, q_ins, q_ps, device="cpu")),
+                                       oracle(q, q_ins, q_ps), 0))
+res["wide_modules"] = sorted(m for m in sys.modules if m.startswith("soda_tpu_torch.")
+                             and m.endswith(("wide128", ".dtypes")))
 try:
     cuda.run(p, ins, ps, device="cuda")
     res["cuda"] = "ran"
@@ -165,6 +180,10 @@ def test_card_contract_without_jax_and_lark():
     assert res["jacobi3d"] and res["denoise3d"] and res["blur"]
     assert res["jacobi2d"] and res["heat3d"]  # fused cascades, plain versions
     assert res["smooth1d"]  # rank 1: the windows kernel's plain version
+    assert res["u64_2d"] and res["accum128"]   # uint64; 128 bits on the limbs
+    assert res["wide_modules"] == ["soda_tpu_torch.interp.torch_wide128",
+                                   "soda_tpu_torch.interp.wide128",
+                                   "soda_tpu_torch.ir.dtypes"]
     assert res["fused_modules"] == ["soda_tpu_torch.backend.sweeps",
                                     "soda_tpu_torch.optimize.unroll",
                                     "soda_tpu_torch.utils.opcount"]
