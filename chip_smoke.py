@@ -12,12 +12,21 @@ Phases (any failure exits nonzero):
    `soda_tpu_torch.backend.cuda.run`, held against the plain PyTorch
    version on the card and against the port's NumPy reference over the
    whole grid; the kernel-1 launch count must rise by groups x iterate;
+   then the z-march's pinned variants (`PINNED_3D` on
+   `PINNED_3D_PROGRAMS`: one wait a step and a barrier after each stage,
+   a chunk of one plane, shorter than the warm-up, and rings of their own
+   depth where the powers of two exceed a small budget, each on (32, 64,
+   128), whose planes are copied 16 bytes at a time, and on (13, 37, 45),
+   copied element by element), each launching kernel 1 and equal bit for
+   bit to the planner's kernel and, without libm, to the plain version;
 4. kernel 1's main path at full size: jacobi3d 512^3 f32, one sweep, with
    kernel 1's launch counter reset just before and read just after; held
    against the plain version at 1e-4 over the whole grid, then both timed
    with CUDA events (plain, kernel, kernel, plain) beside the bound (ideal
    bytes over 3.35 TB/s) and `F.conv3d` (TF32 off); denoise3d, heat3d and
    poisson3d_f64 at 256^3, and jacobi3d 1024^3 when the card has room;
+   each row prints its plan (tile, chunk, load path, order of a step's
+   stages, CTAs an SM) and the registers `ptxas` reported;
 5. small grids, rank 2: the 22 rank-2 corpus programs of at most 64 bits
    on (64, 256), (37, 45) and (7, 13), as in phase 3 with kernel 2's
    count; integers and half bit for bit against the plain version; then
@@ -59,12 +68,12 @@ Phases (any failure exits nonzero):
    events three ways in turns (fused, chained, plain, plain, chained,
    fused), beside the device time of the fused kernel alone and of the
    chained kernels alone (`device_ms`), its bound per call (and what
-   bounds it), the planned bytes per cell-update, and the card's name and
-   power limit;
+   bounds it), the planned bytes per cell-update, the plan and its
+   registers, and the card's name and power limit;
 10. the depth sweep: every row of phase 9 at every fused depth that fits
    (and 1), in ms per sweep beside the planner's modeled time and plan
-   (tile, chunk, load path, CTAs an SM, waves), each output equal to the
-   chained kernels bit for bit;
+   (tile, chunk, load path, order, CTAs an SM, rank 2's waves, registers),
+   each output equal to the chained kernels bit for bit;
 11. small grids, the windows kernel (`backend/windows.py`, kernel 4):
    smooth1d (rank 1) at lengths 1, 7, 300 and 4099, at its default block
    and at a block of 32 cells; every rank-3 and rank-2 program of phases 3
@@ -169,6 +178,14 @@ SMALL_SHAPES = ((32, 64, 128), (13, 37, 45), (7, 11, 13))
 AT_SIZE = (("jacobi3d", (512, 512, 512)), ("denoise3d", (256, 256, 256)),
            ("heat3d", (256, 256, 256)), ("poisson3d_f64", (256, 256, 256)))
 BIG = ("jacobi3d", (1024, 1024, 1024))
+# the z-march pinned (phase 3): a barrier after each stage instead of the
+# planner's skew, a chunk (1 plane) shorter than every warm-up, and a
+# budget under which denoise3d's power-of-two rings do not fit the tile
+# (8, 32) but their own depths do, on both load paths; on an f32 program
+# of three levels (libm) and an int16 one of two
+PINNED_3D = ({"tile": (8, 32), "bz": 8}, {"tile": (8, 32), "bz": 8, "sync": "barrier"},
+             {"tile": (16, 32), "bz": 1}, {"tile": (8, 32), "bz": 4, "smem_budget": 26000})
+PINNED_3D_PROGRAMS = ("denoise3d", "divneg_i16")
 SMALL_SHAPES_2D = ((64, 256), (37, 45), (7, 13))
 # the row-march pinned (phase 5): RB 1, RB 16, a chunk (2 rows) shorter
 # than the warm-up of the radius-2 programs (4 rows), and a barrier after
@@ -338,6 +355,14 @@ def bitwise_equal(a: dict, b: dict) -> bool:
     bits = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
     return all(torch.equal(a[k].view(bits[a[k].element_size()]),
                            b[k].view(bits[b[k].element_size()])) for k in a)
+
+
+def ptxas_registers(log: str) -> str:
+    """The registers (and spills) `ptxas -v` reported for a kernel."""
+    regs = re.search(r"Used (\d+) registers", log)
+    spills = re.search(r"(\d+) bytes spill stores", log)
+    return ((f"{regs.group(1)} registers" if regs else "registers not reported")
+            + (f", {spills.group(1)} B spill stores" if spills else ""))
 
 
 def launch_count() -> int:
@@ -645,6 +670,10 @@ def main() -> int:
     for n, p in programs.items():
         for shape in SMALL_SHAPES:
             add_jobs(p, shape)
+    for n in PINNED_3D_PROGRAMS:
+        for shape in SMALL_SHAPES[:2]:
+            for kw in PINNED_3D:
+                add_plan(programs[n], pinned_plan(programs[n], shape, kw))
     for n, shape in AT_SIZE + (BIG,):
         add_jobs(programs[n], shape, sweeps=1)
     for n, p in programs2.items():
@@ -778,6 +807,30 @@ def main() -> int:
                 f"{'ok' if ok_oracle else 'MISMATCH'}")
             if not ok:
                 failures.append(f"{n} {shape}")
+    for n in PINNED_3D_PROGRAMS:
+        p = programs[n]
+        libm = p.uses_libm_transcendentals()
+        for shape in SMALL_SHAPES[:2]:
+            ins, ps = rand_inputs(p, shape, np.random.default_rng(0))
+            ref = cuda.run(p, ins, ps, device=dev)
+            plain = eager.run(p, ins, ps, device=dev)
+            for kw in PINNED_3D:
+                the_plan = pinned_plan(p, shape, kw)
+                before = linebuffer.LAUNCHES
+                got = cuda.run(p, ins, ps, device=dev, the_plan=the_plan)
+                torch.cuda.synchronize()
+                launched = linebuffer.LAUNCHES - before
+                ok_ref = bitwise_equal(got, ref)
+                ok_plain = device_gate(p, got, plain, not libm)
+                ok = (launched == len(the_plan.groups) and ok_ref and ok_plain
+                      and {g.kernel for g in the_plan.groups} == {"linebuffer3d"}
+                      and the_plan.groups[0].sync == kw.get("sync", "skew"))
+                log(f"pinned {n} {shape} {kw}: {the_plan.groups[0].describe()}; ring "
+                    f"depths {[r.depth for r in the_plan.groups[0].rings]}; launches "
+                    f"{launched}, planner's kernel {'bit for bit' if ok_ref else 'MISMATCH'}, "
+                    f"plain {'ok' if ok_plain else 'MISMATCH'}{'' if libm else ' (bit for bit)'}")
+                if not ok:
+                    failures.append(f"pinned {n} {shape} {kw}")
     if failures:
         log(f"FAILED small-grid checks: {failures}")
         return 1
@@ -829,6 +882,7 @@ def main() -> int:
         k_ms, p_ms = (t[1] + t[2]) / 2 / calls, (t[0] + t[3]) / 2 / calls
         rep = report.analyze(fn.plan)
         r = report.rates(rep, k_ms / 1e3, card)
+        g = fn.plan.groups[0]
         log(f"at-size {n} {shape}: max|kernel-plain| {err:.3g} "
             f"({'ok' if ok else 'MISMATCH'}); ms/sweep kernel {k_ms:.4f} "
             f"[{t[1]:.4f}, {t[2]:.4f}]/{calls} plain {p_ms:.4f} "
@@ -836,7 +890,8 @@ def main() -> int:
             f"{r['achieved_gbps_at_ideal_bytes']:.1f} "
             f"GB/s at {rep.ideal_bytes_per_cell:g} B/cell = "
             f"{100 * r['share_of_3350_gbps']:.1f}% of 3.35 TB/s; plan "
-            f"{rep.plan_bytes_per_cell:.3f} B/cell; card {card}")
+            f"{rep.plan_bytes_per_cell:.3f} B/cell; {g.describe()}; "
+            f"{ptxas_registers(cuda.group_kernel(p, g).build().log)}; card {card}")
         if not ok:
             log(f"FAILED at-size check: {n} {shape}")
             return 1
@@ -1174,7 +1229,9 @@ def main() -> int:
             f"{rep.bound_ms:.4f} ({rep.bound_by}; {rep.bound_ms / nf:.4f} per sweep, "
             f"program {rep.program_bound_ms:.4f}); {100 * r['share_of_bound']:.1f}% "
             f"of the bound; plan {rep.plan_bytes_per_cell_update:.3f} B/cell-update; "
-            f"{fused.plan.groups[0].describe()}; card {card}")
+            f"{fused.plan.groups[0].describe()}; "
+            f"{ptxas_registers(cuda.group_kernel(p, fused.plan.groups[0]).build().log)}; "
+            f"card {card}")
         if not ok:
             log(f"FAILED fused at-size check: {n} {shape}")
             return 1
@@ -1229,10 +1286,11 @@ def main() -> int:
             ms = (events_ms(lambda: fn(ins, {}), 2) + events_ms(lambda: fn(ins, {}), 2)) / 2 / it
             g = fn.plan.groups[0]
             measured[d] = ms
-            shape_of = (f"tile {g.tile}, chunk {g.bz}, smem {g.smem_bytes} B"
-                        + (f", load {g.load}, sync {g.sync}, threads {g.threads}, "
-                           f"CTAs/SM {g.slots_per_sm}, waves {g.waves:.2f}"
-                           if g.kernel == "linebuffer2d" else ""))
+            shape_of = (f"tile {g.tile}, chunk {g.bz}, smem {g.smem_bytes} B, "
+                        f"load {g.load}, sync {g.sync}, threads {g.threads}, CTAs/SM "
+                        f"{linebuffer.min_blocks(g, g.threads)}"
+                        + (f", waves {g.waves:.2f}" if g.kernel == "linebuffer2d" else "")
+                        + f", {ptxas_registers(cuda.group_kernel(p, g).build().log)}")
             log(f"depth sweep {n} {shape} nf {d}: {ms:.4f} ms/sweep measured, "
                 f"{g.modeled_seconds / d * 1e3:.4f} modeled; "
                 f"{'bit for bit' if ok else 'MISMATCH'} vs chained; {shape_of}; "

@@ -12,9 +12,12 @@ turns (parent, change, change, parent), each turn its own process:
 The rows are this checkout's `chip_smoke.py` rows: kernels 1, 2 and 4 one
 sweep per call (`AT_SIZE`, `BIG`, `AT_SIZE_2D`, `MAIN_WINDOWS`), the fused rows at the
 planner's depth (`AT_SIZE_SWEEPS`) and the depth sweep (`DEPTH_SWEEP`, at
-every depth the timed copy's planner fits); the optional third argument
-keeps the rows of the programs it names, and the corpus is always this
-checkout's `tests/soda`.  Per row it prints the CUDA-event time per sweep
+every depth the timed copy's planner fits), and kernel 1's `EXTRA` rows
+(u64_3d 512^3 over the whole uint64 range, and the radius-8 f64 star
+512^3 pinned to the line buffer by a 227 KiB budget); the optional third
+argument keeps the rows of the programs it names.  The corpus is always
+this checkout's `tests/soda`; u64_3d and star3d_r8 are the timed copy's
+`utils/testing.py` programs.  Per row it prints the CUDA-event time per sweep
 over back-to-back calls (two turns averaged, `chip_smoke.events_ms`), the
 device time of the kernels alone (`chip_smoke.device_ms`), the host's time
 to enqueue one call (`fn` without a wait, the mean of the turn's calls:
@@ -38,6 +41,9 @@ import time
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
 CORPUS = HERE / "tests" / "soda"
+# (program, grid, sweeps, plan keywords) beyond chip_smoke's tables
+EXTRA = (("u64_3d", (512, 512, 512), 1, {}),
+         ("star3d_r8", (512, 512, 512), 1, {"smem_budget": 227 * 1024}))
 
 
 def _smoke():
@@ -48,14 +54,31 @@ def _smoke():
     return mod
 
 
-def rows(smoke, fused_depths, parse_file, only) -> list:
-    """(program, grid, sweeps) per row; sweeps None is the planner's depth."""
-    out = [(n, s, 1) for n, s in smoke.AT_SIZE + (smoke.BIG,) + smoke.AT_SIZE_2D
+def rows(smoke, fused_depths, program, only) -> list:
+    """(program, grid, sweeps, plan keywords) per row; sweeps None is the
+    planner's depth."""
+    out = [(n, s, 1, {}) for n, s in smoke.AT_SIZE + (smoke.BIG,) + smoke.AT_SIZE_2D
            + (smoke.MAIN_WINDOWS,)]
-    out += [(n, s, None) for n, s in smoke.AT_SIZE_SWEEPS]
+    out += [(n, s, None, {}) for n, s in smoke.AT_SIZE_SWEEPS]
     for n, s in smoke.DEPTH_SWEEP:
-        out += [(n, s, d) for d in [1] + fused_depths(parse_file(CORPUS / f"{n}.soda"), s)]
+        out += [(n, s, d, {}) for d in [1] + fused_depths(program(n), s)]
+    out += list(EXTRA)
     return [r for r in out if only is None or r[0] in only]
+
+
+def programs():
+    """name -> the timed copy's program: the corpus, then u64_3d and the
+    radius-8 star from its `utils/testing.py`."""
+    from soda_tpu_torch.frontend.parser import parse, parse_file
+    from soda_tpu_torch.utils.testing import STAR3D_R8, U64_SOURCES
+
+    extra = {"star3d_r8": STAR3D_R8, **U64_SOURCES}
+
+    def program(n: str):
+        path = CORPUS / f"{n}.soda"
+        return parse_file(path) if path.exists() else parse(extra[n])
+
+    return program
 
 
 def main(root: str, label: str, only: str = "") -> int:
@@ -65,7 +88,6 @@ def main(root: str, label: str, only: str = "") -> int:
 
     import soda_tpu_torch
     from soda_tpu_torch.backend import cuda, eager
-    from soda_tpu_torch.frontend.parser import parse_file
     from soda_tpu_torch.plan.planner import fused_depths
 
     if not torch.cuda.is_available():
@@ -74,10 +96,12 @@ def main(root: str, label: str, only: str = "") -> int:
     smoke = _smoke()
     dev = torch.device("cuda", 0)
     print(label, "package", soda_tpu_torch.__file__, flush=True)
+    program = programs()
     fns = {}
-    for n, s, d in rows(smoke, fused_depths, parse_file, set(only.split(",")) if only else None):
-        p = parse_file(CORPUS / f"{n}.soda")
-        fns[(n, s, d)] = (p, cuda.build_fn(p, grid_shape=s, sweeps=d))
+    for n, s, d, kw in rows(smoke, fused_depths, program,
+                            set(only.split(",")) if only else None):
+        p = program(n)
+        fns[(n, s, d)] = (p, cuda.build_fn(p, grid_shape=s, sweeps=d, **kw))
     kernels = {}
     for p, fn in fns.values():
         for g in fn.plan.groups:
@@ -120,7 +144,9 @@ def main(root: str, label: str, only: str = "") -> int:
         print(f"{label} {n} {s} nf {d or 'auto'} (planned {g.sweeps}): {ms:.4f} ms/sweep "
               f"events, {alone:.4f} alone, {g.modeled_seconds / g.sweeps * 1e3:.4f} "
               f"modeled, host {host:.4f} ms per call ({it // g.sweeps} launch(es) a "
-              f"group); plain {ok}; tile {g.tile} chunk {g.bz} smem {g.smem_bytes} B",
+              f"group); plain {ok}; {g.kernel} tile {g.tile} chunk {g.bz} smem "
+              f"{g.smem_bytes} B, load {g.load or '-'}, sync {g.sync or '-'}, planned "
+              f"{g.hbm_bytes_per_call / g.useful_cells_per_call:.3f} B/cell-update",
               flush=True)
         del ins, pars, got
         torch.cuda.empty_cache()

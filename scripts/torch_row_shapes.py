@@ -1,13 +1,15 @@
-"""Time kernel 2's row-march and its rank-2 cascades at pinned plans on the card.
+"""Time the marches (kernel 2's row-march, kernel 1's z-march) and their cascades at pinned plans on the card.
 
     python3 scripts/torch_row_shapes.py [program,program,...]
 
 For each row (a program, `+tcse` where it is rewritten by
 `optimize/tcse.py` first, a grid and a fused depth) it times the planner's
-own plan and the pinned variants below: the tile (RB, TX), the order of a
-step's stages (`sync`: "skew", one wait a step, or "barrier", a barrier
-after each stage; pinned with `utils/testing.py::pinned_plan`) and the
-shared-memory budget (the chunk BY is the planner's for the pinned tile).
+own plan and the pinned variants below: the tile ((RB, TX) for rank 2,
+(TY, TX) for rank 3), the order of a step's stages (`sync`: "skew", one
+wait a step, or "barrier", a barrier after each stage; pinned with
+`utils/testing.py::pinned_plan`), the shared-memory budget and, where a
+variant names one, the chunk (BY or BZ; else the planner's for the pinned
+tile).  Programs outside the corpus (u64_3d) are `utils/testing.py`'s.
 Each variant's output
 must equal the planner's plan bit for bit.  Per variant it prints the
 device time of one call's kernel alone (`chip_smoke.device_ms`, CUDA events
@@ -28,7 +30,7 @@ import sys
 HERE = pathlib.Path(__file__).resolve().parents[1]
 BIG = 232_448   # the whole 227 KB a CTA may hold: one or two CTAs an SM
 
-# (program, grid, fused depth): [(tile, sync, smem budget), ...]
+# (program, grid, fused depth): [(tile, sync, smem budget[, chunk]), ...]
 VARIANTS = {
     ("jacobi2d", (2048, 2048), 4): [
         ((8, 128), "skew", None), ((8, 128), "barrier", None),
@@ -66,6 +68,31 @@ VARIANTS = {
         ((4, 256), "barrier", None), ((8, 128), "barrier", None),
         ((4, 128), "skew", None), ((8, 256), "barrier", BIG),
         ((16, 256), "barrier", BIG)],
+    # kernel 1 (rank 3): tiles (TY, TX); four CTAs an SM at most (the
+    # registers), fewer where the rings take more than a quarter of an
+    # SM's shared memory
+    ("jacobi3d", (512, 512, 512), 1): [
+        ((32, 64), "skew", None), ((16, 64), "skew", None),
+        ((32, 32), "skew", None), ((16, 32), "skew", None)],
+    ("denoise3d", (256, 256, 256), 1): [
+        ((16, 64), "barrier", None), ((16, 32), "skew", None),
+        ((32, 64), "skew", BIG), ((8, 64), "skew", None)],
+    ("heat3d", (256, 256, 256), 2): [
+        ((32, 64), "barrier", None), ((16, 64), "skew", None),
+        ((32, 32), "skew", None)],
+    ("heat3d", (512, 512, 512), 2): [
+        ((32, 64), "barrier", None), ((16, 64), "skew", None),
+        ((32, 32), "skew", None)],
+    ("heat3d", (512, 512, 512), 4): [
+        ((32, 32), "barrier", None), ((16, 64), "skew", None),
+        ((16, 32), "skew", None), ((32, 64), "skew", BIG)],
+    # 64-bit rings: three CTAs an SM at (32, 64), four at (16, 64)
+    ("poisson3d_f64", (256, 256, 256), 1): [
+        ((16, 64), "skew", None, 32), ((32, 32), "skew", None, 32),
+        ((32, 64), "skew", None, 32)],
+    ("u64_3d", (512, 512, 512), 1): [
+        ((16, 64), "skew", None, 64), ((32, 32), "skew", None, 64),
+        ((32, 64), "skew", None, 32)],
 }
 
 
@@ -85,7 +112,8 @@ def main(only: str = "") -> int:
     from soda_tpu_torch.optimize import tcse
     from soda_tpu_torch.plan import planner
     from soda_tpu_torch.utils import report
-    from soda_tpu_torch.utils.testing import pinned_plan
+    from soda_tpu_torch.frontend.parser import parse
+    from soda_tpu_torch.utils.testing import U64_SOURCES, pinned_plan
 
     if not torch.cuda.is_available():
         print("torch_row_shapes: no CUDA device", file=sys.stderr)
@@ -98,17 +126,22 @@ def main(only: str = "") -> int:
         if keep and n not in keep:
             continue
         name, _, rewrite = n.partition("+")
-        p = parse_file(HERE / "tests" / "soda" / f"{name}.soda")
+        p = (parse(U64_SOURCES[name]) if name in U64_SOURCES
+             else parse_file(HERE / "tests" / "soda" / f"{name}.soda"))
         if rewrite:
             p = tcse.apply(p)
         plans = [("planner", planner.plan(p, shape, sweeps=nf))]
-        for tile, sync, budget in variants:
-            pl = pinned_plan(p, shape, {
-                "sweeps": nf, "tile": tile, "sync": sync,
-                "smem_budget": budget or planner.SMEM_BUDGET})
+        for tile, sync, budget, *chunk in variants:
+            pin = {"sweeps": nf, "tile": tile, "sync": sync,
+                   "smem_budget": budget or planner.SMEM_BUDGET}
+            if chunk:
+                pin["bz"] = chunk[0]
+            pl = pinned_plan(p, shape, pin)
             g = pl.groups[0]
-            label = f"tile {tile} {sync} budget {budget or 'default'}"
-            if len(pl.groups) == 1 and g.sweeps == nf and g.kernel == "linebuffer2d":
+            label = (f"tile {tile}{f' chunk {chunk[0]}' if chunk else ''} {sync} "
+                     f"budget {budget or 'default'}")
+            if (len(pl.groups) == 1 and g.sweeps == nf
+                    and g.kernel in ("linebuffer2d", "linebuffer3d")):
                 plans.append((label, pl))
             else:
                 print(f"{n} {shape} nf {nf} {label}: no such plan", flush=True)

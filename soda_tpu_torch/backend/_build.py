@@ -42,7 +42,7 @@ class Built:
     lib: ctypes.CDLL
     path: pathlib.Path
     seconds: float          # compile time; 0.0 when the library was cached
-    log: str                # compiler output (ptxas register/smem/spill lines)
+    log: str                # compiler output (ptxas register/smem/spill lines), kept beside it
 
 
 _loaded: dict[pathlib.Path, Built] = {}
@@ -80,7 +80,7 @@ def build(name: str, source: str, *, emulate: bool = False,
     emulate=False: nvcc for sm_90a (the card).  emulate=True: the host C++
     compiler with -DSODA_HOST_EMULATION (the CPU tests); hazard=True adds
     -DSODA_HAZARD (copies land at issue, a step's stages and a stage's work
-    items in reverse order: `csrc/linebuffer2d.cuh`)."""
+    items in reverse order: `csrc/async_copy.cuh` and the marches)."""
     headers = "\0".join(h.read_text() for h in sorted(CSRC.glob("*.cuh")))
     if hazard and not emulate:
         raise ValueError("the hazard emulation is host C++ (emulate=True)")
@@ -93,11 +93,14 @@ def build(name: str, source: str, *, emulate: bool = False,
     if out in _loaded:
         return _loaded[out]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = out.with_suffix(".cu")
+    src, log_file = out.with_suffix(".cu"), out.with_suffix(".log")
     seconds, log = 0.0, ""
     if not out.exists():
         src.write_text(source)
         seconds, log = _compile(cmd, src, out)
+        log_file.write_text(log)
+    elif log_file.exists():
+        log = log_file.read_text()   # built by an earlier process
     built = Built(ctypes.CDLL(str(out)), out, seconds, log)
     _loaded[out] = built
     return built

@@ -224,11 +224,12 @@ def _device(code: str) -> str:
 class DeviceGen(_Gen):
     """IR expression -> CUDA C++ reading the shared-memory rings.
 
-    Rank 3: the code is evaluated at plane `p`, tile-local row `ly` and
-    column `lx`; `z0` is the chunk's first z index.  For each ring tensor
-    `n` the kernel declares `n_r` (its shared memory) and the constants
-    `n_D` (depth), `n_ZLO`, `n_YLO`, `n_XLO` (span lows), `n_C` (columns)
-    and `n_PS` (plane size in elements).
+    Rank 3: the code is evaluated at the chunk-local plane `pl`,
+    tile-local row `ly` and column `lx`.  For each ring tensor `n` the
+    kernel declares `n_r` (its shared memory) and the constants `n_D`
+    (planes kept, a power of two; plane pl of the chunk sits in slot (pl -
+    n_ZLO) & (n_D - 1)), `n_ZLO`, `n_YLO` (span lows), `n_XA` (its first
+    column), `n_C` (columns) and `n_PS` (plane size in elements).
 
     Rank 2: the code is evaluated at row `p`, whose offset from the
     chunk's first row is the 32-bit `pl`, and strip-local column `lx`.
@@ -268,9 +269,9 @@ class DeviceGen(_Gen):
         t = self.p.tensors[name].type
         if self.p.rank == 3:
             oz, oy, ox = off
-            at = (f"{ring_var(name)}[soda_slot(p + ({oz}), z0 + {name}_ZLO, "
-                  f"{name}_D) * {name}_PS + (ly + ({oy}) - {name}_YLO) * {name}_C"
-                  f" + (lx + ({ox}) - {name}_XLO)]")
+            at = (f"{ring_var(name)}[((pl + ({oz}) - {name}_ZLO) & ({name}_D - 1))"
+                  f" * {name}_PS + (ly + ({oy}) - {name}_YLO) * {name}_C"
+                  f" + (lx + ({ox}) - {name}_XA)]")
         else:
             oy, ox = off
             at = (f"{ring_var(name)}[((pl + ({oy}) - {name}_YLO) & ({name}_D - 1))"

@@ -1,11 +1,28 @@
 """The 3-D line-buffer z-march: kernel source, plain version and wrapper.
 
 Replaces `soda_tpu/backend/_linebuffer.py::build_linebuffer_group_fn`:
-one fused group of a rank-3 single-sweep program over the whole grid.
+one fused group of a rank-3 single-sweep program over the whole grid
+(and, through `backend/sweeps.py`, the rank-3 cascade of fused sweeps).
 `kernel_source` generates the group's CUDA kernel from the IR around the
-shared march in `csrc/linebuffer3d.cuh` (see the note there for the design
-and what bounds it); `group_plain` is the same group evaluated over full
-grids by the plain PyTorch path; `GroupKernel` is the wrapper.
+march in `csrc/linebuffer3d.cuh` (see the note there for the design and
+what bounds it: device-memory bytes, which a march that waits a memory
+latency a plane and a barrier a stage does not reach); `group_plain` is
+the same group evaluated over full grids by the plain PyTorch path;
+`GroupKernel` is the wrapper.
+
+A CTA owns a (TY, TX) column tile and a chunk of BZ planes, and marches
+its planes one a step, one wait a step.  During step s it copies the
+leading plane of every input ring for step s + 1 (16-byte `cp.async`, or
+element loads through registers: `GroupPlan.load`) and computes each
+stage at level L (`GroupPlan.levels`) at the plane of step s - (L - 1):
+its leading plane (or, for outputs no stage of the group reads, an
+output plane).  With `GroupPlan.sync` "skew" no stage reads a plane
+written in the same step, so the stages need no barrier between them;
+with "barrier" every stage is at level 1 and a barrier follows each stage
+but the last.  The step ends with the wait.  Steps before the chunk's
+first plane only fill the rings (the warm-up), and the last DRAIN steps
+only run the lagging stages.  A stage is computed in column runs
+(`column_run`), runs wholly inside the grid without the per-row checks.
 
 The kernel computes every stage with the oracle's zero-fill semantics: an
 input read outside the grid is zero, and so is an intermediate stage's
@@ -24,7 +41,7 @@ import torch
 
 from ..ir.dtypes import torch_dtype
 from ..ir.program import StencilProgram
-from ..plan.planner import NTHREADS, GroupPlan, ctas_per_sm
+from ..plan.planner import GroupPlan, ctas_per_sm
 from . import _build
 from .cuda_codegen import RunGen, column_run, offset_tag, ring_var, run_rows, storage_ctype
 
@@ -103,35 +120,48 @@ def entry_points(kernel: str, decl: str, call: str, block: str, grid: str,
 
 def kernel_source(program: StencilProgram, g: GroupPlan,
                   kernel: str = "soda_lb3d_kernel", note: str = "") -> str:
-    """CUDA C++ for one group under one plan (tile, chunk, rings); the
-    `__global__` is named `kernel`, and `note` (comment lines) heads the
-    source."""
+    """CUDA C++ for one group under one plan (tile, chunk, rings, levels,
+    load path); the `__global__` is named `kernel`, and `note` (comment
+    lines) heads the source."""
     ty, tx = g.tile
     ring_names = [r.name for r in g.rings]
     gen = RunGen(program, set(ring_names))
     out_set = set(g.outputs)
+    vector = g.load == "vector"
     args, names = kernel_args(program, g)
     dims = "int64_t d0, int64_t d1, int64_t d2"
 
     L = [*note.splitlines(),
          f"// generated by soda_tpu_torch for kernel `{program.name}`, "
-         f"stages {g.stages}",
+         f"stages {g.stages}, levels {g.levels}, {g.sync} sync, "
+         f"{g.load} plane copies",
          '#include "linebuffer3d.cuh"', "",
          "namespace {",
-         f"constexpr int TY = {ty}, TX = {tx}, BZ = {g.bz}, NT = {NTHREADS}, "
-         f"WARM = {g.warm};",
+         f"constexpr int TY = {ty}, TX = {tx}, BZ = {g.bz}, WARM = {g.warm};",
+         "#ifdef SODA_HOST_EMULATION",
+         "constexpr int NT = 1;  // one thread per CTA",
+         "#else",
+         f"constexpr int NT = {g.threads};",
+         "#endif",
+         f"constexpr int DRAIN = {max(g.levels.values()) - 1};  "
+         "// steps the deepest level lags the first",
          f"constexpr size_t SMEM_BYTES = {g.smem_bytes};"]
     for r in g.rings:
-        (zlo, zhi), (ylo, _), (xlo, _) = r.span
+        (zlo, zhi), (ylo, _), _ = r.span
         L.append(f"// ring {r.name}: span {r.span}")
         L.append(f"constexpr int {r.name}_D = {r.depth}, {r.name}_ZLO = {zlo}, "
                  f"{r.name}_ZHI = {zhi}, {r.name}_YLO = {ylo}, "
-                 f"{r.name}_XLO = {xlo}, {r.name}_R = {r.rows}, "
+                 f"{r.name}_XA = {r.col0}, {r.name}_R = {r.rows}, "
                  f"{r.name}_C = {r.cols}, {r.name}_PS = {r.rows * r.cols};")
         L.append(f"constexpr size_t {r.name}_OFF = {r.offset};")
     L += ["}  // namespace", "",
-          "SODA_BODY void soda_body(int bx, int by, int bzi, int tid, int nt, "
-          "unsigned char* smem,",
+          "// a stage's work items; in reverse under the hazard emulation",
+          "#ifdef SODA_HAZARD",
+          "#define SODA_ITEMS(i, n) for (int i = (n) - 1 - tid; i >= 0; i -= NT)",
+          "#else",
+          "#define SODA_ITEMS(i, n) for (int i = tid; i < (n); i += NT)",
+          "#endif", "",
+          "SODA_BODY void soda_body(int bx, int by, int bzi, int tid, unsigned char* smem,",
           "                       " + ", ".join(args + [dims]) + ") {"]
     for r in g.rings:
         L.append(f"  {_ctype_store(program, r.name)}* {ring_var(r.name)} = "
@@ -140,92 +170,163 @@ def kernel_source(program: StencilProgram, g: GroupPlan,
     L += ["  const int64_t y0 = (int64_t)by * TY, x0 = (int64_t)bx * TX;",
           "  const int64_t z0 = (int64_t)bzi * BZ;",
           "  const int64_t zend = z0 + BZ < d0 ? z0 + BZ : d0;",
-          "  // the grid in tile-local rows and columns (32-bit)",
+          "  // the grid in chunk-local planes and tile-local rows and columns",
+          "  // (32-bit)",
           "  const int64_t big = (int64_t)1 << 30;",
+          "  const int zlo_l = (int)-(z0 < big ? z0 : big);",
+          "  const int zhi_l = (int)(d0 - z0 < big ? d0 - z0 : big);",
           "  const int ylo_l = (int)-(y0 < big ? y0 : big), xlo_l = (int)-(x0 < big ? x0 : big);",
           "  const int yhi_l = (int)(d1 - y0 < big ? d1 - y0 : big);",
           "  const int xhi_l = (int)(d2 - x0 < big ? d2 - x0 : big);",
-          "  for (int64_t z = z0 - WARM; z < zend; ++z) {"]
-    # 1. the leading plane of every input ring
-    for n in g.external_inputs:
-        L += [f"    {{  // input {n}",
-              f"      const int64_t p = z + {n}_ZHI;",
-              f"      if (p >= z0 + {n}_ZLO)",
-              f"        soda_load_plane({ring_var(n)} + soda_slot(p, z0 + {n}_ZLO, "
-              f"{n}_D) * {n}_PS, {n}_g, p, y0 + {n}_YLO, x0 + {n}_XLO, "
-              f"{n}_R, {n}_C, d0, d1, d2, tid, nt);",
-              "    }"]
-    L.append("    SODA_SYNC();")
+          "  const int zlen = (int)(zend - z0);  // the chunk's own steps"]
 
-    # 2. the leading plane of every ring stage, in topological order: a
+    depth = {r.name: r.depth for r in g.rings}
+
+    def wrap(n: str, plane: str) -> str:
+        # a power-of-two ring's slot is a mask; another's a 32-bit
+        # remainder by a constant (plane >= n_ZLO)
+        if depth[n] & (depth[n] - 1):
+            return f"({plane} - {n}_ZLO) % {n}_D"
+        return f"({plane} - {n}_ZLO) & ({n}_D - 1)"
+
+    def slot(n: str, plane: str) -> str:
+        return f"{ring_var(n)} + ({wrap(n, plane)}) * {n}_PS"
+
+    def where(n: str, plane: str) -> str:
+        return f"z0 + {plane}, y0 + {n}_YLO, x0 + {n}_XA, d0, d1, d2, tid"
+
+    def fetch(n: str, step: str) -> list[str]:
+        pl = f"{step} + {n}_ZHI"
+        if vector:
+            call = (f"soda_fetch_plane_v<{n}_R, {n}_C, NT>({slot(n, pl)}, {n}_g, "
+                    f"{where(n, pl)});")
+        else:
+            call = (f"soda_fetch_plane_s<{n}_R, {n}_C, NT>({n}_pre, {slot(n, pl)}, "
+                    f"{n}_g, {where(n, pl)});")
+        return [f"if ({pl} >= {n}_ZLO) {call}"]
+
+    def store(n: str, step: str) -> list[str]:
+        pl = f"{step} + {n}_ZHI"
+        if vector:
+            return []
+        return [f"if ({pl} >= {n}_ZLO) soda_store_plane_s<{n}_R, {n}_C, NT>("
+                f"{slot(n, pl)}, {n}_pre, tid);"]
+
+    def pre(n: str) -> list[str]:
+        return [] if vector else [
+            f"{_ctype_store(program, n)} {n}_pre[soda_per<{n}_R, {n}_C, NT>()];"]
+
+    ins = g.external_inputs
+    L += ["  soda_cta_begin();",
+          "  {  // the input planes of the first step",
+          *("    " + ln for n in ins for ln in pre(n) + fetch(n, "-WARM")
+            + store(n, "-WARM")),
+          "  }",
+          "  soda_step_wait();",
+          "  for (int zs = -WARM; zs < zlen + DRAIN; ++zs) {",
+          "    // 1. the planes of step zs + 1 of every input ring, in flight",
+          "    // while this step computes",
+          "    const bool ahead = zs + 1 < zlen;",
+          *("    " + ln for n in ins for ln in pre(n)),
+          "    if (ahead) {",
+          *("      " + ln for n in ins for ln in fetch(n, "zs + 1")),
+          "    }"]
+
+    # 2. every stage at the plane of its own step t = zs - (level - 1): a
     # thread takes a column and a run of rows of the plane (the last run
     # of a column overlaps the one before it) and computes them from taps
     # it loads from the rings once per run
     def load(q: str, key: tuple[int, ...]) -> str:
         oz, k, ox = key
         return (f"{ring_var(q)}[__s_{q}_{offset_tag(oz)} * {q}_PS + (pb + ({k}) - "
-                f"{q}_YLO) * {q}_C + (lx + ({ox}) - {q}_XLO)]")
+                f"{q}_YLO) * {q}_C + (lx + ({ox}) - {q}_XA)]")
 
     def slots(loads) -> list[str]:
-        return [f"const int __s_{q}_{offset_tag(oz)} = soda_slot(p + ({oz}), "
-                f"z0 + {q}_ZLO, {q}_D);"
+        return [f"const int __s_{q}_{offset_tag(oz)} = {wrap(q, f'pl + ({oz})')};"
                 for q, oz in sorted({(q, key[0]) for q, key in loads.values()})]
 
+    blocks = []
     for n in g.stages:
         if n not in ring_names:
             continue
+        level = g.levels[n]
         st = _ctype_store(program, n)
         rows = next(r.rows for r in g.rings if r.name == n)
-        after = {n: ["  if (p >= z0 && p < zend && ly >= 0 && ly < TY && lx >= 0 && lx < TX)",
-                     f"    {n}_g[(p * d1 + (y0 + ly)) * d2 + (x0 + lx)] = v;"]
+        after = {n: ["  if (pl >= 0 && pl < zlen && ly >= 0 && ly < TY && lx >= 0 && lx < TX)",
+                     f"    {n}_g[((z0 + pl) * d1 + (y0 + ly)) * d2 + (x0 + lx)] = v;"]
                  } if n in out_set else {}
         rs = run_rows(gen, [n], [c for c in RUN_ROWS if c <= rows], {})
         run = column_run(gen, [n], rs, "ly", "xin && ly >= ylo_l && ly < yhi_l",
-                         {}, after, load)
-        L += [f"    {{  // stage {n} (ring), runs of {rs} row(s)",
-              f"      const int64_t p = z + {n}_ZHI;",
-              f"      if (p >= z0 + {n}_ZLO) {{",
-              "        const bool zin = p >= 0 && p < d0;",
-              *("        " + ln for ln in slots(gen.loads)),
-              f"        {st}* dst = {ring_var(n)} + soda_slot(p, z0 + {n}_ZLO, "
-              f"{n}_D) * {n}_PS;",
-              f"        for (int i = tid; i < {n}_C * {-(-rows // rs)}; i += nt) {{",
-              f"          const int c = i % {n}_C, s = i / {n}_C;",
-              f"          const int r0 = s * {rs} < {n}_R - {rs} ? s * {rs} : {n}_R - {rs};",
-              f"          const int lx = c + {n}_XLO, pb = r0 + {n}_YLO;",
-              "          const bool xin = zin && lx >= xlo_l && lx < xhi_l;",
-              *("          " + ln for ln in run),
-              *(f"          dst[(r0 + {r}) * {n}_C + c] = v_{n}_{r};" for r in range(rs)),
-              "        }", "      }", "    }", "    SODA_SYNC();"]
-    # 3. outputs no stage of the group reads: straight to device memory
+                         {}, after, load, uniform="full")
+        blocks.append([
+            f"    {{  // stage {n} (ring, level {level}), runs of {rs} row(s)",
+            f"      const int t = zs - {level - 1}, pl = t + {n}_ZHI;",
+            f"      if (t >= -WARM && t < zlen && pl >= {n}_ZLO) {{",
+            "        const bool zin = pl >= zlo_l && pl < zhi_l;",
+            *("        " + ln for ln in slots(gen.loads)),
+            f"        {st}* dst = {slot(n, 'pl')};",
+            f"        SODA_ITEMS(i, {n}_C * {-(-rows // rs)}) {{",
+            f"          const int c = i % {n}_C, s = i / {n}_C;",
+            f"          const int r0 = s * {rs} < {n}_R - {rs} ? s * {rs} : {n}_R - {rs};",
+            f"          const int lx = c + {n}_XA, pb = r0 + {n}_YLO;",
+            "          const bool xin = zin && lx >= xlo_l && lx < xhi_l;",
+            "          // the whole run inside the grid",
+            f"          const bool full = xin && pb >= ylo_l && pb + {rs} <= yhi_l;",
+            *("          " + ln for ln in run),
+            *(f"          dst[(r0 + {r}) * {n}_C + c] = v_{n}_{r};" for r in range(rs)),
+            "        }", "      }", "    }"])
+    # outputs no stage of the group reads: straight to device memory
     direct = [n for n in g.outputs if n not in ring_names]
     if direct:
-        after = {n: [f"  {n}_g[(p * d1 + (y0 + ly)) * d2 + (x0 + lx)] = v;"] for n in direct}
+        level = g.levels[direct[0]]
+        after = {n: [f"  {n}_g[((z0 + pl) * d1 + (y0 + ly)) * d2 + (x0 + lx)] = v;"]
+                 for n in direct}
         rs = run_rows(gen, direct, [c for c in RUN_ROWS if c <= ty], {})
-        run = column_run(gen, direct, rs, "ly", "xin && ly < yhi_l", {}, after, load)
-        L += [f"    if (z >= z0) {{  // outputs {direct}, runs of {rs} row(s)",
-              "      const int64_t p = z;",
-              *("      " + ln for ln in slots(gen.loads)),
-              f"      for (int i = tid; i < TX * {-(-ty // rs)}; i += nt) {{",
-              "        const int c = i % TX, s = i / TX;",
-              f"        const int r0 = s * {rs} < TY - {rs} ? s * {rs} : TY - {rs};",
-              "        const int lx = c, pb = r0;",
-              "        const bool xin = lx < xhi_l;",
-              *("        " + ln for ln in run),
-              "      }", "    }", "    SODA_SYNC();"]
-    L += ["  }", "}", ""]
+        run = column_run(gen, direct, rs, "ly", "xin && ly < yhi_l", {}, after, load,
+                         uniform="full")
+        blocks.append([
+            f"    {{  // outputs {direct} (level {level}), runs of {rs} row(s)",
+            f"      const int pl = zs - {level - 1};",
+            "      if (pl >= 0 && pl < zlen) {",
+            *("        " + ln for ln in slots(gen.loads)),
+            f"        SODA_ITEMS(i, TX * {-(-ty // rs)}) {{",
+            "          const int c = i % TX, s = i / TX;",
+            f"          const int r0 = s * {rs} < TY - {rs} ? s * {rs} : TY - {rs};",
+            "          const int lx = c, pb = r0;",
+            "          const bool xin = lx < xhi_l;",
+            f"          const bool full = xin && pb + {rs} <= yhi_l;",
+            *("          " + ln for ln in run),
+            "        }", "      }", "    }"])
+    if g.sync == "barrier":
+        # every stage at level 1: a barrier between a stage and its readers
+        L += ["    // 2. the stages, a barrier after each",
+              *(ln for b in blocks[:-1] for ln in b + ["    SODA_SYNC();"]),
+              *(blocks[-1] if blocks else [])]
+    else:
+        L += ["    // 2. the stages, each at its own step: none reads a plane",
+              "    // written in this step (in reverse under the hazard emulation)",
+              "#ifndef SODA_HAZARD",
+              *(ln for b in blocks for ln in b),
+              "#else",
+              *(ln for b in reversed(blocks) for ln in b),
+              "#endif"]
+    stores = [ln for n in ins for ln in store(n, "zs + 1")]
+    if stores:
+        L += ["    if (ahead) {  // 3. the planes of step zs + 1 into the rings",
+              *("      " + ln for ln in stores), "    }"]
+    L += ["    soda_step_wait();", "  }", "}", ""]
 
     call = ", ".join(names + ["d0", "d1", "d2"])
     L += entry_points(
         kernel, ", ".join(args + [dims]), call,
-        "blockIdx.x, blockIdx.y, blockIdx.z, threadIdx.x, blockDim.x",
+        "blockIdx.x, blockIdx.y, blockIdx.z, threadIdx.x",
         "(unsigned)((d2 + TX - 1) / TX), (unsigned)((d1 + TY - 1) / TY), "
         "(unsigned)((d0 + BZ - 1) / BZ)",
         ["  for (int bzi = 0; bzi < (int)((d0 + BZ - 1) / BZ); ++bzi)",
          "    for (int by = 0; by < (int)((d1 + TY - 1) / TY); ++by)",
          "      for (int bx = 0; bx < (int)((d2 + TX - 1) / TX); ++bx)",
-         "        soda_body(bx, by, bzi, 0, 1, smem.data(),"],
-        min_blocks(g, NTHREADS))
+         "        soda_body(bx, by, bzi, 0, smem.data(),"],
+        min_blocks(g, g.threads))
     return "\n".join(L)
 
 
@@ -284,7 +385,9 @@ class GroupKernel:
 
     def build(self, emulate: bool = False, hazard: bool = False) -> _build.Built:
         """Compile (once) for the card, or as host C++ (`emulate`), with
-        the row-march's hazard emulation (`hazard`, `csrc/linebuffer2d.cuh`)."""
+        the marches' hazard emulation (`hazard`: copies land at issue, a
+        step's stages and a stage's work items in reverse order,
+        `csrc/async_copy.cuh`)."""
         built = _build.build(self.name, self.source, emulate=emulate, hazard=hazard)
         fn = built.lib.soda_launch
         n_ptr = (len(self.group.external_inputs) + len(self.group.params)
@@ -307,9 +410,9 @@ class GroupKernel:
             raise ValueError(f"{name}: not contiguous")
 
     def _check_vector_rows(self, values, shape) -> None:
-        """A row-march plan that copies rows 16 bytes at a time (`load`
-        "vector") takes grids whose rows are whole 16-byte chunks, and
-        inputs that start on a 16-byte boundary."""
+        """A march's plan that copies planes or rows 16 bytes at a time
+        (`load` "vector") takes grids whose rows are whole 16-byte chunks,
+        and inputs that start on a 16-byte boundary."""
         for n in self.group.external_inputs:
             elem = values[n].element_size()
             if shape[-1] * elem % 16:

@@ -24,17 +24,18 @@ per sweep fall by about nf.  What is left is on chip: the cascade's
 arithmetic over its trapezoid (every copy computes its full ring width
 and the warm-up), which the planner's model (`GroupPlan.modeled_seconds`)
 weighs when it picks nf, and each copy's shared-memory taps and their
-address arithmetic per cell, which it does not.  Rank 2 runs the
-row-march, which copies the input rows a step ahead and orders a step's
+address arithmetic per cell, which it does not.  Both marches copy the
+input planes (rank 3) or rows (rank 2) a step ahead and order a step's
 copies one of two ways (`GroupPlan.sync`): skewed, copy k one level
 deeper than copy k-1 and a step behind it, so one wait ends a step and no
 barrier separates the copies; or every copy at level 1 with a barrier
-after each.  The skew deepens every ring by a step of RB rows, which in a
-deep cascade leaves room only for narrow tiles (jacobi2d x 8: RB 4, 128
-columns), so the planner takes the barriers where they admit a larger
-tile.  The automatic depth is capped per rank where the measured depth
-sweeps ran deeper cascades slower (`planner.AUTO_SWEEPS_MAX`).  Rank 3
-runs kernel 1's z-march, a barrier per copy per plane.
+after each.  The skew deepens every ring by a step (RB rows, or a
+plane), which in a deep rank-2 cascade leaves room only for narrow tiles
+(jacobi2d x 8: RB 4, 128 columns), so the planner takes the barriers
+where they admit a larger tile; heat3d's rings are 4 planes either way
+(a power of two), so rank 3 runs the skew.  The automatic depth is capped
+per rank where the measured depth sweeps ran deeper cascades slower
+(`planner.AUTO_SWEEPS_MAX`).
 
 A cell outside the grid is zero at every sweep, as in the chained
 one-sweep calls, so the fused result equals the oracle and the chained
@@ -62,6 +63,7 @@ from . import linebuffer, linebuffer2d
 LAUNCHES = 0
 
 KERNEL_NAMES = {3: "soda_sw3d_kernel", 2: "soda_sw2d_kernel"}
+MARCHES = {3: "z-march", 2: "row-march"}
 
 NOTE = """\
 // Fused iterate sweeps (replaces TPU kernel 3,
@@ -73,7 +75,7 @@ NOTE = """\
 // sweeps over 3.35 TB/s, or {nf} sweeps' operations, weighted by type,
 // over 67 TFLOP/s, whichever is larger; what limits it is each copy's
 // shared-memory taps and their address arithmetic per cell.  In the
-// row-march copy k either lags copy k-1 by one step (one wait a step, no
+// {march} copy k either lags copy k-1 by one step (one wait a step, no
 // barrier between copies) or follows it behind a barrier (the plan's
 // sync).  Cells outside the grid are zero at every sweep, as in the
 // chained calls."""
@@ -86,7 +88,7 @@ def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
     prog = cascade(program, g.sweeps)
     gen = linebuffer.kernel_source if program.rank == 3 else linebuffer2d.kernel_source
     return gen(prog, g, kernel=KERNEL_NAMES[program.rank],
-               note=NOTE.format(nf=g.sweeps))
+               note=NOTE.format(nf=g.sweeps, march=MARCHES[program.rank]))
 
 
 def group_plain(program: StencilProgram, g: GroupPlan,

@@ -5,8 +5,9 @@
 // one fused group of a rank-2 stencil program over the whole (H, W) grid,
 // and (backend/sweeps.py) the cascade of fused iterate sweeps.
 // backend/linebuffer2d.py generates one kernel per (program, group, plan)
-// from the IR; this header holds the march's row copies and its wait, and
-// soda_common.cuh the C semantics, math overloads and `soda_half`.
+// from the IR; this header holds the march's row copies, async_copy.cuh
+// the 16-byte copy and the step's wait, and soda_common.cuh the C
+// semantics, math overloads and `soda_half`.
 //
 // What computes what.  The TPU kernel walks row blocks in order on one
 // core and carries the last rows of every input from one grid step to the
@@ -60,71 +61,21 @@
 //
 // Built with -DSODA_HOST_EMULATION the same source compiles as host C++
 // (soda_common.cuh), one thread per CTA, which is how the CPU tests check
-// the march.  A row copy then lands at the step's wait, the latest it can
-// on the card, so a read before the wait sees stale rows; with
-// -DSODA_HAZARD too it lands at issue, the earliest, and the work items of
-// a stage run in reverse order, and so do the stages of a step where no
-// barrier orders them ("skew"), so a copy or a stage that overwrites a row
-// still read in the step shows as a wrong result.
+// the march.  The row copies, their emulation and the step's wait are
+// async_copy.cuh's: a copy lands at the wait, or with -DSODA_HAZARD at
+// issue; under -DSODA_HAZARD the work items of a stage run in reverse
+// order too, and so do the stages of a step where no barrier orders them
+// ("skew"), so a copy or a stage that overwrites a row still read in the
+// step shows as a wrong result.
 
 #pragma once
 
-#include "soda_common.cuh"
-
-#ifdef SODA_HOST_EMULATION
-#include <cstring>
-#include <vector>
-#endif
+#include "async_copy.cuh"
 
 // Ring slot of row p in a ring of `depth` rows (a power of two) whose
 // first row is `base`; the march never asks for a row below base.
 SODA_HD int soda_row(int64_t p, int64_t base, int depth) {
   return (int)((p - base) & (int64_t)(depth - 1));
-}
-
-#ifdef SODA_HOST_EMULATION
-// Copies issued and not yet landed (one CTA at a time runs on the host).
-struct soda_copy {
-  unsigned char* dst;
-  const unsigned char* src;  // nullptr: zero fill
-  int bytes;
-};
-inline std::vector<soda_copy>& soda_pending() {
-  static std::vector<soda_copy> q;
-  return q;
-}
-inline void soda_land(const soda_copy& c) {
-  if (c.src) std::memcpy(c.dst, c.src, c.bytes);
-  else std::memset(c.dst, 0, c.bytes);
-}
-inline void soda_issue(void* dst, const void* src, int bytes) {
-  const soda_copy c{static_cast<unsigned char*>(dst),
-                    static_cast<const unsigned char*>(src), bytes};
-#ifdef SODA_HAZARD
-  soda_land(c);
-#else
-  soda_pending().push_back(c);
-#endif
-}
-#endif
-
-// A CTA's march starts with no copy in flight.
-SODA_BODY void soda_cta_begin() {
-#ifdef SODA_HOST_EMULATION
-  soda_pending().clear();
-#endif
-}
-
-// The step's one wait: every copy this thread issued has landed, then the
-// CTA's barrier makes every thread's copies and ring stores visible.
-SODA_BODY void soda_step_wait() {
-#ifdef SODA_HOST_EMULATION
-  for (const soda_copy& c : soda_pending()) soda_land(c);
-  soda_pending().clear();
-#else
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-#endif
 }
 
 // Vector path: rows [p0, p0 + NROWS) of columns [xs, xs + COLS) of the
@@ -142,24 +93,11 @@ SODA_BODY void soda_fetch_rows_v(T* __restrict__ ring, const T* __restrict__ src
     const int64_t p = p0 + i / CH, gx = xs + (int64_t)(i % CH) * V;
     if (p < base) continue;
     const bool in = p >= 0 && p < d0 && gx >= 0 && gx < d1;
-    T* dst = ring + soda_row(p, base, depth) * COLS + (i % CH) * V;
-    const T* s = in ? src + p * d1 + gx : src;
-#ifdef SODA_HOST_EMULATION
-    soda_issue(dst, in ? s : nullptr, 16);
-#else
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(d), "l"(s), "r"(in ? 16 : 0) : "memory");
-#endif
+    soda_copy16(ring + soda_row(p, base, depth) * COLS + (i % CH) * V,
+                in ? src + p * d1 + gx : src, in);
   }
-#ifndef SODA_HOST_EMULATION
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
+  soda_commit();
 }
-
-// Elements of a scalar row copy each thread holds in registers.
-template <int NROWS, int COLS, int NT>
-SODA_HD constexpr int soda_per() { return (NROWS * COLS + NT - 1) / NT; }
 
 // Scalar path, first half: thread `tid` of NT loads its elements of rows
 // [p0, p0 + NROWS) x [xs, xs + COLS) into `v` (zero outside the grid), all

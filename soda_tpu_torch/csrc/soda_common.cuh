@@ -3,7 +3,8 @@
 // The C semantics helpers of the golden runner (soda_tpu/backend/cpp.py
 // _HEADER) as __host__ __device__ functions, the math overloads the
 // generated expressions call (dm::), and the `soda_half` type.  Included
-// by linebuffer3d.cuh (kernel 1) and linebuffer2d.cuh (kernel 2).
+// by async_copy.cuh (which both marches, kernels 1 and 2, include) and by
+// windows.cuh (kernel 4).
 //
 // Built with -DSODA_HOST_EMULATION the same source compiles as host C++:
 // every CTA runs on one thread (tid 0 of 1), so each phase between two

@@ -12,32 +12,36 @@ from its lag (below):
 
 - rank 3, kernel 1 (`csrc/linebuffer3d.cuh`): a CTA owns a (TY, TX)
   column tile of the (Y, X) plane and a z-chunk of BZ planes, and
-  marches z one plane at a time; a ring holds (lag + 1) planes of the
-  tile and its y/x halo;
+  marches z one plane a step; a ring slot is a plane of the tile and its
+  y/x halo.  `tile` is (TY, TX) and `bz` is BZ;
 - rank 2, kernel 2 (`csrc/linebuffer2d.cuh`): a CTA owns a strip of TX
   columns of the contiguous last axis and a chunk of BY rows, and
-  marches the rows RB at a time: the input rows of step s + 1 are copied
-  while step s computes.  With `sync` "skew" a stage at level L (1 + the
-  deepest level it reads in the group; inputs are level 0) computes the
-  rows of step s - (L - 1), so no stage reads a row written in the same
-  step and a step needs one wait; with "barrier" every stage is at level
-  1 and a barrier follows each stage.  A ring holds a power of two of at
-  least lag + (w + L_c) * RB rows for each consumer c, where w is 1 for
-  an input (copied a step ahead) and 1 - L for a stage: the skew deepens
-  the rings of a deep cascade, the barriers leave room for wider tiles,
-  and the planner tries both.  On the H100 a barrier per stage cost less
-  than the narrower tile the skew forced at nf 4 and 8 on 8192^2 and
-  16384^2 grids; at an equal tile the skew ran blur 16384^2 2.5% faster
-  (0.4169 against 0.4275 ms) and blur 2048 x 4096 no slower (PERF.md).
-  `_plan_group(..., sync=)` pins one order for tests and scripts.  Each row
-  is TX + x halo wide, an input row widened to whole 16-byte chunks when
-  the grid's width allows 16-byte copies (`load` "vector", else
-  "scalar").  `tile` is (RB, TX) and `bz` is BY.
+  marches the rows RB at a time; a ring slot is a row.  `tile` is (RB,
+  TX) and `bz` is BY.
+
+Both marches copy the input planes or rows of step s + 1 while step s
+computes (RB = 1 plane a step for rank 3).  With `sync` "skew" a stage
+at level L (1 + the deepest level it reads in the group; inputs are
+level 0) computes the planes or rows of step s - (L - 1), so no stage
+reads a slot written in the same step and a step needs one wait; with
+"barrier" every stage is at level 1 and a barrier follows each stage.
+A ring holds a power of two of at least lag + (w + L_c) * RB slots for
+each consumer c, where w is 1 for an input (copied a step ahead) and 1 -
+L for a stage: the skew deepens the rings of a deep cascade, the
+barriers leave room for wider tiles, and the planner tries both.  On the
+H100 a barrier per stage cost less than the narrower tile the skew
+forced at nf 4 and 8 on 8192^2 and 16384^2 grids; at an equal tile the
+skew ran blur 16384^2 2.5% faster (0.4169 against 0.4275 ms) and blur
+2048 x 4096 no slower (PERF.md); rank 3 takes the skew wherever it fits
+the same tile (PERF.md).  `_plan_group(..., sync=)` pins one order for
+tests and scripts.  Each ring row is TX + x halo wide, an input's row
+widened to whole 16-byte chunks from an aligned first column (`col0`)
+when the grid's width allows 16-byte copies (`load` "vector", else
+"scalar").
 
 A ring's lag is how far its leading plane (its span's hi along the
 marched axis) runs ahead of the lowest plane a consumer in the group
-reads at the same step: c's span hi + c's lowest offset on it.  A rank-3
-ring keeps exactly the planes still read (the largest lag + 1).
+reads at the same step: c's span hi + c's lowest offset on it.
 
 Fused sweeps (TPU kernel 3, `backend/sweeps.py`): an `iterate` program
 with fused depth nf is planned as the group of `unroll_iterate(program,
@@ -76,7 +80,8 @@ chunks that fill whole waves.
 
 `hbm_bytes_per_call` counts every byte the kernel moves: each input cell
 a CTA loads, with its tile halo across the marched axis (re-read by the
-neighbouring tiles) and the warm-up of each chunk along it, clipped to
+neighbouring tiles; an input's ring row widened to whole 16-byte chunks
+counts every column it copies) and the warm-up of each chunk along it, clipped to
 the grid (the windows kernel: each block's window, whether loaded whole
 or read tap by tap); plus one write per output cell.  `cell_ops_per_call`
 counts the operations the kernel computes: every stage over its whole
@@ -166,9 +171,9 @@ class Ring:
     elem_bytes: int
     depth: int              # slots kept
     rows: int               # TY + y halo (rank 3); 1 (rank 2)
-    cols: int               # TX + x halo (rank 2: whole 16-byte chunks when copied so)
+    cols: int               # TX + x halo (an input's: whole 16-byte chunks when copied so)
     offset: int             # byte offset in the CTA's shared memory
-    col0: int = 0           # rank 2: its first column relative to the strip
+    col0: int = 0           # its first column relative to the tile or strip
 
     @property
     def nbytes(self) -> int:
@@ -218,12 +223,13 @@ class GroupPlan:
     block: tuple[int, ...] = ()
     windows: list[Window] = dataclasses.field(default_factory=list)
     direct: list[str] = dataclasses.field(default_factory=list)
-    # the row-march (rank 2): threads per CTA, how input rows are copied
-    # ("vector": 16-byte cp.async; "scalar": element loads through
-    # registers), how the stages of a step are ordered ("skew": each at
-    # its level, lagging level - 1 steps, one wait a step; "barrier": all
-    # at level 1, a barrier after each stage), each member's level, and
-    # CTAs per SM (0: the wave count is not modeled)
+    # the marches (ranks 2 and 3): threads per CTA, how input planes or
+    # rows are copied ("vector": 16-byte cp.async; "scalar": element loads
+    # through registers), how the stages of a step are ordered ("skew":
+    # each at its level, lagging level - 1 steps, one wait a step;
+    # "barrier": all at level 1, a barrier after each stage), each
+    # member's level, and CTAs per SM for the row-march's wave count (0:
+    # not modeled, as for rank 3)
     threads: int = NTHREADS
     load: str = ""
     sync: str = ""
@@ -260,7 +266,9 @@ class GroupPlan:
                      f"{[w.name for w in self.windows if w.name in self.external_inputs]}, "
                      f"direct={self.direct}")
         elif self.kernel == "linebuffer3d":
-            shape = f"tile={self.tile}, bz={self.bz}"
+            shape = (f"tile={self.tile}, bz={self.bz}, load={self.load}, "
+                     f"sync={self.sync}, threads={self.threads}, "
+                     f"ctas/SM={ctas_per_sm(self.smem_bytes, self.threads)}")
         else:
             shape = (f"tile={self.tile}, by={self.bz}, load={self.load}, "
                      f"sync={self.sync}, threads={self.threads}, "
@@ -446,14 +454,42 @@ def _levels(program: StencilProgram, members: list[str]) -> dict[str, int]:
     return lv
 
 
+def _ring_layout(program: StencilProgram, ring_names: list[str],
+                 ext_inputs: list[str], spans: dict[str, Span],
+                 pairs: list[tuple[str, str, int]], lv: dict[str, int], step: int,
+                 rows: int | None, tx: int, vector: bool,
+                 pow2: bool = True) -> tuple[list[Ring], int]:
+    """The rings of one march (`step` slots a step: RB rows, or one
+    plane) and the shared memory they take: each of at least lag + (w +
+    L_c) * step slots for each consumer c (w 1 for an input, copied a step
+    ahead; 1 - L for a stage at level L), rounded up to a power of two
+    where `pow2`, of `rows` tile rows plus the ring's y halo (rank 3;
+    None: one row), and TX plus its x halo in columns, an input's widened
+    to whole 16-byte chunks from an aligned first column where `vector`."""
+    out, off = [], 0
+    for n in ring_names:
+        elem = _elem_bytes(program, n)
+        w = 1 if n in ext_inputs else 1 - lv[n]
+        depth = max(lag + (w + lv[c]) * step for q, c, lag in pairs if q == n)
+        depth = _pow2(depth) if pow2 else depth
+        xlo, xhi = spans[n][-1]
+        v = 16 // elem if vector and n in ext_inputs else 1
+        col0 = xlo // v * v
+        cols = -(-(tx + xhi - col0) // v) * v
+        height = 1 if rows is None else rows + spans[n][1][1] - spans[n][1][0]
+        out.append(Ring(n, spans[n], elem, depth, height, cols, off, col0))
+        off += -(-out[-1].nbytes // 16) * 16
+    return out, off
+
+
 def _plan_group(program: StencilProgram, members: list[str],
                 grid_shape: tuple[int, ...], smem_budget: int,
                 tile: tuple[int, int] | None = None,
                 bz: int | None = None, sweeps: int = 1,
                 sync: str | None = None) -> GroupPlan | None:
     """The line buffer's plan of `members`, or None when no tile fits the
-    budget; `sync` ("skew" or "barrier") keeps one order of a rank-2
-    step's stages (a group of one level has only "skew")."""
+    budget; `sync` ("skew" or "barrier") keeps one order of a step's
+    stages (a group of one level has only "skew")."""
     rank = program.rank
     ext_inputs, outputs = _group_io(program, members)
     spans = group_spans(program, members, outputs)
@@ -484,43 +520,38 @@ def _plan_group(program: StencilProgram, members: list[str],
 
     def consider(best, gp: GroupPlan, area: int):
         # too few CTAs to fill the card counts first, then the modeled
-        # time; equal time prefers the larger tile and chunk
-        key = (math.prod(gp.grid) < 2 * NUM_SMS, gp.modeled_seconds, -area, -gp.bz)
+        # time; equal time prefers the larger tile and chunk, then one wait
+        # a step over a barrier per stage
+        key = (math.prod(gp.grid) < 2 * NUM_SMS, gp.modeled_seconds, -area, -gp.bz,
+               gp.sync != "skew")
         return (key, gp) if best is None or key < best[0] else best
+
+    levels = _levels(program, members)
+    # the outputs no stage reads are computed together, at the deepest of
+    # their levels
+    direct = [o for o in outputs if o not in ring_names]
+    for o in direct:
+        levels[o] = max(levels[d] for d in direct)
+    vector = all(grid_shape[-1] % (16 // _elem_bytes(program, n)) == 0
+                 for n in ext_inputs)
+    load = "vector" if vector else "scalar"
+    # "skew": one wait a step, each stage a step behind the stages it
+    # reads; "barrier": every stage at level 1, a barrier after each
+    # (shallower rings: room for wider tiles)
+    modes = {"skew": levels}
+    if max(levels.values()) > 1:
+        modes["barrier"] = dict.fromkeys(levels, 1)
+    if sync in modes:
+        modes = {sync: modes[sync]}
 
     best = None
     if rank == 2:
         cands = []
         H, W = grid_shape
-        levels = _levels(program, members)
-        # the outputs no stage reads are computed together, at the deepest
-        # of their levels
-        direct = [o for o in outputs if o not in ring_names]
-        for o in direct:
-            levels[o] = max(levels[d] for d in direct)
-        vector = all(W % (16 // _elem_bytes(program, n)) == 0 for n in ext_inputs)
-        # "skew": one wait a step, each stage a step behind the stages it
-        # reads; "barrier": every stage at level 1, a barrier after each
-        # (shallower rings: room for wider tiles)
-        modes = {"skew": levels}
-        if max(levels.values()) > 1:
-            modes["barrier"] = dict.fromkeys(levels, 1)
-        if sync in modes:
-            modes = {sync: modes[sync]}
         for (rb, tx), (order, lv) in itertools.product(
                 [tile] if tile else ROW_TILE_CANDIDATES, modes.items()):
-            rings, off = [], 0
-            for n in ring_names:
-                elem = _elem_bytes(program, n)
-                w = 1 if n in ext_inputs else 1 - lv[n]
-                depth = _pow2(max(lag + (w + lv[c]) * rb
-                                  for q, c, lag in pairs if q == n))
-                (_, _), (xlo, xhi) = spans[n]
-                v = 16 // elem if vector and n in ext_inputs else 1
-                col0 = xlo // v * v
-                cols = -(-(tx + xhi - col0) // v) * v
-                rings.append(Ring(n, spans[n], elem, depth, 1, cols, off, col0))
-                off += -(-rings[-1].nbytes // 16) * 16
+            rings, off = _ring_layout(program, ring_names, ext_inputs, spans, pairs,
+                                      lv, rb, None, tx, vector)
             if off > budget:
                 continue
             widest = max([r.cols for r in rings if r.name in members] + [tx])
@@ -538,8 +569,7 @@ def _plan_group(program: StencilProgram, members: list[str],
                 cell_ops = sum(ops[m] * covered(m, extents) for m in members)
                 gp = GroupPlan(tile=(rb, tx), bz=chunk, grid=grid, rings=rings,
                                smem_bytes=off, hbm_bytes_per_call=reads + writes,
-                               cell_ops_per_call=cell_ops, threads=nt,
-                               load="vector" if vector else "scalar",
+                               cell_ops_per_call=cell_ops, threads=nt, load=load,
                                levels=lv, sync=order, slots_per_sm=slots, **common)
                 cands.append(gp)
         # fill the card first; then, among the plans within MODEL_SLACK of
@@ -556,29 +586,32 @@ def _plan_group(program: StencilProgram, members: list[str],
             c.tile[0] >= ROW_RUN_MIN, c.warps_per_sm >= ROW_WARPS_MIN,
             c.tile[0] * c.tile[1], c.bz, c.sync == "skew", -c.modeled_seconds))
 
-    lags: dict[str, int] = {}
-    for q, _, lag in pairs:
-        lags[q] = max(lags.get(q, lag), lag)
-    for tl, chunk, grid in _shapes3(grid_shape, tile, bz, warm):
-        (ty, tx), rings, off = tl, [], 0
-        for n in ring_names:
-            (_, _), (ylo, yhi), (xlo, xhi) = spans[n]
-            rings.append(Ring(n, spans[n], _elem_bytes(program, n), lags[n] + 1,
-                              ty + yhi - ylo, tx + xhi - xlo, off))
-            off += -(-rings[-1].nbytes // 16) * 16
+    for (tl, chunk, grid), (order, lv) in itertools.product(
+            _shapes3(grid_shape, tile, bz, warm), modes.items()):
+        ty, tx = tl
+        # power-of-two depths (a plane's slot is a mask); where those
+        # exceed the budget, the depths themselves (a 32-bit remainder by
+        # a constant, once a step for each plane a stage taps)
+        rings, off = _ring_layout(program, ring_names, ext_inputs, spans, pairs,
+                                  lv, 1, ty, tx, vector)
+        if off > budget:
+            rings, off = _ring_layout(program, ring_names, ext_inputs, spans, pairs,
+                                      lv, 1, ty, tx, vector, pow2=False)
         if off > budget:
             continue
         if grid[1] > MAX_GRID_YZ or grid[2] > MAX_GRID_YZ:
             continue
         # tile extent per dim: the marched axis in chunks, the others in tiles
         extents = (chunk,) + tuple(tl)
-        reads = sum(_elem_bytes(program, n) * covered(n, extents) for n in ext_inputs)
+        reads = sum(r.elem_bytes * covered(r.name, extents, (r.col0, r.col0 + r.cols - tx))
+                    for r in rings if r.name in ext_inputs)
         # every stage over its ring width and warm-up (an output no stage
         # reads has span 0: exactly the grid)
         cell_ops = sum(ops[m] * covered(m, extents) for m in members)
         gp = GroupPlan(tile=tl, bz=chunk, grid=grid, rings=rings, smem_bytes=off,
                        hbm_bytes_per_call=reads + writes,
-                       cell_ops_per_call=cell_ops, **common)
+                       cell_ops_per_call=cell_ops, load=load, levels=lv, sync=order,
+                       **common)
         best = consider(best, gp, ty * tx)
     return None if best is None else best[1]
 

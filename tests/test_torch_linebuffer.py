@@ -7,8 +7,17 @@ No card here, so the kernel's source is checked three ways:
   chunk, ring and masking logic and must equal the NumPy oracle on the
   WHOLE grid: bit-exact for integer and linear f32 programs, and under
   `compare_outputs` (f32 libm at 2e-3) otherwise.  Skipped without g++;
+- the same source under the hazard emulation (`-DSODA_HAZARD`: plane
+  copies land at issue, the stages of a step and the work items of a
+  stage run in reverse order) for every rank-3 program (the corpus,
+  `INT3D_SOURCES` and u64_3d over the whole uint64 range), on a grid whose
+  planes are copied 16 bytes at a time, on an odd one copied element by
+  element and with chunks shorter than the warm-up, in both orders of a
+  step's stages, and with rings of depths that are not powers of two;
+  with the step's wait deleted from the source (a mismatch); against the
+  JAX package's z-march (kernel 1, interpret mode) outside its rim;
 - the wrapper takes the plain version on CPU tensors, counts no launch,
-  and refuses other devices.
+  refuses other devices and checks a vector plan's rows.
 The kernel itself is held against its plain version on the card by
 `tests/test_torch_gpu.py` and `chip_smoke.py`.
 """
@@ -20,8 +29,10 @@ import numpy as np
 import pytest
 import torch
 
+from soda_tpu.backend import pallas as pallas_backend
 from soda_tpu.frontend import parser as lark_parser
 from soda_tpu.interp import numpy_interp
+from soda_tpu.plan import planner as jax_planner
 from soda_tpu.utils.testing import compare_outputs, rand_inputs
 from soda_tpu_torch.backend import linebuffer
 from soda_tpu_torch.backend.cuda_codegen import DeviceGen
@@ -29,7 +40,8 @@ from soda_tpu_torch.backend.io import to_numpy, to_torch
 from soda_tpu_torch.frontend.parser import parse
 from soda_tpu_torch.ir.dtypes import torch_dtype
 from soda_tpu_torch.plan.planner import plan
-from soda_tpu_torch.utils.testing import INT3D_SOURCES, RANK3_CORPUS
+from soda_tpu_torch.utils.testing import (INT3D_SOURCES, RANK3_CORPUS, U64_SOURCES,
+                                          build_emulated, pinned_plan, u64_inputs)
 
 torch.set_num_threads(1)
 
@@ -40,7 +52,41 @@ SOURCES.update(INT3D_SOURCES)
 # parser's
 PROGRAMS = {n: parse(s) for n, s in SOURCES.items()}
 REF = {n: lark_parser.parse(s) for n, s in SOURCES.items()}
+# the hazard cases add full-width uint64 (inputs over the whole range)
+PROGRAMS["u64_3d"] = parse(U64_SOURCES["u64_3d"])
+REF["u64_3d"] = lark_parser.parse(U64_SOURCES["u64_3d"])
+HAZARD_PROGRAMS = sorted(PROGRAMS)
+SOURCES_ONLY = sorted(SOURCES)
 
+# a grid whose planes are copied 16 bytes at a time, an odd one copied
+# element by element, each cut into several tiles and chunks, and chunks
+# of one plane, shorter than every program's warm-up
+HAZARD_GRIDS = {"vector": ((16, 24, 128), {"tile": (8, 32), "bz": 8}),
+                "scalar": ((13, 37, 45), {"tile": (8, 32), "bz": 8}),
+                "short": ((16, 24, 128), {"tile": (8, 32), "bz": 1})}
+# budgets under which denoise3d's power-of-two rings do not fit the tile
+# (8, 32) but their own depths do, in each order of a step's stages
+EXACT = {"skew": 26000, "barrier": 20000}
+
+
+def _multi_level(name: str) -> bool:
+    return any(max(g.levels.values()) > 1 for g in plan(
+        PROGRAMS[name], (13, 37, 45), iterate=1, **HAZARD_GRIDS["scalar"][1]).groups)
+
+
+# the programs whose groups have stages that read other stages: the ones
+# where the two orders of a step's stages differ
+MULTI_LEVEL = [n for n in HAZARD_PROGRAMS if _multi_level(n)]
+HAZARD_CASES = [(n, grid, "skew") for n in HAZARD_PROGRAMS for grid in HAZARD_GRIDS]
+HAZARD_CASES += [(n, grid, "barrier") for n in MULTI_LEVEL for grid in HAZARD_GRIDS]
+
+
+def _hazard_kw(grid: str, sync: str, exact: bool = False) -> tuple[tuple, dict]:
+    shape, kw = HAZARD_GRIDS[grid]
+    kw = dict(kw, sync=sync)
+    if exact:
+        kw.update(bz=4, smem_budget=EXACT[sync])
+    return shape, kw
 
 
 @pytest.fixture
@@ -49,23 +95,50 @@ def gxx():
         pytest.skip("host emulation needs g++")
 
 
+@pytest.fixture(scope="module")
+def built():
+    """The host emulation of every kernel the corpus and hazard cases below
+    run, compiled in parallel up front (`build_emulated`)."""
+    if shutil.which("g++") is None:
+        pytest.skip("host emulation needs g++")
+
+    def kernels(cases):
+        return [linebuffer.GroupKernel(PROGRAMS[n], g) for n, shape, kw in cases
+                for g in pinned_plan(PROGRAMS[n], shape, dict(kw, iterate=1)).groups]
+
+    build_emulated(kernels([(n, shape, kw) for n in SOURCES_ONLY
+                            for shape, kw in CORPUS_GRIDS]))
+    build_emulated(kernels([(n, *_hazard_kw(grid, sync)) for n, grid, sync in HAZARD_CASES]
+                           + [("denoise3d", *_hazard_kw(grid, sync, True))
+                              for grid in ("vector", "scalar") for sync in EXACT]),
+                   hazard=True)
+
+
 def test_jacobi3d_source_taps_the_input_ring():
     p = PROGRAMS["jacobi3d"]
-    src = linebuffer.kernel_source(p, plan(p, (64, 64, 64)).groups[0])
+    g = plan(p, (64, 64, 64)).groups[0]
+    src = linebuffer.kernel_source(p, g)
     # a column run loads each tap of its rows once, from the plane slot
-    # computed once per step
+    # computed once per step (a mask: the ring's depth is a power of two)
     tag = {-1: "m1", 0: "0", 1: "1"}
     for oz in (-1, 0, 1):
-        assert (f"const int __s_t0_{tag[oz]} = soda_slot(p + ({oz}), z0 + t0_ZLO, "
-                f"t0_D);") in src
+        assert (f"const int __s_t0_{tag[oz]} = (pl + ({oz}) - t0_ZLO) & "
+                f"(t0_D - 1);") in src
     for oz, oy, ox in [(0, 0, 0), (0, 0, 1), (0, 0, -1), (0, 1, 0),
                        (0, -1, 0), (1, 0, 0), (-1, 0, 0)]:
         assert (f"t0_r[__s_t0_{tag[oz]} * t0_PS + "
-                f"(pb + ({oy}) - t0_YLO) * t0_C + (lx + ({ox}) - t0_XLO)]") in src
-    assert src.count("soda_load_plane(") == 1
+                f"(pb + ({oy}) - t0_YLO) * t0_C + (lx + ({ox}) - t0_XA)]") in src
+    # the input planes: the first step's, then each next step's, 16 bytes a copy
+    assert g.load == "vector"
+    assert src.count("soda_fetch_plane_v<t0_R, t0_C, NT>(") == 2
     body = src.split("#ifndef SODA_HOST_EMULATION")[0]
+    assert "soda_fetch_plane_s" not in body and "% t0_D" not in body
     assert "0.142857" in body and "std::" not in body
     assert '#include "linebuffer3d.cuh"' in src
+    # one wait a step, and no barrier between the stages
+    loop = body.split("for (int zs = -WARM;")[1]
+    assert loop.count("soda_step_wait();") == 1 and "SODA_SYNC" not in body
+    assert "// outputs ['t1'] (level 1), runs of 8 row(s)" in src
 
 
 def test_denoise3d_source_rings_every_tapped_stage():
@@ -73,11 +146,11 @@ def test_denoise3d_source_rings_every_tapped_stage():
     src = linebuffer.kernel_source(p, plan(p, (64, 64, 64)).groups[0])
     for ring in ("u", "rhs", "grad", "w"):
         assert f"constexpr size_t {ring}_OFF" in src
-    assert "// stage grad (ring)" in src and "// stage w (ring)" in src
-    assert "// outputs ['unew']" in src and "unew_r" not in src
+    assert "// stage grad (ring, level 1)" in src and "// stage w (ring, level 2)" in src
+    assert "// outputs ['unew'] (level 3)" in src and "unew_r" not in src
     body = src.split("#ifndef SODA_HOST_EMULATION")[0]
     assert "dm::sqrt(" in body and "std::" not in body
-    assert "__s_w_m1 = soda_slot(p + (-1), z0 + w_ZLO, w_D)" in src
+    assert "__s_w_m1 = (pl + (-1) - w_ZLO) & (w_D - 1)" in src
     assert "w_r[__s_w_m1 * w_PS" in src
 
 
@@ -95,31 +168,49 @@ def test_half_is_refused_on_the_device_path():
     assert "const soda_half* __restrict__ a_g" in src and "_Float16" not in src
 
 
-def _emulate(name, shape, seed, **plan_kw):
+def _emulate(name, shape, seed, hazard=False, edit=None, draw=rand_inputs, **plan_kw):
+    """The plan's groups as host-emulated kernels (`hazard`: under the
+    hazard emulation; `edit`: a change to each generated source; `plan_kw`
+    as `pinned_plan` takes them, `sync` included); returns (outputs,
+    oracle, plan)."""
     p = PROGRAMS[name]
-    ins, ps = rand_inputs(p, shape, np.random.default_rng(seed))
+    ins, ps = draw(p, shape, np.random.default_rng(seed))
     tins, tps = to_torch(p, ins, ps, "cpu")
     values = dict(tins)
     # one sweep: the iterate programs' fused cascades are tests/test_torch_sweeps.py's
-    for g in plan(p, shape, iterate=1, **plan_kw).groups:
+    pl = pinned_plan(p, shape, dict(plan_kw, iterate=1))
+    for g in pl.groups:
         k = linebuffer.GroupKernel(p, g)
-        entry = k.build(emulate=True).lib.soda_launch
+        if edit is not None:
+            k._source = edit(k.source)
+        entry = k.build(emulate=True, hazard=hazard).lib.soda_launch
         outs = {o: torch.empty(shape, dtype=torch_dtype(p.tensors[o].type))
                 for o in g.outputs}
         k.launch(entry, values, tps, outs, 0)
         values.update(outs)
     got = to_numpy(p, {o: values[o] for o in p.output_names})
-    return got, numpy_interp.run(REF[name], ins, ps, iterate=1)
+    return got, numpy_interp.run(REF[name], ins, ps, iterate=1), pl
 
 
-@pytest.mark.parametrize("name", list(PROGRAMS))
-@pytest.mark.parametrize("shape,plan_kw", [
-    ((16, 24, 128), {}),                                  # planner's choice
-    ((13, 37, 45), {"tile": (8, 32), "bz": 8}),          # many tiles and chunks
-])
-def test_host_emulated_kernel_matches_oracle_on_whole_grid(gxx, name, shape, plan_kw):
+def _check(p, got, gold):
+    """Integers and linear floats bit for bit; libm programs under
+    `compare_outputs`."""
+    if p.uses_libm_transcendentals() and any(p.tensors[k].type.is_float for k in gold):
+        assert compare_outputs(p, got, gold, 0)
+    else:
+        for k in gold:
+            assert np.array_equal(got[k], gold[k]), k
+
+
+CORPUS_GRIDS = (((16, 24, 128), {}),                          # planner's choice
+                ((13, 37, 45), {"tile": (8, 32), "bz": 8}))  # many tiles and chunks
+
+
+@pytest.mark.parametrize("name", SOURCES_ONLY)
+@pytest.mark.parametrize("shape,plan_kw", CORPUS_GRIDS)
+def test_host_emulated_kernel_matches_oracle_on_whole_grid(built, name, shape, plan_kw):
     p = PROGRAMS[name]
-    got, gold = _emulate(name, shape, seed=5, **plan_kw)
+    got, gold, _ = _emulate(name, shape, seed=5, **plan_kw)
     if p.uses_libm_transcendentals():
         assert compare_outputs(p, got, gold, 0)
     else:
@@ -127,10 +218,79 @@ def test_host_emulated_kernel_matches_oracle_on_whole_grid(gxx, name, shape, pla
             assert np.array_equal(got[k], gold[k]), k
 
 
+@pytest.mark.parametrize("name,grid,sync", HAZARD_CASES)
+def test_hazard_emulated_kernel_matches_oracle_on_whole_grid(built, name, grid, sync):
+    """Plane copies landing at issue, and each step's stages (where no
+    barrier orders them) and each stage's work items in reverse order: a
+    copy or a stage that overwrote a plane still read in its step, or a
+    stage that read a plane written in its own step, would show here."""
+    shape, kw = _hazard_kw(grid, sync)
+    got, gold, pl = _emulate(name, shape, seed=9, hazard=True, draw=u64_inputs, **kw)
+    for g in pl.groups:
+        assert g.kernel == "linebuffer3d" and g.sync == sync
+        assert g.load == ("scalar" if grid == "scalar" else "vector")
+        assert g.bz < g.warm or grid != "short"
+        assert all(r.depth & (r.depth - 1) == 0 for r in g.rings)
+    _check(PROGRAMS[name], got, gold)
+
+
+@pytest.mark.parametrize("grid", ["vector", "scalar"])
+@pytest.mark.parametrize("sync", sorted(EXACT))
+def test_hazard_emulated_rings_of_exact_depth_match_oracle(built, grid, sync):
+    """Where the power-of-two rings exceed the budget, the planner keeps
+    each ring's own depth, and a plane's slot is a remainder: denoise3d's
+    u ring keeps 7 planes (skew) or 5 (barrier), under the hazard
+    emulation."""
+    shape, kw = _hazard_kw(grid, sync, exact=True)
+    got, gold, pl = _emulate("denoise3d", shape, seed=13, hazard=True, **kw)
+    (g,) = pl.groups
+    depths = {r.name: r.depth for r in g.rings}
+    assert g.sync == sync and depths["u"] == {"skew": 7, "barrier": 5}[sync]
+    src = linebuffer.GroupKernel(PROGRAMS["denoise3d"], g).source
+    assert "% u_D" in src and "& (u_D - 1)" not in src
+    _check(PROGRAMS["denoise3d"], got, gold)
+
+
+def _without_step_wait(src: str) -> str:
+    step = src.split("for (int zs = -WARM;")
+    assert step[1].count("    soda_step_wait();\n") == 1
+    return step[0] + "for (int zs = -WARM;" + step[1].replace("    soda_step_wait();\n", "")
+
+
+@pytest.mark.parametrize("grid", ["vector", "scalar"])
+def test_deleting_the_step_wait_breaks_the_emulated_kernel(gxx, grid):
+    """The host emulation lands a plane copy at the step's wait: with the
+    wait deleted from the source, the planes never reach the rings."""
+    shape, kw = HAZARD_GRIDS[grid]
+    got, gold, _ = _emulate("jacobi3d", shape, seed=10, **kw)
+    assert np.array_equal(got["t1"], gold["t1"])
+    got, gold, _ = _emulate("jacobi3d", shape, seed=10, edit=_without_step_wait, **kw)
+    assert not np.array_equal(got["t1"], gold["t1"])
+
+
+@pytest.mark.parametrize("name", ["jacobi3d", "denoise3d"])
+def test_kernel_matches_the_jax_z_march_outside_its_rim(gxx, name):
+    """The new march against the JAX package's kernel 1 (its z-march,
+    `_linebuffer.py::build_linebuffer_group_fn`, in interpret mode) on the
+    same numpy inputs: equal outside `valid_rim()`, where the TPU kernel's
+    constant-extent evaluation differs from the oracle by design, and
+    equal to the oracle on the whole grid."""
+    shape = (12, 16, 128)
+    ref, p = REF[name], PROGRAMS[name]
+    jax_plan = jax_planner.plan(ref, shape)
+    assert [g.strategy for g in jax_plan.groups] == ["linebuffer"]
+    got, gold, _ = _emulate(name, shape, seed=11, tile=(8, 32), bz=4)
+    ins, ps = rand_inputs(p, shape, np.random.default_rng(11))
+    jax_out = pallas_backend.run(ref, ins, ps, the_plan=jax_plan, interpret=True)
+    assert compare_outputs(p, got, jax_out, p.valid_rim())
+    _check(p, got, gold)
+
+
 def test_host_emulated_split_groups_match_oracle(gxx):
     p = PROGRAMS["denoise3d"]
-    got, gold = _emulate("denoise3d", (9, 20, 40), seed=6, smem_budget=16 * 1024,
-                         tile=(8, 32), bz=8)
+    got, gold, pl = _emulate("denoise3d", (9, 20, 40), seed=6, smem_budget=16 * 1024,
+                             tile=(8, 32), bz=8)
+    assert len(pl.groups) > 1
     assert compare_outputs(p, got, gold, 0)
 
 
@@ -156,3 +316,19 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="CUDA tensors"):
         linebuffer.GroupKernel(p, g)({"t0": x}, {})
     assert linebuffer.GroupKernel(p, g)._source is None  # nothing generated
+
+
+def test_wrapper_checks_a_vector_plans_rows():
+    """A plan that copies planes 16 bytes at a time takes rows of whole
+    16-byte chunks that start on a 16-byte boundary (`_check_vector_rows`,
+    which `__call__` runs on CUDA tensors before a launch)."""
+    p = PROGRAMS["jacobi3d"]
+    g = plan(p, (8, 8, 32)).groups[0]
+    assert g.load == "vector" and plan(p, (8, 8, 30)).groups[0].load == "scalar"
+    k = linebuffer.GroupKernel(p, g)
+    k._check_vector_rows({"t0": torch.zeros((8, 8, 32))}, (8, 8, 32))
+    with pytest.raises(ValueError, match="16-byte chunks"):
+        k._check_vector_rows({"t0": torch.zeros((8, 8, 30))}, (8, 8, 30))
+    shifted = torch.zeros(8 * 8 * 32 + 1)[1:].view(8, 8, 32)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        k._check_vector_rows({"t0": shifted}, (8, 8, 32))

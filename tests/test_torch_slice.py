@@ -225,9 +225,13 @@ def test_cli_runs_and_checks_against_the_oracle(capsys):
 
 def test_report_bytes_and_rates():
     p = PROGRAMS["jacobi3d"]
-    rep = report.analyze(plan(p, (512, 512, 512)))
+    pl = plan(p, (512, 512, 512))
+    rep = report.analyze(pl)
     assert rep.ideal_bytes_per_cell == 8.0
-    assert 8.0 < rep.plan_bytes_per_cell < 8.6
+    # the plan's bytes: tile and chunk halos, an input's rows copied in
+    # whole 16-byte chunks (72 columns a row for a 64-column tile)
+    assert rep.plan_bytes_per_cell == pl.groups[0].hbm_bytes_per_call / 512**3
+    assert 8.0 < rep.plan_bytes_per_cell < 8.83
     r = report.rates(rep, 1e-3, "not measured")
     assert abs(r["achieved_gbps_at_ideal_bytes"] - 8 * 512**3 / 1e6) < 1e-6
     assert r["share_of_3350_gbps"] == r["achieved_gbps_at_ideal_bytes"] / 3350.0

@@ -15,7 +15,8 @@ by the line-buffer marches.  No card here, so:
   20 under the row-march's hazard emulation (copies land at issue, a
   step's stages and a stage's work items in reverse order) on an aligned
   grid (16-byte row copies) and an odd one, with a chunk shorter than the
-  warm-up, bit for bit against the oracle;
+  warm-up, bit for bit against the oracle; heat3d x 4 and x 2 under the
+  z-march's, likewise;
 - the same emulated kernel is held against the JAX package's kernel 3
   (`pallas.run(..., interpret=True)`, whose plan must be "strips") on the
   same numpy inputs, outside `valid_rim()` with `compare_outputs`: inside
@@ -88,7 +89,10 @@ def built():
     build_emulated(kernels(plain + [(n, shape, {}) for n, shape in JAX_ROWS]))
     build_emulated(kernels([(n, shape, dict(_cascade_kw(n, kw), sync=sync))
                             for n in HAZARD_CASCADES for shape, kw in HAZARD_SHAPES
-                            for sync in ("skew", "barrier")]), hazard=True)
+                            for sync in ("skew", "barrier")]
+                           + [("heat3d", shape, dict(kw, sweeps=nf, sync=sync))
+                              for shape, kw in HAZARD_SHAPES_3D for nf in (2, 4)
+                              for sync in ("skew", "barrier")]), hazard=True)
 
 
 def _bits(a: np.ndarray) -> np.ndarray:
@@ -180,6 +184,33 @@ def test_hazard_emulated_rank2_cascade_equals_oracle(built, name, shape, kw, syn
         assert np.array_equal(_bits(got[k]), _bits(gold[k])), k
 
 
+# a grid whose planes are copied 16 bytes at a time and an odd one, each
+# cut into several tiles, in chunks of 4 planes (the warm-up of 2 x nf
+# planes is 4 at nf 2 and 8 at nf 4)
+HAZARD_SHAPES_3D = (((16, 24, 128), {"tile": (8, 32), "bz": 4}),
+                    ((13, 37, 45), {"tile": (8, 32), "bz": 4}))
+
+
+@pytest.mark.parametrize("shape,kw", HAZARD_SHAPES_3D)
+@pytest.mark.parametrize("nf", [2, 4])
+@pytest.mark.parametrize("sync", ["skew", "barrier"])
+def test_hazard_emulated_rank3_cascade_equals_oracle(built, shape, kw, nf, sync):
+    """heat3d's cascade in kernel 1's z-march, the planes of the next step
+    in flight: copy k a step behind copy k - 1 (one wait a step) or all
+    at level 1 with a barrier after each; copies land at issue and a
+    step's copies (skew) and a copy's work items run in reverse order."""
+    p = PROGRAMS["heat3d"]
+    ins, ps = rand_inputs(p, shape, np.random.default_rng(38))
+    got, pl = _emulate(p, shape, ins, ps, hazard=True, sweeps=nf, sync=sync, **kw)
+    (g,) = pl.groups
+    assert g.kernel == "linebuffer3d" and g.sweeps == nf and g.sync == sync
+    assert g.bz <= g.warm and max(g.levels.values()) == (nf if sync == "skew" else 1)
+    assert g.load == ("vector" if shape[2] == 128 else "scalar")
+    gold = numpy_interp.run(REF["heat3d"], ins, ps)
+    for k in gold:
+        assert np.array_equal(_bits(got[k]), _bits(gold[k])), k
+
+
 JAX_ROWS = (
     ("jacobi2d", (200, 384)),        # tests/test_backends.py:332
     ("residual2d", (48, 128)),       # tests/test_backends.py:247
@@ -262,20 +293,23 @@ def test_fused_source_names_its_kernel_and_says_what_it_replaces():
     for src in (src3, src2):
         assert "_build_strips_group_fn" in src and "3.35 TB/s" in src
     # copy k reads copy k-1 through its ring; the last copy writes the output
-    assert "// stage heat_out__it2 (ring)" in src3 and "// outputs ['heat_out']" in src3
+    assert ("// stage heat_out__it2 (ring, level 3)" in src3
+            and "// outputs ['heat_out'] (level 4)" in src3)
     # the input rows of the first step, then of each next step
     assert src2.count("soda_fetch_rows_v<RB, t0_C, NT>(") == 2
 
 
 def test_rings_are_sized_by_lag():
     # heat3d at nf = 4: the input spans (-4, 4) but each copy reads the one
-    # before it at -1..1 around its own leading plane: every ring 3 planes
+    # before it at -1..1 around its own leading plane (lag 2); the input's
+    # next plane is in flight (+1) and each copy lags the one it reads by a
+    # step (level k + 1 reads level k: +1): every ring 2 + 1 + 1 = 4 planes
     p = PROGRAMS["heat3d"]
     g = planner.plan(p, (64, 64, 64), sweeps=4).groups[0]
-    assert g.sweeps == 4 and g.warm == 8
+    assert g.sweeps == 4 and g.warm == 8 and g.sync == "skew"
     assert [r.name for r in g.rings] == ["heat_in", "heat_out__it0",
                                          "heat_out__it1", "heat_out__it2"]
-    assert {r.depth for r in g.rings} == {3}
+    assert {r.depth for r in g.rings} == {4}
     assert g.spans["heat_in"] == ((-4, 4),) * 3
     # rank 2: a power of two of at least lag + (w + level) * RB rows for
     # each consumer: the input (copied a step ahead, w = 1) and each copy
