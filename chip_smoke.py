@@ -64,7 +64,8 @@ Phases (any failure exits nonzero):
    array, beyond L2), jacobi2d_i64 2048^2 iterate 20, residual2d and
    denoise2p 8192^2, heat3d 256^3 and 512^3 iterate 4, each checked as in
    phase 8 (the NumPy reference on the whole grid too, up to
-   `ORACLE_MAX_CELLS`) and timed with CUDA
+   `ORACLE_MAX_CELLS`, in threads beside the next row's checks and done
+   before its timing starts) and timed with CUDA
    events three ways in turns (fused, chained, plain, plain, chained,
    fused), beside the device time of the fused kernel alone and of the
    chained kernels alone (`device_ms`), its bound per call (and what
@@ -116,7 +117,7 @@ Phases (any failure exits nonzero):
    array) at one sweep a pass under a 2 GiB budget (16 tiles), bit for bit
    against the whole-grid `cuda.run` on the whole grid, and jacobi2d
    32768^2 f32 iterate 8 with tiles and sweeps a pass chosen under a 2 GiB
-   budget, bit for bit against the whole-grid run outside `valid_rim()`;
+   budget, bit for bit against the whole-grid run on the whole grid;
    each run with two tiles in flight and with one, in turns (2, 1, 1, 2),
    every run checked, printing the tiles, passes, read amplification, wall
    seconds a pass, bytes across the host link and the share of the pass
@@ -151,13 +152,24 @@ Phases (any failure exits nonzero):
    GiB budget, bit for bit against the whole grid; accum128 (128-bit
    integers) at 4096^2 on the plain path's limbs on the card, bit for bit
    against the C++ golden runner at that size and the NumPy reference at
-   512^2, and `cuda.build_fn` refusing it with a typed error.
+   512^2, and `cuda.build_fn` refusing it with a typed error;
+19. random programs (`fuzz_phase`): 46 programs of the generators of
+   `soda_tpu`'s fuzzers (`utils/fuzz.py`; `FUZZ_*`), at unaligned grids
+   of about 2^20 cells, through `cuda.build_fn` with every launch counter
+   set to 0 just before and read just after each: `gen_program` at ranks
+   1-3, `gen_wide` (int64, uint64, double, half with abs, iterate 2 and
+   4), `gen_signed_chain` and `gen_two_input_program`, two programs
+   pinned to the windows kernel, and four `gen_mesh` seeds on 4 shards
+   of cuda:0; each against the plain version on the card and the NumPy
+   reference on the whole grid (integers bit for bit), one `fuzz ...`
+   line a program; kernels 1-4 must all be launched.
 
 Each phase logs the seconds since the start when it ends.  Phases 4 and
 7 run their programs one sweep per call (`sweeps=1`), so
 they time kernels 1 and 2; phases 8-10 time the fused cascades
 (`backend/sweeps.py`), phases 12-13 the windows kernel.  The line before the last is the kernel summary
-as JSON; the last line is {"ok": true, "device": {...}}.
+as JSON (`launches`: the main path's own run; `fuzz_launches`: phase
+19's); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -267,6 +279,31 @@ U64_MESH = ("u64_2d", (8192, 8192), (4,))
 U64_HOST_TILED = ("u64_2d", (16384, 16384), 2**30)   # 2 GiB an array, 1 GiB budget
 W128_MAIN = ("accum128", (4096, 4096))
 W128_ORACLE = (512, 512)
+# the fuzz phase (19): random programs (`utils/fuzz.py`, the generators of
+# `soda_tpu`'s fuzzers) at unaligned grids of about 2^20 cells, by rank
+FUZZ_SHAPES = {1: (1048573,), 2: (1021, 1031), 3: (61, 127, 137)}
+# gen_program(Random(1000 * rank + seed), rank), seeds by rank (the seeds of
+# tests/test_fuzz.py::test_fuzz_backends_agree)
+FUZZ_PROGRAM_SEEDS = {1: range(4), 2: range(6), 3: range(6)}
+# gen_wide seeds (scripts/fuzz_wide.py): half with abs through kernel 2
+# (125), kernel 1 (165, 60) and the rank-2 cascade (130 at iterate 2, 15 at
+# 4); int64, uint64 and double through kernels 1 and 2 and cascades at
+# iterate 2 and 4 (tests/test_torch_fuzz.py's list)
+FUZZ_WIDE_SEEDS = (125, 165, 130, 15, 60, 0, 10, 5, 26, 1, 30, 109, 2, 34, 4, 111)
+FUZZ_CHAIN_SEEDS = range(4)   # gen_signed_chain and gen_two_input_program
+FUZZ_PINNED = ((2, 0), (3, 1))   # (rank, gen_program seed) pinned to windows
+# mesh_case seeds on 4 shards of cuda:0 (a 1-D mesh as [4], a 2-D one as
+# [2, 2]): int64 iterate 2 overlapped, uint16 iterate 4, float iterate 4 at
+# the automatic cadence, float overlapped
+FUZZ_MESH_SEEDS = (2, 5, 8, 11)
+# a phase-19 program that calls libm is held to the oracle by the share of
+# its cells beyond `compare_outputs`' tolerance: an ulp of the card's libm
+# flips a compare on a value rounded to about zero.  Measured at most
+# 6.65e-6 (7 of 1,052,651 cells, gen_program rank 2 seed 4, on an H100);
+# a control with LIBM_CONTROL_CELLS wrong cells (about one row at rank 2,
+# 9.8e-4 of the grid) must fail the same gate
+LIBM_FLIP_SHARE = 1e-4
+LIBM_CONTROL_CELLS = 1024
 PINNED_COPY_BYTES = 2**30
 SLEEP_CYCLES = 3_000_000   # at most 1.98 GHz: at least 1.5 ms
 SLEEP_COVERS_S = 1e-3
@@ -365,14 +402,6 @@ def ptxas_registers(log: str) -> str:
             + (f", {spills.group(1)} B spill stores" if spills else ""))
 
 
-def launch_count() -> int:
-    """Launches of every kernel wrapper of the port."""
-    from soda_tpu_torch.backend import linebuffer, linebuffer2d, sweeps, windows
-
-    return (linebuffer.LAUNCHES + linebuffer2d.LAUNCHES + sweeps.LAUNCHES
-            + windows.LAUNCHES)
-
-
 def random_bits(shape, gen, dev):
     """Uniform 64-bit words made on the card from `gen`, as int64."""
     import torch
@@ -432,8 +461,7 @@ def wide_phase(dev, gen, card, u64p, u64_mesh_fn, u64_tiling) -> bool:
     import numpy as np
     import torch
 
-    from soda_tpu_torch.backend import (cpp, cuda, eager, linebuffer, linebuffer2d,
-                                        sweeps, windows)
+    from soda_tpu_torch.backend import cpp, cuda, eager
     from soda_tpu_torch.backend.io import to_numpy, to_torch
     from soda_tpu_torch.frontend.parser import parse_file
     from soda_tpu_torch.ir.types import UnsupportedTypeError
@@ -452,10 +480,10 @@ def wide_phase(dev, gen, card, u64p, u64_mesh_fn, u64_tiling) -> bool:
     del x
     torch.cuda.empty_cache()
     st = {}
-    before = launch_count()
+    cuda.reset_launches()
     out = host_tile.run_host_tiled(p, x_host, tiles=tiles, sweeps_per_pass=1, device=dev,
                                    stats=st)
-    launched = launch_count() - before
+    launched = sum(cuda.launch_counts().values())
     ok = (launched == math.prod(n_tiles) and st["n_tiles"] == n_tiles
           and np.array_equal(out["o"], whole))
     log(f"wide u64 host tiled {n} {shape} under {budget} B: {'x'.join(map(str, n_tiles))} "
@@ -472,8 +500,6 @@ def wide_phase(dev, gen, card, u64p, u64_mesh_fn, u64_tiling) -> bool:
     oracles = concurrent.futures.ThreadPoolExecutor(max_workers=4)
     try:
         checks = []    # (what, the result's host arrays, the oracle's future)
-        counters = {"linebuffer3d": linebuffer, "linebuffer2d": linebuffer2d,
-                    "sweeps": sweeps, "windows": windows}
         u64_whole = {}
         for n, shape, kernel in U64_ROWS:
             p = u64p[n]
@@ -481,11 +507,10 @@ def wide_phase(dev, gen, card, u64p, u64_mesh_fn, u64_tiling) -> bool:
             ins, pars = to_torch(p, device_inputs(p, shape, gen, dev), k_np, dev)
             fn = cuda.build_fn(p, grid_shape=shape)
             want = len(fn.plan.groups) * max(p.iterate, 1) // fn.plan.groups[0].sweeps
-            for m in counters.values():
-                m.LAUNCHES = 0
+            cuda.reset_launches()
             got = fn(ins, pars)
             torch.cuda.synchronize()
-            counts = {name: m.LAUNCHES for name, m in counters.items()}
+            counts = cuda.launch_counts()
             # the NumPy oracle on the leading 2^26 cells, through the kernel at
             # that grid past the cap
             cut = oracle_shape(shape)
@@ -534,10 +559,10 @@ def wide_phase(dev, gen, card, u64p, u64_mesh_fn, u64_tiling) -> bool:
         # the mesh: 4 shards of cuda:0, against the whole grid
         n, shape, sizes = U64_MESH
         ins, whole, whole_fn = u64_whole["ins"], u64_whole["out"], u64_whole["fn"]
-        before = launch_count()
+        cuda.reset_launches()
         got = u64_mesh_fn(ins, {})
         torch.cuda.synchronize()
-        launched = launch_count() - before
+        launched = sum(cuda.launch_counts().values())
         calls = u64_mesh_fn.stats["group_calls"]
         ok = launched == calls > 0 and bitwise_equal(got, whole)
         ms = events_ms(lambda: u64_mesh_fn(ins, {}), 5)
@@ -598,6 +623,176 @@ def wide_phase(dev, gen, card, u64p, u64_mesh_fn, u64_tiling) -> bool:
     return True
 
 
+def fuzz_cases(dev) -> list[dict]:
+    """Phase 19's programs (`utils/fuzz.py`): each a dict of its label, its
+    program, grid, numpy inputs, iterate and plan (the planner's, or pinned
+    to the windows kernel), `base` (the base type of a `gen_wide` program,
+    which takes that generator's gate), and for a mesh seed `mesh`, the
+    case (`fuzz.MeshCase`) and its sharded fn on 4 shards of `dev`."""
+    import random
+
+    import numpy as np
+
+    from soda_tpu_torch.frontend.parser import parse
+    from soda_tpu_torch.parallel import mesh
+    from soda_tpu_torch.plan.planner import plan
+    from soda_tpu_torch.utils import fuzz
+
+    cases = []
+
+    def add(label, src, ins, it=None, base=None, **plan_kw):
+        p = parse(src)
+        shape = next(iter(ins.values())).shape
+        it = max(p.iterate if it is None else it, 1)
+        cases.append(dict(label=label, source=src, program=p, shape=shape, inputs=ins, iterate=it,
+                          base=base, plan=plan(p, shape, iterate=it, **plan_kw), mesh=None))
+
+    def program_input(src, rank, seed):
+        return {"a": fuzz.make_input(parse(src), FUZZ_SHAPES[rank], np.random.default_rng(seed))}
+
+    for rank, seeds in FUZZ_PROGRAM_SEEDS.items():
+        for seed in seeds:
+            src = fuzz.gen_program(random.Random(1000 * rank + seed), rank)
+            add(f"gen_program rank {rank} seed {seed}", src, program_input(src, rank, seed))
+    for seed in FUZZ_WIDE_SEEDS:
+        c = fuzz.wide_case(seed, FUZZ_SHAPES[fuzz.wide_case(seed).program.rank])
+        add(f"gen_wide seed {seed} ({c.base})", c.source, c.inputs, base=c.base)
+    for seed in FUZZ_CHAIN_SEEDS:
+        rng = random.Random(1500 + seed)    # test_fuzz_mixed_sign_chains's draws
+        rank = rng.choice([2, 3])
+        src = fuzz.gen_signed_chain(rng, rank)
+        it = rng.choice([1, 2, 4])
+        x = np.random.default_rng(seed).standard_normal(FUZZ_SHAPES[rank]).astype(np.float32)
+        add(f"gen_signed_chain seed {seed}", src, {"a": x}, it)
+        rnp = np.random.default_rng(seed)
+        a, b = (rnp.standard_normal(FUZZ_SHAPES[2]).astype(np.float32) for _ in range(2))
+        add(f"gen_two_input_program seed {seed}",
+            fuzz.gen_two_input_program(random.Random(9000 + seed)), {"a": a, "b": b})
+    for rank, seed in FUZZ_PINNED:
+        src = fuzz.gen_program(random.Random(1000 * rank + seed), rank)
+        add(f"gen_program rank {rank} seed {seed} pinned to windows", src,
+            program_input(src, rank, seed), block=SMALL_BLOCKS[rank])
+    for seed in FUZZ_MESH_SEEDS:
+        c = fuzz.mesh_case(seed, FUZZ_SHAPES[2])
+        sizes = [4] if len(c.axis_sizes) == 1 else [2, 2]
+        add(f"gen_mesh seed {seed} on {'x'.join(map(str, sizes))} shards of {dev}", c.source,
+            c.inputs)
+        cases[-1]["mesh"] = (c, mesh.build_sharded_fn(
+            c.program, mesh.make_mesh(sizes, None, [dev] * 4), grid_shape=c.shape,
+            dims=c.dims, sweeps_per_exchange=c.sweeps_per_exchange, overlap=c.overlap))
+    return cases
+
+
+def fuzz_phase(dev, card, cases: list[dict], build_seconds: dict) -> dict | None:
+    """Phase 19: every program of `fuzz_cases` through `cuda.build_fn` (a
+    mesh seed through its sharded fn), every kernel counter set to 0 just
+    before and read just after: each group's kernel launched iterate / nf
+    times (a mesh: once a group call); the outputs against the plain
+    version on the card (`device_gate`: bit for bit where no libm is
+    called) and against the NumPy oracle on the whole grid
+    (`compare_outputs`; a program calling libm by the share of cells beyond
+    its gate, under `LIBM_FLIP_SHARE`, which a control with one row's worth
+    of wrong cells must exceed; a `gen_wide` program at its generator's
+    gate, integers bit for bit; a mesh seed at `fuzz.mesh_gate`, and bit
+    for bit against the whole-grid kernels where the gate compares).  The oracles
+    run in threads beside the card.  Returns the launches of each kernel;
+    None if a program failed."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from soda_tpu_torch.backend import cuda, eager
+    from soda_tpu_torch.backend.io import to_numpy, to_torch
+    from soda_tpu_torch.utils import fuzz
+    from soda_tpu_torch.utils.testing import compare_outputs, kernel_names, oracle, tolerance
+
+    totals = collections.Counter()
+    failed = []
+    t19 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as oracles:
+        golds = [oracles.submit(oracle, c["program"], c["inputs"], {}, c["iterate"])
+                 for c in cases]
+        for c, gold in zip(cases, golds):
+            p, it, pl = c["program"], c["iterate"], c["plan"]
+            ins, _ = to_torch(p, c["inputs"], {}, dev)
+            whole = cuda.build_fn(p, pl, iterate=it)
+            run = c["mesh"][1] if c["mesh"] else whole
+            cuda.reset_launches()
+            got = run(ins, {})
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in cuda.launch_counts().items() if v}
+            totals.update(counts)
+            if c["mesh"]:
+                case, fn = c["mesh"]
+                names = sorted({k for lp in fn.local_plans().values() for k in kernel_names(lp)})
+                want = fn.stats["group_calls"]
+                ok_launch = sum(counts.values()) == want > 0 and set(counts) == set(names)
+                exact_everywhere = (len(p.stage_order()) == 1
+                                    and (case.sweeps_per_exchange == 1 or it == 1))
+                rim = 0 if exact_everywhere else p.valid_rim()
+            else:
+                names = kernel_names(pl)
+                want = dict(collections.Counter(n for n in names for _ in range(
+                    it // pl.groups[0].sweeps)))
+                ok_launch = counts == want
+                rim = 0
+            inner = tuple(slice(rim, n - rim) for n in c["shape"])
+
+            def cut(outs):
+                return {k: v[inner].contiguous() for k, v in outs.items()}
+
+            plain = eager.run(p, ins, device=dev, iterate=it)
+            ok_plain = device_gate(p, cut(got), cut(plain),
+                                   exact=not p.uses_libm_transcendentals())
+            ok_whole = True
+            if c["mesh"]:
+                ok_whole = bitwise_equal(cut(got), cut(whole(ins, {})))
+            got_np, gold = to_numpy(p, got), gold.result()
+            flips = ""
+            if c["mesh"]:
+                ok_oracle = fuzz.mesh_gate(c["mesh"][0], gold["out"], got_np["out"])
+            elif c["base"]:
+                ok_oracle = fuzz.wide_gate(p, c["base"], gold["out"], got_np["out"])
+                if not p.tensors["out"].type.is_float:
+                    ok_oracle = ok_oracle and np.array_equal(got_np["out"], gold["out"])
+            elif p.uses_libm_transcendentals():
+                def beyond(outs):
+                    return max(float(np.mean(~np.isclose(
+                        outs[k].astype(np.float64), gold[k].astype(np.float64),
+                        rtol=tolerance(p), atol=tolerance(p)))) for k in gold)
+
+                wrong = {k: v.copy() for k, v in got_np.items()}
+                for v in wrong.values():
+                    v.flat[:LIBM_CONTROL_CELLS] = -v.flat[:LIBM_CONTROL_CELLS] - 1
+                share, control = beyond(got_np), beyond(wrong)
+                ok_oracle = share < LIBM_FLIP_SHARE <= control
+                flips = (f", {share:.2e} of the cells beyond {tolerance(p)} (limit "
+                         f"{LIBM_FLIP_SHARE:g}; {LIBM_CONTROL_CELLS} wrong cells: {control:.2e})")
+            else:
+                ok_oracle = compare_outputs(p, got_np, gold, 0)
+            ok = ok_launch and ok_plain and ok_whole and bool(ok_oracle)
+            plans = c["mesh"][1].local_plans() if c["mesh"] else {"whole grid": pl}
+            secs = sum(build_seconds.get(cuda.group_kernel(p, g).source, 0.0)
+                       for lp in plans.values() for g in lp.groups)
+            plans = "; ".join(f"{key}: " + ", ".join(g.describe() for g in lp.groups)
+                              for key, lp in plans.items())
+            log(f"fuzz {c['label']}: {'+'.join(names)} {c['shape']} iterate {it}; plan "
+                f"{plans}; launches {counts} (want {want}); "
+                f"{'equal' if ok_plain else 'MISMATCH'} to the plain version"
+                f"{f' outside the rim {rim}' if rim else ''}"
+                f"{'' if not c['mesh'] else ', bit for bit to the whole grid' if ok_whole else ', MISMATCH to the whole grid'}"
+                f"; {'passes' if ok_oracle else 'FAILS'} the oracle's gate{flips}; nvcc {secs:.1f} s; "
+                f"{'OK' if ok else 'FAILED'}")
+            if not ok:
+                log(f"FAILED fuzz check: {c['label']}:\n{c['source']}")
+                failed.append(c["label"])
+            del ins, got, plain, whole
+    log(f"fuzz: phase 19 ran {len(cases)} programs in {time.perf_counter() - t19:.1f} s, "
+        f"{len(failed)} failed {failed}; launches {dict(totals)}; card {card}")
+    return None if failed else dict(totals)
+
+
 def main() -> int:
     import torch
 
@@ -609,8 +804,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from soda_tpu_torch.backend import (cpp, cuda, eager, linebuffer, linebuffer2d,
-                                        sweeps, windows)
+    from soda_tpu_torch.backend import cpp, cuda, eager, linebuffer
     from soda_tpu_torch.backend.io import to_numpy, to_torch
     from soda_tpu_torch.cli import sodac
     from soda_tpu_torch.frontend.parser import parse, parse_file
@@ -768,6 +962,13 @@ def main() -> int:
         u64p[n], shape, host_tile.choose_host_tiles(u64p[n], shape, budget, 1), 1)
     add_jobs(u64p[n], u64_tiling[2])
     add_jobs(u64p[n], shape)
+    # the fuzz phase (19): every program's plan, and a mesh seed's shards
+    fuzz = fuzz_cases(dev)
+    for c in fuzz:
+        add_plan(c["program"], c["plan"])
+        if c["mesh"]:
+            for pl in c["mesh"][1].local_plans().values():
+                add_plan(c["program"], pl)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(max_workers=min(len(jobs), 32)) as pool:
         built = list(pool.map(lambda k: (k, k.build()), jobs.values()))
@@ -782,6 +983,7 @@ def main() -> int:
         for ln in ptxas:
             log(f"  {ln}")
     log(f"build: {len(built)} kernels in {wall:.1f} s wall")
+    build_seconds = {k.source: b.seconds for k, b in built}
 
     mark(2)
 
@@ -791,10 +993,10 @@ def main() -> int:
         for shape in SMALL_SHAPES:
             ins, ps = rand_inputs(p, shape, np.random.default_rng(0))
             the_plan = plan(p, shape)
-            before = launch_count()
+            cuda.reset_launches()
             got = cuda.run(p, ins, ps, device=dev)
             torch.cuda.synchronize()
-            launched = launch_count() - before
+            launched = sum(cuda.launch_counts().values())
             want = len(the_plan.groups) * max(p.iterate, 1) // the_plan.groups[0].sweeps
             plain = eager.run(p, ins, ps, device=dev)
             got_np, plain_np = to_numpy(p, got), to_numpy(p, plain)
@@ -816,10 +1018,10 @@ def main() -> int:
             plain = eager.run(p, ins, ps, device=dev)
             for kw in PINNED_3D:
                 the_plan = pinned_plan(p, shape, kw)
-                before = linebuffer.LAUNCHES
+                cuda.reset_launches()
                 got = cuda.run(p, ins, ps, device=dev, the_plan=the_plan)
                 torch.cuda.synchronize()
-                launched = linebuffer.LAUNCHES - before
+                launched = cuda.launch_counts()["linebuffer3d"]
                 ok_ref = bitwise_equal(got, ref)
                 ok_plain = device_gate(p, got, plain, not libm)
                 ok = (launched == len(the_plan.groups) and ok_ref and ok_plain
@@ -850,10 +1052,10 @@ def main() -> int:
         # one sweep per call: kernel 1's rows (heat3d as chained calls)
         fn = cuda.build_fn(p, grid_shape=shape, sweeps=1)
         if n == "jacobi3d":
-            linebuffer.LAUNCHES = 0
+            cuda.reset_launches()
             got = cuda.run(p, ins, {}, device=dev)
             torch.cuda.synchronize()
-            launches = linebuffer.LAUNCHES
+            launches = cuda.launch_counts()["linebuffer3d"]
         else:
             got = fn(ins, pars)
             launches = None
@@ -963,10 +1165,10 @@ def main() -> int:
         for shape in SMALL_SHAPES_2D:
             ins, ps = rand_inputs(p, shape, np.random.default_rng(0))
             the_plan = plan(p, shape)
-            before = launch_count()
+            cuda.reset_launches()
             got = cuda.run(p, ins, ps)
             torch.cuda.synchronize()
-            launched = launch_count() - before
+            launched = sum(cuda.launch_counts().values())
             want = len(the_plan.groups) * max(p.iterate, 1) // the_plan.groups[0].sweeps
             plain = eager.run(p, ins, ps)
             ok_plain = device_gate(p, got, plain, exact)
@@ -989,10 +1191,10 @@ def main() -> int:
             plain = eager.run(p, ins, ps)
             for kw in PINNED_2D:
                 the_plan = pinned_plan(p, shape, kw)
-                before = linebuffer2d.LAUNCHES
+                cuda.reset_launches()
                 got = cuda.run(p, ins, ps, the_plan=the_plan)
                 torch.cuda.synchronize()
-                launched = linebuffer2d.LAUNCHES - before
+                launched = cuda.launch_counts()["linebuffer2d"]
                 ok_ref = bitwise_equal(got, ref)
                 ok_plain = device_gate(p, got, plain, not libm)
                 ok = (launched == len(the_plan.groups) and ok_ref and ok_plain
@@ -1011,10 +1213,10 @@ def main() -> int:
     mark(5)
 
     # ---- 6. the CLI, on the card by default ------------------------------------
-    before = linebuffer2d.LAUNCHES
+    cuda.reset_launches()
     rc = sodac.main([str(CORPUS / "blur.soda"), "--grid-shape", "2048,4096", "--run"])
     torch.cuda.synchronize()
-    launched = linebuffer2d.LAUNCHES - before
+    launched = cuda.launch_counts()["linebuffer2d"]
     log(f"cli: sodac blur.soda --grid-shape 2048,4096 --run (no --device): rc {rc}, "
         f"kernel-2 launches {launched}")
     if rc != 0 or launched < 1:
@@ -1035,10 +1237,10 @@ def main() -> int:
         fn = cuda.build_fn(p, grid_shape=shape, sweeps=1)
         main_path = (n, shape) == MAIN_2D
         if main_path:
-            linebuffer2d.LAUNCHES = 0
+            cuda.reset_launches()
             got = cuda.run(p, ins, pars, sweeps=1)
             torch.cuda.synchronize()
-            launches = linebuffer2d.LAUNCHES
+            launches = cuda.launch_counts()["linebuffer2d"]
         else:
             got = fn(ins, pars)
             launches = None
@@ -1122,10 +1324,10 @@ def main() -> int:
         for d in depths:
             the_plan = plan(p, shape, sweeps=d)
             nf = the_plan.groups[0].sweeps
-            before = sweeps.LAUNCHES
+            cuda.reset_launches()
             got = cuda.run(p, ins, ps, sweeps=d)
             torch.cuda.synchronize()
-            launched = sweeps.LAUNCHES - before
+            launched = cuda.launch_counts()["sweeps"]
             want = len(the_plan.groups) * it // nf
             ok_bits = bitwise_equal(got, chained)
             ok_plain = device_gate(p, got, plain, False)
@@ -1141,10 +1343,10 @@ def main() -> int:
             for kw in PINNED_SWEEPS:
                 the_plan = pinned_plan(p, shape, dict(kw, sweeps=it))
                 g = the_plan.groups[0]
-                before = sweeps.LAUNCHES
+                cuda.reset_launches()
                 got = cuda.run(p, ins, ps, the_plan=the_plan)
                 torch.cuda.synchronize()
-                launched = sweeps.LAUNCHES - before
+                launched = cuda.launch_counts()["sweeps"]
                 ok_bits = bitwise_equal(got, chained)
                 ok = (g.sweeps == it and launched == 1 and ok_bits
                       and g.sync == kw.get("sync", "skew")
@@ -1162,6 +1364,12 @@ def main() -> int:
 
     # ---- 9. fused sweeps at size: fused vs chained vs plain, timed ------------
     summary3 = {}
+    # the NumPy oracles (about 40 s of host work) run in threads beside the
+    # next row's checks, and are waited for before its timing starts: no
+    # host thread competes with the one that enqueues the timed calls.  The
+    # main path's, 1 s, runs before its own row is timed
+    oracles9 = concurrent.futures.ThreadPoolExecutor(max_workers=4)
+    pending9 = []    # (row, program, the result's host arrays, the oracle's future, begun)
     for n, shape in AT_SIZE_SWEEPS:
         p = allp[n]
         it = max(p.iterate, 1)
@@ -1171,10 +1379,10 @@ def main() -> int:
         nf = fused.plan.groups[0].sweeps
         main_path = (n, shape) == MAIN_SWEEPS
         if main_path:
-            sweeps.LAUNCHES = 0
+            cuda.reset_launches()
             got = cuda.run(p, ins, {})
             torch.cuda.synchronize()
-            launches = sweeps.LAUNCHES
+            launches = cuda.launch_counts()["sweeps"]
         else:
             got = fused(ins, {})
             launches = None
@@ -1185,9 +1393,14 @@ def main() -> int:
         del plain
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        ok_oracle = math.prod(shape) > ORACLE_MAX_CELLS or compare_outputs(
-            p, to_numpy(p, got), oracle(p, {k: v.cpu().numpy() for k, v in ins.items()}, {}), 0)
-        oracle_s = time.perf_counter() - t0
+        ok_oracle, oracle_s, later = True, None, None
+        if math.prod(shape) <= ORACLE_MAX_CELLS:
+            host_ins = {k: v.cpu().numpy() for k, v in ins.items()}
+            if main_path:
+                ok_oracle = compare_outputs(p, to_numpy(p, got), oracle(p, host_ins, {}), 0)
+                oracle_s = time.perf_counter() - t0
+            else:
+                later = (f"{n} {shape}", p, to_numpy(p, got), host_ins, t0)
         ok = nf > 1 and ok_bits and ok_plain and ok_oracle
         if main_path:
             ok = ok and launches == it // nf
@@ -1203,6 +1416,7 @@ def main() -> int:
         def run_plain():
             eager.run(p, ins, {})
 
+        concurrent.futures.wait([row[3] for row in pending9])
         run_fused(), run_chained(), run_plain()
         torch.cuda.synchronize()
         big = math.prod(shape) > 2**26
@@ -1220,8 +1434,9 @@ def main() -> int:
             f"{f', launches {launches}' if main_path else ''}; chained "
             f"{'bit for bit' if ok_bits else 'MISMATCH'}, max|fused-plain| {err:.3g} "
             f"plain {'ok' if ok_plain else 'MISMATCH'}, oracle "
-            + (f"{'ok' if ok_oracle else 'MISMATCH'} ({oracle_s:.1f} s on the host); "
-               if math.prod(shape) <= ORACLE_MAX_CELLS else "not run (past 2^26 cells); ")
+            + ("not run (past 2^26 cells); " if math.prod(shape) > ORACLE_MAX_CELLS
+               else "checked below; " if oracle_s is None
+               else f"{'ok' if ok_oracle else 'MISMATCH'} ({oracle_s:.1f} s on the host); ")
             + f"ms/sweep fused {f_ms:.4f} [{t[0]:.4f}, {t[5]:.4f}]/{it} (kernel alone "
             f"{fmt(dev_ms)}) chained {c_ms:.4f} [{t[1]:.4f}, {t[4]:.4f}]/{it} (kernels "
             f"alone {fmt(dev_c)}) "
@@ -1235,6 +1450,9 @@ def main() -> int:
         if not ok:
             log(f"FAILED fused at-size check: {n} {shape}")
             return 1
+        if later:
+            what, q, got_np, host_ins, begun = later
+            pending9.append((what, q, got_np, oracles9.submit(oracle, q, host_ins, {}), begun))
         lib_ms = None
         if main_path:
             # the library yardstick: `it` chained 3x3 F.conv2d (the five
@@ -1265,6 +1483,15 @@ def main() -> int:
                                     library_ms=lib_ms)
         del ins, fused, chained
         torch.cuda.empty_cache()
+    with oracles9:
+        for what, p, got_np, gold, t0 in pending9:
+            ok = compare_outputs(p, got_np, gold.result(), 0)
+            log(f"fused at-size oracle {what}: {'ok' if ok else 'MISMATCH'} on the whole grid "
+                f"(done {time.perf_counter() - t0:.1f} s after its row began)")
+            if not ok:
+                log(f"FAILED fused at-size check: {what} against the oracle")
+                return 1
+    del pending9
 
     mark(9)
 
@@ -1317,10 +1544,10 @@ def main() -> int:
         the_plan = plan(p, shape, **kw)
         kinds = {g.kernel for g in the_plan.groups}
         ins, ps = rand_inputs(p, shape, np.random.default_rng(0))
-        before = windows.LAUNCHES
+        cuda.reset_launches()
         got = cuda.run(p, ins, ps, **kw)
         torch.cuda.synchronize()
-        launched = windows.LAUNCHES - before
+        launched = cuda.launch_counts()["windows"]
         want = len(the_plan.groups) * max(p.iterate, 1)
         half = any(t.type.is_float and t.type.width == 16 for t in p.tensors.values())
         plain = eager.run(p, ins, ps)
@@ -1350,10 +1577,10 @@ def main() -> int:
     x = torch.randn(shape, generator=gen, device=dev)
     ins = {"w_in": x}
     fn = cuda.build_fn(p, grid_shape=shape)
-    windows.LAUNCHES = 0
+    cuda.reset_launches()
     got = cuda.run(p, ins, {})
     torch.cuda.synchronize()
-    launches = windows.LAUNCHES
+    launches = cuda.launch_counts()["windows"]
     plain = eager.run(p, ins, {})
     ok = bitwise_equal(got, plain) and launches == 1
     err = max_abs_err(got, plain)
@@ -1474,10 +1701,10 @@ def main() -> int:
             ins, ps = rand_inputs(p, shape, np.random.default_rng(0))
             pl = plan(q, shape)
             want = len(pl.groups) * max(q.iterate, 1) // pl.groups[0].sweeps
-            before = launch_count()
+            cuda.reset_launches()
             got_q = cuda.run(q, ins, ps)
             torch.cuda.synchronize()
-            launched = launch_count() - before
+            launched = sum(cuda.launch_counts().values())
             got_p = cuda.run(p, ins, ps)
             ok_plain = device_gate(q, got_q, eager.run(q, ins, ps), exact)
             ok_q = compare_outputs(q, to_numpy(q, got_q), oracle(q, ins, ps), 0)
@@ -1502,10 +1729,10 @@ def main() -> int:
                                  dtype=torch.int32).to(torch.uint16)}
     fns = {"original": cuda.build_fn(p, grid_shape=shape),
            "tcse": cuda.build_fn(q, grid_shape=shape)}
-    linebuffer2d.LAUNCHES = 0
+    cuda.reset_launches()
     got = {k: fn(ins, {})["q_out"] for k, fn in fns.items()}
     torch.cuda.synchronize()
-    launches = linebuffer2d.LAUNCHES
+    launches = cuda.launch_counts()["linebuffer2d"]
     rim = q.valid_rim()
     inner = (slice(rim, -rim),) * 2
     ok_rim = torch.equal(got["original"][inner], got["tcse"][inner])
@@ -1558,21 +1785,21 @@ def main() -> int:
         x_host = {p.input_names[0]: x.cpu().numpy()}
         del x
         torch.cuda.empty_cache()
-        rim = 0 if nf == 1 else p.valid_rim()
-        inner = tuple(slice(rim, d - rim) for d in shape)
-        tile_plan = plan(p, ext, iterate=None if nf == max(p.iterate, 1) else nf)
+        # every tile runs at its window's shape: the extended tile, at most the grid
+        win = tuple(min(e, d) for e, d in zip(ext, shape))
+        tile_plan = plan(p, win, iterate=None if nf == max(p.iterate, 1) else nf)
         want = (math.prod(n_tiles) * passes * len(tile_plan.groups)
                 * nf // tile_plan.groups[0].sweeps)
         seconds = {1: [], 2: []}
         for k in (2, 1, 1, 2):
             st = {}
-            before = launch_count()
+            cuda.reset_launches()
             out = host_tile.run_host_tiled(p, x_host, tiles=tiles, sweeps_per_pass=nf,
                                            in_flight=k, stats=st)
-            launched = launch_count() - before
+            launched = sum(cuda.launch_counts().values())
             got = out[p.output_names[0]]
             ok = (launched == want and st["n_tiles"] == n_tiles
-                  and np.array_equal(got[inner].view(np.uint32), whole[inner].view(np.uint32)))
+                  and np.array_equal(got.view(np.uint32), whole.view(np.uint32)))
             seconds[k] += st["pass_seconds"]
             link = (st["h2d_bytes"] / bw["h2d"] + st["d2h_bytes"] / bw["d2h"]) / passes
             per_pass = sum(st["pass_seconds"]) / passes
@@ -1581,7 +1808,7 @@ def main() -> int:
                 f"{'x'.join(map(str, ext))}), {passes} pass(es) x {nf} sweep(s), read "
                 f"amplification {amp:.4f}; launches {launched}/{want}; "
                 f"{'bit for bit' if ok else 'MISMATCH'} against the whole-grid run "
-                f"{'on the whole grid' if rim == 0 else f'outside the rim {rim}'}; "
+                f"on the whole grid; "
                 f"{per_pass:.3f} s a pass; {st['h2d_bytes']} B to the card and "
                 f"{st['d2h_bytes']} B back; the link needs {link:.3f} s a pass at the "
                 f"measured bandwidth, {100 * link / per_pass:.1f}% of the pass; card {card}")
@@ -1607,11 +1834,11 @@ def main() -> int:
             (["jacobi3d.soda", "--grid-shape", "512,512,512", "--benchmark"], True))
     for argv, show in runs:
         buf = io.StringIO()
-        before = launch_count()
+        cuda.reset_launches()
         with contextlib.redirect_stdout(buf):
             rc = sodac.main([str(CORPUS / argv[0]), *argv[1:]])
         torch.cuda.synchronize()
-        launched = launch_count() - before
+        launched = sum(cuda.launch_counts().values())
         text = buf.getvalue()
         last = [ln for ln in text.splitlines() if ln.startswith(
             ("OK", "MISMATCH", "host tiling:", "benchmark", "bound:", "  host tiling"))]
@@ -1641,10 +1868,10 @@ def main() -> int:
         got_runs = []
         for i, (cadence, overlap, exact) in enumerate(runs):
             fn = mesh_fns[(row, i)]
-            before = launch_count()
+            cuda.reset_launches()
             got = fn(ins, {})
             torch.cuda.synchronize()
-            launched = launch_count() - before
+            launched = sum(cuda.launch_counts().values())
             calls = fn.stats["group_calls"]
             rim = 0 if exact else p.valid_rim()
             inner = tuple(slice(rim, d - rim) for d in shape)
@@ -1686,11 +1913,11 @@ def main() -> int:
             del mesh_fns[(row, i)]
         torch.cuda.empty_cache()
     buf = io.StringIO()
-    before = launch_count()
+    cuda.reset_launches()
     with contextlib.redirect_stdout(buf):
         rc = sodac.main([str(CORPUS / MESH_CLI[0]), *MESH_CLI[1:]])
     torch.cuda.synchronize()
-    launched = launch_count() - before
+    launched = sum(cuda.launch_counts().values())
     last = [ln for ln in buf.getvalue().splitlines()
             if ln.startswith(("mesh:", "executed", "OK", "MISMATCH"))]
     log(f"mesh f: sodac {' '.join(MESH_CLI)}: rc {rc}, kernel launches {launched}; "
@@ -1706,26 +1933,41 @@ def main() -> int:
         return 1
 
     mark(18)
+
+    # ---- 19. random programs on the card -------------------------------------------
+    fuzzed = fuzz_phase(dev, card, fuzz, build_seconds)
+    if fuzzed is None or set(fuzzed) != {"linebuffer3d", "linebuffer2d", "sweeps", "windows"}:
+        log(f"FAILED fuzz check: phase 19 launched {fuzzed}, not every kernel")
+        return 1
+    del fuzz
+
+    mark(19)
     j, b, f = summary["jacobi3d"], summary2[MAIN_2D], summary3[MAIN_SWEEPS]
+    for row, name in ((j, "linebuffer3d"), (b, "linebuffer2d"), (f, "sweeps"),
+                      (summary4, "windows")):
+        row["fuzz_launches"] = fuzzed[name]
     log(card)
     log(json.dumps({"kernels": [{
         "name": "linebuffer3d", "route": "cuda",
         "source": "soda_tpu_torch/csrc/linebuffer3d.cuh",
         "replaces": "soda_tpu/backend/_linebuffer.py:309",
-        "launches": j["launches"], "max_abs_err": j["err"],
+        "launches": j["launches"],
+        "fuzz_launches": j["fuzz_launches"], "max_abs_err": j["err"],
         "ms": j["ms"], "plain_ms": j["plain_ms"], "bound_ms": j["bound_ms"],
         "bound_by": j["bound_by"], "library_ms": j["library_ms"]}, {
         "name": "linebuffer2d", "route": "cuda",
         "source": "soda_tpu_torch/csrc/linebuffer2d.cuh",
         "replaces": "soda_tpu/backend/_linebuffer.py:106",
-        "launches": b["launches"], "max_abs_err": b["err"],
+        "launches": b["launches"],
+        "fuzz_launches": b["fuzz_launches"], "max_abs_err": b["err"],
         "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
         "bound_by": b["bound_by"], "library_ms": b["library_ms"]}, {
         # ms, plain_ms, chained_ms and bound_ms per sweep of jacobi2d 2048^2 x 8
         "name": "sweeps", "route": "cuda",
         "source": "soda_tpu_torch/backend/sweeps.py",
         "replaces": "soda_tpu/backend/pallas.py:634",
-        "launches": f["launches"], "max_abs_err": f["err"],
+        "launches": f["launches"],
+        "fuzz_launches": f["fuzz_launches"], "max_abs_err": f["err"],
         "ms": f["ms"], "plain_ms": f["plain_ms"], "chained_ms": f["chained_ms"],
         "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
         "library_ms": f["library_ms"]}, {
@@ -1733,7 +1975,8 @@ def main() -> int:
         "name": "windows", "route": "cuda",
         "source": "soda_tpu_torch/csrc/windows.cuh",
         "replaces": "soda_tpu/backend/pallas.py:1000",
-        "launches": summary4["launches"], "max_abs_err": summary4["err"],
+        "launches": summary4["launches"],
+        "fuzz_launches": summary4["fuzz_launches"], "max_abs_err": summary4["err"],
         "ms": summary4["ms"], "plain_ms": summary4["plain_ms"],
         "bound_ms": summary4["bound_ms"], "bound_by": summary4["bound_by"],
         "library_ms": summary4["library_ms"]}]}))

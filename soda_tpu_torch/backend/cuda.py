@@ -39,6 +39,24 @@ from .io import finalize_outputs, to_torch
 WRAPPERS = {3: linebuffer.GroupKernel, 2: linebuffer2d.GroupKernel}
 
 
+# each kernel wrapper's module by kernel (the names of `GroupPlan.kernel`,
+# the fused sweeps as "sweeps"); each counts its launches in `LAUNCHES`
+COUNTED = {"linebuffer3d": linebuffer, "linebuffer2d": linebuffer2d,
+           "sweeps": sweeps, "windows": windows}
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each kernel wrapper since `reset_launches`, by kernel;
+    the CPU plain path never counts."""
+    return {k: m.LAUNCHES for k, m in COUNTED.items()}
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for m in COUNTED.values():
+        m.LAUNCHES = 0
+
+
 def group_kernel(program: StencilProgram, g: GroupPlan) -> linebuffer.GroupKernel:
     """The wrapper of one planned group: the fused cascade when the group
     fuses sweeps, the windows kernel for a windows group, else the

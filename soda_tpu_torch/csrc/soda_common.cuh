@@ -84,7 +84,14 @@ static_assert(sizeof(soda_half) == 2, "soda_half must be stored in 2 bytes");
 // The golden runner's std:: calls, as overloads that device code can call:
 // the emitted expressions say dm::sqrt(x) where the runner says
 // std::sqrt(x), and overload resolution picks the float or double function
-// exactly as it does for std::.
+// exactly as it does for std::.  A `half` operand reaches only abs and
+// fmod (`%` on half): the codegen casts it to float for every other call,
+// and min/max name their type.  Those two take soda_half by an overload of
+// their own, an exact match in both builds: under SODA_HOST_EMULATION
+// _Float16 converts to every other overload at one rank (ambiguous), and
+// on the card the struct would reach abs(float) through operator float.
+// Both are exact in half: |x|, and fmod's remainder, which is
+// representable in its operands' format, computed in float.
 namespace dm {
 template <typename T> SODA_HD T min(T a, T b) { return (b < a) ? b : a; }
 template <typename T> SODA_HD T max(T a, T b) { return (a < b) ? b : a; }
@@ -92,6 +99,10 @@ SODA_HD int64_t abs(int64_t a) { return c_abs(a); }
 SODA_HD int32_t abs(int32_t a) { return c_abs(a); }
 SODA_HD float abs(float a) { return ::fabsf(a); }
 SODA_HD double abs(double a) { return ::fabs(a); }
+SODA_HD soda_half abs(soda_half a) { return soda_half(::fabsf(float(a))); }
+SODA_HD soda_half fmod(soda_half a, soda_half b) {
+  return soda_half(::fmodf(float(a), float(b)));
+}
 #define SODA_MATH1(fn)                                  \
   SODA_HD float fn(float a) { return ::fn##f(a); }      \
   SODA_HD double fn(double a) { return ::fn(a); }

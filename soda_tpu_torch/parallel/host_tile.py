@@ -2,7 +2,7 @@
 overlapping tiles.
 
 The port of `soda_tpu/parallel/host_tile.py`.  The full grid lives in host
-memory as numpy arrays; each tile is extended by a zero-filled halo, runs
+memory as numpy arrays; each tile is extended by a halo (its window), runs
 through the port's main path (`backend/cuda.py::build_fn`: kernels 1 to 4
 and the fused sweeps), and the tile's interior is stitched back on the
 host.  Only two extended tiles at a time touch the card, so the grid is
@@ -18,22 +18,30 @@ The geometry is the reference's:
   so every stitched cell lies at least `creep x nf` deep in its extended
   tile and equals the whole-grid evaluation;
 - all tiles share one extended shape, so one `build_fn` (one plan, one
-  set of kernels) serves every tile and every pass; tiles past the grid's
-  edge are zero-filled (zero is the out-of-grid tap value);
+  set of kernels) serves every tile and every pass;
 - between passes the first output feeds the first input, auxiliary
   inputs carry over.
-Correctness contract (docs/SEMANTICS.md): with one sweep a pass the
-result equals the whole-grid run bit for bit on the whole grid (the
-kernels store zero outside the grid at every stage, as the oracle does);
-deeper passes differ only inside the border-invalid rim
-(`valid_rim()`), because a tile's halo cells past the grid edge are
-re-zeroed only once a pass.  The whole-grid path masks nothing more, and
-neither does this one.
+Where an extended tile would cross the grid's edge, its window moves
+inside the grid until its side lies on the edge (a dim whose extended
+tile exceeds the grid takes the whole dim), and the tile's cells are
+stitched from where they sit in the moved window.  The kernels store zero
+outside their grid at every stage and every fused sweep, as the oracle
+does outside the whole grid, so a window's side on the grid's edge is
+evaluated as the whole grid is there, and its other sides lie at least
+`creep x nf` from every stitched cell.
+Correctness contract: every stitched cell is evaluated as the whole-grid
+run evaluates it, multi-stage programs included, on the whole grid: bit
+for bit at one sweep a pass, and with deeper passes up to the order in
+which the window's plan and the whole grid's fuse sweeps (integers bit
+for bit); over a mesh, the mesh's contract.  That is more than
+docs/SEMANTICS.md asks: the reference zero-fills a tile past the grid's
+edge, so an intermediate stage evaluated there, and every sweep of a
+deeper pass, differ inside `valid_rim()`.
 
 On the card the tiles overlap (`in_flight=2`): two pinned host staging
 buffers per input (each an extended tile) and per output (each a tile
-interior), a copy stream and the compute stream.  Tile k+1 is sliced
-with its zero fill straight from the host grid into its pinned buffer
+interior), a copy stream and the compute stream.  Tile k+1's window is
+sliced straight from the host grid into its pinned buffer
 (torch's `copy_`, which uses the host's threads) and copied to the card
 on the copy stream while the compute stream runs tile k; tile k's
 interior comes back on the copy stream into a pinned output buffer and is
@@ -44,7 +52,7 @@ are allocated once a run and stay alive until the run has synchronised,
 so the caching allocator never hands them to another stream meanwhile.
 On the CPU (`device="cpu"`) each tile runs the plain versions, as
 `cuda.run(device="cpu")` does.  Every integer up to 64 bits runs, uint64
-copied and zeroed through its int64 view (`ir/dtypes.py::bits`); wider
+copied through its int64 view (`ir/dtypes.py::bits`); wider
 ones are refused, as the reference refuses them
 (`ir/dtypes.py::check_kernel_types`).
 
@@ -276,28 +284,16 @@ def default_hbm_budget(device="cuda") -> int:
     return int(free * FREE_MEMORY_SHARE)
 
 
-def _interior(starts, tiles, halos, grid_shape):
-    """(dst, src): the tile's cells in the grid, and where they sit in the
-    extended tile (edge tiles clip to the grid)."""
+def _window(starts, tiles, halos, win, grid_shape):
+    """(origin, dst, src): where the tile's window starts in the grid (its
+    extended tile, moved inside the grid), the tile's cells in the grid
+    (edge tiles clip to it), and where they sit in the window."""
+    origin = tuple(min(max(s - lo, 0), n - w)
+                   for s, (lo, _), w, n in zip(starts, halos, win, grid_shape))
     dst = tuple(slice(s, min(s + t, n))
                 for s, t, n in zip(starts, tiles, grid_shape))
-    src = tuple(slice(lo, lo + (sl.stop - sl.start))
-                for (lo, _), sl in zip(halos, dst))
-    return dst, src
-
-
-def _fill(buf: torch.Tensor, grid: torch.Tensor, starts) -> None:
-    """buf = grid[starts : starts + buf.shape], zero outside the grid."""
-    src, dst = [], []
-    for st, sz, n in zip(starts, buf.shape, grid.shape):
-        s0, s1 = max(st, 0), min(st + sz, n)
-        src.append(slice(s0, max(s1, s0)))
-        dst.append(slice(s0 - st, max(s1, s0) - st))
-    whole = all(d.start == 0 and d.stop == sz for d, sz in zip(dst, buf.shape))
-    buf, grid = bits(buf), bits(grid)
-    if not whole:
-        buf.zero_()
-    buf[tuple(dst)].copy_(grid[tuple(src)])
+    src = tuple(slice(sl.start - o, sl.stop - o) for o, sl in zip(origin, dst))
+    return origin, dst, src
 
 
 def run_host_tiled(program: StencilProgram, inputs, params=None, *,
@@ -320,8 +316,9 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
     along `mesh_dims`, with the mesh's cadence, local backend, overlap and
     link classes (`mesh.build_sharded_fn`); `device` is then the mesh's
     first device, where a tile enters the sharded fn and its interior
-    comes back from.  A stitched cell lies at least creep x nf inside its
-    tile, outside the cadence's rim, so the contract is unchanged."""
+    comes back from.  The mesh's contract (`parallel/mesh.py`) then holds:
+    deeper passes, and a multi-stage program's intermediate stages, differ
+    inside `valid_rim()`, where the shards' exchange zero-fills."""
     if mesh is not None:
         check_mesh_dims(program.rank, mesh.devices.shape, mesh_dims)
         device = mesh.devices.flat[0]
@@ -339,18 +336,20 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
     grid_shape = tuple(grid_shape)
     for n, a in host.items():
         if tuple(a.shape) != grid_shape:
-            # _fill would silently zero-fill the mismatch
+            # a window would silently read past the mismatch
             raise ValueError(
                 f"input {n!r} has shape {tuple(a.shape)}, expected grid "
                 f"shape {grid_shape}")
     tiles, halos, ext_shape, n_tiles, nf, passes, overhead = \
         plan_host_tiling(program, grid_shape, tiles, sweeps_per_pass, iterate)
+    # every tile's window: its extended tile, moved inside the grid
+    win = tuple(min(e, n) for e, n in zip(ext_shape, grid_shape))
     logger.info(
         "host tiling %s: %s tiles of %s (+halo -> %s), %d pass(es) of %d "
         "sweep(s), read amplification %.3fx/pass, %d tile(s) in flight",
         program.name, "x".join(map(str, n_tiles)), "x".join(map(str, tiles)),
-        "x".join(map(str, ext_shape)), passes, nf, overhead, in_flight)
-    # one fn for every tile and pass: all tiles share ext_shape.  iterate=
+        "x".join(map(str, win)), passes, nf, overhead, in_flight)
+    # one fn for every tile and pass: all windows share one shape.  iterate=
     # None when a pass covers the whole iterate keeps the planner's own
     # fused depth; otherwise the planner snaps to a divisor of nf
     it_arg = None if (iterate is None and nf == max(program.iterate, 1)) else nf
@@ -364,19 +363,19 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
         # tile's outputs into tensors of its own, kept until stitched
         from .mesh import build_sharded_fn
         fn = build_sharded_fn(
-            program, mesh, grid_shape=ext_shape, dims=mesh_dims, iterate=nf,
+            program, mesh, grid_shape=win, dims=mesh_dims, iterate=nf,
             sweeps_per_exchange=sweeps_per_exchange, local_backend=local_backend,
             overlap=overlap, link_classes=link_classes)
     else:
-        fn = build_fn(program, grid_shape=ext_shape, iterate=it_arg, **plan_kwargs)
+        fn = build_fn(program, grid_shape=win, iterate=it_arg, **plan_kwargs)
     pars = params_to_torch(program, params, dev)
     on_card = dev.type == "cuda"
     slots = in_flight if on_card else 1
     outs_t = {n: torch_dtype(program.tensors[n].type) for n in program.output_names}
-    stage_in = [{n: torch.empty(ext_shape, dtype=a.dtype, pin_memory=on_card)
+    stage_in = [{n: torch.empty(win, dtype=a.dtype, pin_memory=on_card)
                  for n, a in host.items()} for _ in range(slots)]
     if on_card:
-        dev_in = [{n: torch.empty(ext_shape, dtype=a.dtype, device=dev)
+        dev_in = [{n: torch.empty(win, dtype=a.dtype, device=dev)
                    for n, a in host.items()} for _ in range(slots)]
         dev_bufs = [None if mesh is not None else fn.alloc(dev) for _ in range(slots)]
         stage_out = [{n: torch.empty(math.prod(tiles), dtype=dt, pin_memory=True)
@@ -390,9 +389,9 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
         d2h_done = [torch.cuda.Event() for _ in range(slots)]
     else:
         dev_in = stage_in
-    in_bytes = math.prod(ext_shape) * storage_bytes(program, program.input_names)
+    in_bytes = math.prod(win) * storage_bytes(program, program.input_names)
     out_cell = storage_bytes(program, program.output_names)
-    record = {"tiles": tuple(tiles), "halos": halos, "ext_shape": ext_shape,
+    record = {"tiles": tuple(tiles), "halos": halos, "ext_shape": win,
               "n_tiles": n_tiles, "sweeps_per_pass": nf, "passes": passes,
               "read_amplification": overhead, "in_flight": slots,
               "pass_seconds": [], "h2d_bytes": 0, "d2h_bytes": 0,
@@ -425,11 +424,12 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
         for k, idx in enumerate(itertools.product(*(range(m) for m in n_tiles))):
             s = k % slots
             starts = tuple(i * t for i, t in zip(idx, tiles))
-            dst, src = _interior(starts, tiles, halos, grid_shape)
+            origin, dst, src = _window(starts, tiles, halos, win, grid_shape)
+            window = tuple(slice(o, o + w) for o, w in zip(origin, win))
             if on_card and pending[s] is not None:
                 stitch(s)
             for n, buf in stage_in[s].items():
-                _fill(buf, values[n], tuple(st - lo for st, (lo, _) in zip(starts, halos)))
+                bits(buf).copy_(bits(values[n])[window])
             if not on_card:
                 outs = run_tile(dev_in[s], None)
                 for n in outs_t:

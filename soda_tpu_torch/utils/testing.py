@@ -9,7 +9,7 @@ is the port's NumPy reference (`interp/numpy_ref.py`).  Gates
 f32 programs with libm transcendentals at 2e-3; other floats at 1e-4.
 `pinned_plan` pins the row-march's order of a step's stages, which only
 the checks choose; `build_emulated` compiles many kernels' host emulation
-at once.
+at once, and `emulate` runs a plan through it.
 """
 
 from __future__ import annotations
@@ -135,6 +135,48 @@ def build_emulated(kernels, *, hazard: bool = False, workers: int = 4) -> None:
     with concurrent.futures.ThreadPoolExecutor(workers) as pool:
         list(pool.map(lambda k: k.build(emulate=True, hazard=hazard),
                       distinct.values()))
+
+
+def kernel_names(the_plan) -> list[str]:
+    """The kernel each group of a plan runs: "linebuffer3d",
+    "linebuffer2d", "windows", or "sweeps" (a fused cascade)."""
+    return ["sweeps" if g.sweeps > 1 else g.kernel for g in the_plan.groups]
+
+
+def emulate(p, the_plan, ins, ps=None, *, iterate=None, hazard: bool = False) -> dict:
+    """Run `p` over numpy inputs through the host emulation of each planned
+    group's kernel (`GroupKernel.build(emulate=True, hazard=hazard)`),
+    chained as `cuda.build_fn` chains the kernels on the card: `iterate /
+    nf` calls, the first output feeding the first input.  Returns numpy
+    outputs.  This is the kernels' march on the CPU, the role that
+    interpret mode plays for `soda_tpu`'s Pallas kernels."""
+    import torch
+
+    from ..backend import cuda
+    from ..backend.io import to_numpy, to_torch
+    from ..ir.dtypes import torch_dtype
+
+    tins, tps = to_torch(p, ins, ps or {}, "cpu")
+    it = max(p.iterate if iterate is None else iterate, 1)
+    nf = the_plan.groups[0].sweeps
+    if it % nf:
+        raise ValueError(f"plan fuses {nf} sweeps, which does not divide iterate {it}")
+    kernels = [cuda.group_kernel(p, g) for g in the_plan.groups]
+    entries = [k.build(emulate=True, hazard=hazard).lib.soda_launch for k in kernels]
+    in0, out0 = p.input_names[0], p.output_names[0]
+    values = dict(tins)
+    for c in range(it // nf):
+        produced = {}
+        for k, entry in zip(kernels, entries):
+            outs = {o: torch.empty(the_plan.grid_shape, dtype=torch_dtype(p.tensors[o].type))
+                    for o in k.group.outputs}
+            k.launch(entry, values, tps, outs, 0)
+            values.update(outs)
+            produced.update(outs)
+        if c + 1 < it // nf:
+            values = {n: tins[n] for n in p.input_names}
+            values[in0] = produced[out0]
+    return to_numpy(p, {o: values[o] for o in p.output_names})
 
 
 def rand_inputs(p, shape, rng):

@@ -282,7 +282,7 @@ def test_rank1_windows_kernel_past_2_to_31_cells(cuda_device):
 @pytest.mark.parametrize("in_flight", [1, 2])
 def test_host_tiled_on_the_card(cuda_device, name, grid, tiles, nf, in_flight):
     """Host tiling with its copy and compute streams: bit for bit against
-    the whole-grid kernels (outside the rim for deeper passes) and against
+    the whole-grid kernels on the whole grid and against
     the same tiles on the CPU's plain versions (`compare_outputs`)."""
     from soda_tpu_torch.parallel.host_tile import run_host_tiled
 
@@ -295,11 +295,8 @@ def test_host_tiled_on_the_card(cuda_device, name, grid, tiles, nf, in_flight):
     assert _launches() > before and stats["in_flight"] == in_flight
     assert stats["h2d_bytes"] > 0 and stats["d2h_bytes"] > 0
     whole = to_numpy(p, cuda.run(p, ins, ps, device=cuda_device))
-    depth = nf or max(p.iterate, 1)
-    rim = 0 if depth == 1 else p.valid_rim()
-    inner = tuple(slice(rim, d - rim) for d in grid)
     for k in whole:
-        assert np.array_equal(got[k][inner].view(np.uint8), whole[k][inner].view(np.uint8)), k
+        assert np.array_equal(got[k].view(np.uint8), whole[k].view(np.uint8)), k
     cpu = run_host_tiled(p, ins, ps, tiles=tiles, sweeps_per_pass=nf, device="cpu")
     assert compare_outputs(p, got, cpu, 0)
 

@@ -11,10 +11,10 @@ cases of `tests/test_host_tile.py`.
   `soda_tpu`'s `run_host_tiled` (Pallas in interpret mode, as its own
   tests run it) bit for bit on grids with uneven edge tiles: on the whole
   grid for single-stage programs, outside the rim where the TPU kernel
-  evaluates an intermediate stage from zero-padded inputs (blur); and the
-  port's whole-grid run bit for bit on the whole grid.  With deeper
-  passes it differs from the whole-grid run only inside `valid_rim()`
-  (tolerance: `compare_outputs` outside it, integers bit for bit).
+  evaluates an intermediate stage from zero-padded inputs (blur).  It
+  equals the port's whole-grid run bit for bit on the whole grid, with
+  deeper passes too: a tile's window on the grid's edge evaluates every
+  stage and sweep there as the whole grid does.
 - `normalize_tiles` refuses a wrong rank and the entry point refuses a
   grid that disagrees with the inputs; without a card it raises
   `NoCudaDevice`.
@@ -45,7 +45,7 @@ from soda_tpu_torch.backend.io import to_numpy
 from soda_tpu_torch.frontend.parser import parse
 from soda_tpu_torch.parallel import host_tile, mesh
 from soda_tpu_torch.utils.device import NoCudaDevice
-from soda_tpu_torch.utils.testing import U64_SOURCES, rand_inputs, u64_inputs
+from soda_tpu_torch.utils.testing import U64_SOURCES, oracle, rand_inputs, u64_inputs
 
 torch.set_num_threads(1)
 
@@ -149,13 +149,44 @@ def test_one_sweep_a_pass_equals_the_reference_and_the_whole_grid(name, grid, ti
     ("smooth1d", (700,), (256,), None),
 ])
 def test_deeper_passes_differ_only_inside_the_rim(name, grid, tiles, nf):
+    """Deeper passes equal the whole-grid run bit for bit on the whole
+    grid (the name is left from when they differed inside the rim)."""
     p = PROGRAMS[name]
     ins, ps = rand_inputs(p, grid, np.random.default_rng(72))
     got = host_tile.run_host_tiled(p, ins, ps, tiles=tiles, sweeps_per_pass=nf,
                                    device="cpu")
     whole = to_numpy(p, cuda.run(p, ins, ps, device="cpu"))
-    rim = 0 if (nf or max(p.iterate, 1)) == 1 else p.valid_rim()
-    assert compare_outputs(REF[name], got, whole, rim)
+    for k in whole:
+        assert np.array_equal(_bits(got[k]), _bits(whole[k])), k
+
+
+# a stage that is not zero on zero inputs: past the grid's edge the
+# whole-grid run stores zero for it, which a tile's zero-filled halo would not
+OFFSET_SOURCE = """kernel: offset
+burst width: 64
+iterate: 2
+input int32: a(*, *)
+local int32: t(0, 0) = a(0, 0) + a(0, 1) + 7
+output int32: b(0, 0) = t(-1, 0) + t(1, -1) * 3 - t(0, 0)
+"""
+
+
+@pytest.mark.parametrize("tiles,nf", [((16, 48), 1), ((16, 48), 2), ((30, 0), 2),
+                                      ((8, 40), None)])
+def test_a_tile_on_the_grid_edge_stores_zero_for_an_intermediate_stage(tiles, nf):
+    """The intermediate stage `t` is 7 on zero inputs: a tile's window on
+    the grid's edge evaluates it there as the whole grid does (zero past
+    the edge), so host tiling equals the whole-grid run and the oracle bit
+    for bit on the whole grid, at one sweep a pass and deeper."""
+    p = parse(OFFSET_SOURCE)
+    x = np.random.default_rng(74).integers(-1000, 1000, (45, 101)).astype(np.int32)
+    stats = {}
+    got = host_tile.run_host_tiled(p, {"a": x}, tiles=tiles, sweeps_per_pass=nf,
+                                   device="cpu", stats=stats)["b"]
+    assert math.prod(stats["n_tiles"]) > 1
+    whole = to_numpy(p, cuda.run(p, {"a": x}, device="cpu"))["b"]
+    assert np.array_equal(got, whole)
+    assert np.array_equal(got, oracle(p, {"a": x})["b"])
 
 
 def test_normalize_tiles_and_the_entry_point_refuse_bad_input():
@@ -249,7 +280,7 @@ def test_host_tiles_over_a_mesh_of_cpu_shards(name, grid, tiles, sizes, nf):
         assert np.array_equal(_bits(got[k][inner]), _bits(whole[k][inner])), k
     ref = ref_tile.run_host_tiled(r, ins, ps, tiles=tiles, sweeps_per_pass=nf,
                                   mesh=ref_mesh.make_mesh(sizes), interpret=True)
-    assert compare_outputs(r, got, ref, 0)
+    assert compare_outputs(r, got, ref, rim)
 
 
 def test_a_mesh_the_grid_cannot_hold_raises_before_tiling():

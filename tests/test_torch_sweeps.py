@@ -43,11 +43,10 @@ from soda_tpu_torch.backend import cuda, linebuffer, linebuffer2d, sweeps
 from soda_tpu_torch.backend.io import to_numpy, to_torch
 from soda_tpu_torch.cli import sodac
 from soda_tpu_torch.frontend.parser import parse
-from soda_tpu_torch.ir.dtypes import torch_dtype
 from soda_tpu_torch.optimize.unroll import FeedbackTypeError, unroll_iterate
 from soda_tpu_torch.plan import planner
 from soda_tpu_torch.utils import report
-from soda_tpu_torch.utils.testing import build_emulated, pinned_plan
+from soda_tpu_torch.utils.testing import build_emulated, emulate, pinned_plan
 
 torch.set_num_threads(1)
 
@@ -102,28 +101,9 @@ def _bits(a: np.ndarray) -> np.ndarray:
 def _emulate(p, shape, ins, ps, hazard=False, **plan_kw):
     """The plan's groups as host-emulated kernels (`hazard`: under the
     row-march's hazard emulation), `iterate / nf` calls with the feedback
-    of `cuda.build_fn`; returns (outputs, plan)."""
+    of `cuda.build_fn` (`testing.emulate`); returns (outputs, plan)."""
     pl = pinned_plan(p, shape, plan_kw)
-    tins, tps = to_torch(p, ins, ps, "cpu")
-    it = max(p.iterate, 1)
-    nf = pl.groups[0].sweeps
-    kernels = []
-    for g in pl.groups:
-        k = cuda.group_kernel(p, g)
-        kernels.append((k, k.build(emulate=True, hazard=hazard).lib.soda_launch))
-    values = dict(tins)
-    for c in range(it // nf):
-        produced = {}
-        for (k, entry), g in zip(kernels, pl.groups):
-            outs = {o: torch.empty(shape, dtype=torch_dtype(p.tensors[o].type))
-                    for o in g.outputs}
-            k.launch(entry, values, tps, outs, 0)
-            values.update(outs)
-            produced.update(outs)
-        if c + 1 < it // nf:
-            values = dict(tins)
-            values[p.input_names[0]] = produced[p.output_names[0]]
-    return to_numpy(p, {o: values[o] for o in p.output_names}), pl
+    return emulate(p, pl, ins, ps, hazard=hazard), pl
 
 
 @pytest.mark.parametrize("name", NAMES)

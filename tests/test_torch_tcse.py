@@ -37,11 +37,10 @@ from soda_tpu.interp import numpy_interp
 from soda_tpu.optimize import tcse as tcse_orig
 from soda_tpu_torch.backend import cuda
 from soda_tpu_torch.backend.cuda_codegen import int32_exact
-from soda_tpu_torch.backend.io import to_numpy, to_torch
+from soda_tpu_torch.backend.io import to_numpy
 from soda_tpu_torch.frontend.parser import parse, parse_file
-from soda_tpu_torch.ir.dtypes import torch_dtype
 from soda_tpu_torch.optimize import tcse
-from soda_tpu_torch.utils.testing import (INT3D_SOURCES, build_emulated,
+from soda_tpu_torch.utils.testing import (INT3D_SOURCES, build_emulated, emulate,
                                           compare_outputs, oracle, pinned_plan,
                                           rand_inputs)
 
@@ -77,26 +76,10 @@ def built():
 
 
 def _emulate(p, shape, ins, ps, **plan_kw):
-    """The plan's groups as host-emulated kernels, `iterate / nf` calls
-    with the feedback of `cuda.build_fn`; returns (outputs, plan)."""
+    """The plan's groups as host-emulated kernels (`testing.emulate`);
+    returns (outputs, plan)."""
     pl = pinned_plan(p, shape, plan_kw)
-    tins, tps = to_torch(p, ins, ps, "cpu")
-    it, nf = max(p.iterate, 1), pl.groups[0].sweeps
-    kernels = [(cuda.group_kernel(p, g), g) for g in pl.groups]
-    entries = [k.build(emulate=True).lib.soda_launch for k, _ in kernels]
-    values = dict(tins)
-    for c in range(it // nf):
-        produced = {}
-        for (k, g), entry in zip(kernels, entries):
-            outs = {o: torch.empty(shape, dtype=torch_dtype(p.tensors[o].type))
-                    for o in g.outputs}
-            k.launch(entry, values, tps, outs, 0)
-            values.update(outs)
-            produced.update(outs)
-        if c + 1 < it // nf:
-            values = dict(tins)
-            values[p.input_names[0]] = produced[p.output_names[0]]
-    return to_numpy(p, {o: values[o] for o in p.output_names}), pl
+    return emulate(p, pl, ins, ps), pl
 
 
 def test_the_rewrite_hoists_stages_in_every_case():

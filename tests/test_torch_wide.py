@@ -45,7 +45,7 @@ from soda_tpu.frontend import parser as lark_parser
 from soda_tpu.interp import numpy_interp
 from soda_tpu_torch.backend import cpp, cuda, eager
 from soda_tpu_torch.backend.cuda_codegen import int32_exact, int_range
-from soda_tpu_torch.backend.io import to_numpy, to_torch
+from soda_tpu_torch.backend.io import to_numpy
 from soda_tpu_torch.cli import sodac
 from soda_tpu_torch.frontend.parser import parse
 from soda_tpu_torch.interp import evaluator, numpy_ref
@@ -57,7 +57,7 @@ from soda_tpu_torch.parallel import host_tile, mesh
 from soda_tpu_torch.plan.planner import plan
 from soda_tpu_torch.utils import report
 from soda_tpu_torch.utils.opcount import typed_ops
-from soda_tpu_torch.utils.testing import U64_SOURCES, build_emulated, u64_inputs
+from soda_tpu_torch.utils.testing import U64_SOURCES, build_emulated, emulate, u64_inputs
 from test_wide128 import SRC_I, SRC_U
 
 torch.set_num_threads(1)
@@ -297,23 +297,6 @@ def built():
                     for c in KERNEL_CASES for g in _plan(c).groups])
 
 
-def _emulate(p, the_plan, ins, ps):
-    """The plan's kernels as host emulation, chained as `cuda.build_fn`
-    chains them."""
-    tins, tps = to_torch(p, ins, ps, "cpu")
-    values = dict(tins)
-    for c in range(max(p.iterate, 1) // the_plan.groups[0].sweeps):
-        if c:
-            values[p.input_names[0]] = values[p.output_names[0]]
-        for g in the_plan.groups:
-            k = cuda.group_kernel(p, g)
-            outs = {o: torch.empty(the_plan.grid_shape, dtype=torch.uint64)
-                    for o in g.outputs}
-            k.launch(k.build(emulate=True).lib.soda_launch, values, tps, outs, 0)
-            values.update(outs)
-    return to_numpy(p, {o: values[o] for o in p.output_names})
-
-
 @functools.cache
 def _xla(name, grid, k):
     """`soda_tpu`'s XLA run of a one-sweep uint64 program (once a module)."""
@@ -331,7 +314,7 @@ def test_uint64_programs_through_each_kernel_equal_soda_tpu(built, case):
         assert the_plan.groups[0].sweeps == (1 if "depth1" in case else 4)
     ins, ps = _inputs(name, grid, k)
     assert name == "u64_param" or (ins["a"] >= 2**63).any()
-    got = _emulate(p, the_plan, ins, ps)
+    got = emulate(p, the_plan, ins, ps)
     plain_path = to_numpy(p, eager.run(p, ins, ps, device="cpu"))
     oracle = numpy_ref.run(p, ins, ps)
     out = p.output_names[0]

@@ -42,9 +42,8 @@ from soda_tpu.utils.testing import compare_outputs, rand_inputs
 from soda_tpu_torch.backend import cuda, linebuffer, linebuffer2d, sweeps, windows
 from soda_tpu_torch.backend.io import to_numpy, to_torch
 from soda_tpu_torch.frontend.parser import parse
-from soda_tpu_torch.ir.dtypes import torch_dtype
 from soda_tpu_torch.plan import planner
-from soda_tpu_torch.utils.testing import STAR3D_R8
+from soda_tpu_torch.utils.testing import STAR3D_R8, emulate
 
 torch.set_num_threads(1)
 
@@ -70,26 +69,10 @@ def _bits(a: np.ndarray) -> np.ndarray:
 
 
 def _emulate(p, shape, ins, ps, **plan_kw):
-    """The plan's groups as host-emulated kernels, chained through memory,
-    `iterate` calls; returns (outputs, plan)."""
+    """The plan's groups as host-emulated kernels (`testing.emulate`);
+    returns (outputs, plan)."""
     pl = planner.plan(p, shape, **plan_kw)
-    tins, tps = to_torch(p, ins, ps, "cpu")
-    kernels = [(cuda.group_kernel(p, g), g) for g in pl.groups]
-    entries = [k.build(emulate=True).lib.soda_launch for k, _ in kernels]
-    it = max(p.iterate, 1)
-    values = dict(tins)
-    for c in range(it):
-        produced = {}
-        for (k, g), entry in zip(kernels, entries):
-            outs = {o: torch.empty(shape, dtype=torch_dtype(p.tensors[o].type))
-                    for o in g.outputs}
-            k.launch(entry, values, tps, outs, 0)
-            values.update(outs)
-            produced.update(outs)
-        if c + 1 < it:
-            values = dict(tins)
-            values[p.input_names[0]] = produced[p.output_names[0]]
-    return to_numpy(p, {o: values[o] for o in p.output_names}), pl
+    return emulate(p, pl, ins, ps), pl
 
 
 def _check_oracle(name, got, ins, ps):
