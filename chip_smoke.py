@@ -25,6 +25,11 @@ Phases (any failure exits nonzero):
    with CUDA events (plain, kernel, kernel, plain) beside the bound (ideal
    bytes over 3.35 TB/s) and `F.conv3d` (TF32 off); denoise3d, heat3d and
    poisson3d_f64 at 256^3, and jacobi3d 1024^3 when the card has room;
+   then jacobi3d on grids no tile divides (`AT_SIZE_ODD`: 500^3, rows of
+   whole 16-byte chunks, and 511^3, the scalar load path), each through
+   `cuda.build_fn` with the counters reset just before (kernel 1, 1
+   launch), against the plain version on the whole grid at KERNEL_TOL
+   (saying whether bit for bit) and alone beside its bound and 512^3;
    each row prints its plan (tile, chunk, load path, order of a step's
    stages, CTAs an SM) and the registers `ptxas` reported;
 5. small grids, rank 2: the 22 rank-2 corpus programs of at most 64 bits
@@ -121,7 +126,16 @@ Phases (any failure exits nonzero):
    each run with two tiles in flight and with one, in turns (2, 1, 1, 2),
    every run checked, printing the tiles, passes, read amplification, wall
    seconds a pass, bytes across the host link and the share of the pass
-   the measured bandwidth needs for them;
+   the measured bandwidth needs for them; then `scripts/tpu_check.py`'s
+   host-tiling gate (`HOST_TILE_GATE`: jacobi3d 512^3 in (256, 256, 512),
+   jacobi2d 2048^2 in (1024, 1024), accum64 1024x2048 int64 in (512,
+   1024), jacobi2d 2048^2 with tiles and cadence chosen under 32 MiB), each
+   bit for bit against the whole-grid run on the whole grid; and host
+   tiling over a mesh (`HOST_TILED_MESH`: jacobi2d 8192^2 x 8, at least 4
+   tiles, each sharded over a [2, 2] mesh of the visible cards round
+   robin), bit for bit on the whole grid at one sweep an exchange and
+   outside `valid_rim()` at the automatic cadence, the kernel launches
+   equal to the shards' group calls, bytes exchanged and s a pass;
 16. the CLI on the card with no --device: `--tcse --report --dump-plan
    --run` on gauss5x5, `--host-tile auto --hbm-budget 8 MiB
    --host-tile-sweeps auto --run` on jacobi2d 2048^2, and `--benchmark`
@@ -162,7 +176,12 @@ Phases (any failure exits nonzero):
    pinned to the windows kernel, and four `gen_mesh` seeds on 4 shards
    of cuda:0; each against the plain version on the card and the NumPy
    reference on the whole grid (integers bit for bit), one `fuzz ...`
-   line a program; kernels 1-4 must all be launched.
+   line a program; kernels 1-4 must all be launched;
+20. the entry points (`soda_tpu_torch/entry.py`, `__graft_entry__.py`'s counterpart): `entry()`'s
+   fn on its input launches kernel 1 once and is within KERNEL_TOL of the
+   plain version, timed alone; `dryrun_multichip(4)` and `(8)` on the
+   visible cards (shard i on cuda:(i mod count)), each raising on a failed
+   check, print what they ran (`entry: ...` lines).
 
 Each phase logs the seconds since the start when it ends.  Phases 4 and
 7 run their programs one sweep per call (`sweeps=1`), so
@@ -190,6 +209,10 @@ SMALL_SHAPES = ((32, 64, 128), (13, 37, 45), (7, 11, 13))
 AT_SIZE = (("jacobi3d", (512, 512, 512)), ("denoise3d", (256, 256, 256)),
            ("heat3d", (256, 256, 256)), ("poisson3d_f64", (256, 256, 256)))
 BIG = ("jacobi3d", (1024, 1024, 1024))
+# phase 4's rank-3 grids that no tile divides (`scripts/tpu_check.py:40`'s
+# "core + rim"): 500^3 has rows of 2000 B, whole 16-byte chunks (the vector
+# load path); 511^3 rows of 2044 B (the scalar load path)
+AT_SIZE_ODD = (("jacobi3d", (500, 500, 500)), ("jacobi3d", (511, 511, 511)))
 # the z-march pinned (phase 3): a barrier after each stage instead of the
 # planner's skew, a chunk (1 plane) shorter than every warm-up, and a
 # budget under which denoise3d's power-of-two rings do not fit the tile
@@ -249,6 +272,18 @@ TCSE_MAIN = ("gauss5x5", (16384, 16384))
 HOST_TILED = (("jacobi3d", (1024, 1024, 1024), 1, 2 * 2**30),
               ("jacobi2d", (32768, 32768), "auto", 2 * 2**30))
 CLI_HOST_TILED = ("jacobi2d", (2048, 2048), 8 * 2**20)
+# host tiling's gate of `scripts/tpu_check.py:111-116` (phase 15): (program,
+# grid, tiles, sweeps a pass); "auto" chooses both under HOST_TILE_GATE_BUDGET
+HOST_TILE_GATE = (("jacobi3d", (512, 512, 512), (256, 256, 512), None),
+                  ("jacobi2d", (2048, 2048), (1024, 1024), None),
+                  ("accum64", (1024, 2048), (512, 1024), None),
+                  ("jacobi2d", (2048, 2048), "auto", "auto"))
+HOST_TILE_GATE_BUDGET = 32 * 2**20
+# host tiling over a mesh (phase 15): jacobi2d 8192^2 x 8, every tile sharded
+# over a [2, 2] mesh of the visible cards round robin, under a budget a device
+# that forces at least HOST_TILED_MESH_TILES tiles
+HOST_TILED_MESH = ("jacobi2d", (8192, 8192), (2, 2), 80 * 2**20)
+HOST_TILED_MESH_TILES = 4
 # the mesh on the card (phase 17), every shard on cuda:0: (row, program,
 # grid, axis sizes, axis names, sharded dims, runs of (cadence, overlap,
 # bit for bit on the whole grid: else outside `valid_rim()`))
@@ -304,6 +339,8 @@ FUZZ_MESH_SEEDS = (2, 5, 8, 11)
 # 9.8e-4 of the grid) must fail the same gate
 LIBM_FLIP_SHARE = 1e-4
 LIBM_CONTROL_CELLS = 1024
+# the entry points (phase 20, `soda_tpu_torch/entry.py`)
+DRYRUN_DEVICES = (4, 8)
 PINNED_COPY_BYTES = 2**30
 SLEEP_CYCLES = 3_000_000   # at most 1.98 GHz: at least 1.5 ms
 SLEEP_COVERS_S = 1e-3
@@ -804,6 +841,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from soda_tpu_torch import entry as entry_points
     from soda_tpu_torch.backend import cpp, cuda, eager, linebuffer
     from soda_tpu_torch.backend.io import to_numpy, to_torch
     from soda_tpu_torch.cli import sodac
@@ -868,7 +906,7 @@ def main() -> int:
         for shape in SMALL_SHAPES[:2]:
             for kw in PINNED_3D:
                 add_plan(programs[n], pinned_plan(programs[n], shape, kw))
-    for n, shape in AT_SIZE + (BIG,):
+    for n, shape in AT_SIZE + (BIG,) + AT_SIZE_ODD:
         add_jobs(programs[n], shape, sweeps=1)
     for n, p in programs2.items():
         for shape in SMALL_SHAPES_2D:
@@ -931,6 +969,34 @@ def main() -> int:
         it = max(p.iterate, 1)
         add_jobs(p, tilings[(n, shape)][2], iterate=None if nf == it else nf)
         add_jobs(p, shape)     # the whole-grid run it is held against
+    # host tiling's gate: each case's tiles, cadence and geometry, and its
+    # whole grid
+    gate_tilings = []
+    for n, shape, tiles, nf in HOST_TILE_GATE:
+        p = allp[n]
+        if tiles == "auto":
+            nf, tiles = host_tile.choose_sweeps_per_pass(p, shape, None,
+                                                         HOST_TILE_GATE_BUDGET)
+        geo = host_tile.plan_host_tiling(p, shape, tiles, nf)
+        gate_tilings.append((tiles, geo))
+        win = tuple(min(e, d) for e, d in zip(geo[2], shape))
+        add_jobs(p, win, iterate=None if geo[4] == max(p.iterate, 1) else geo[4])
+        add_jobs(p, shape)
+    # host tiling over a mesh: the shards' plans of a tile at both cadences
+    n, shape, msizes, budget = HOST_TILED_MESH
+    cards = torch.cuda.device_count()
+    tiled_mesh = mesh.make_mesh(msizes, None, [torch.device("cuda", i % cards)
+                                               for i in range(math.prod(msizes))])
+    tiled_mesh_geo = host_tile.plan_host_tiling(
+        allp[n], shape, host_tile.choose_host_tiles(allp[n], shape, budget,
+                                                    mesh_shape=msizes))
+    tiled_mesh_win = tuple(min(e, d) for e, d in zip(tiled_mesh_geo[2], shape))
+    for cadence in (1, None):
+        for pl in mesh.build_sharded_fn(
+                allp[n], tiled_mesh, grid_shape=tiled_mesh_win,
+                iterate=tiled_mesh_geo[4], sweeps_per_exchange=cadence).local_plans().values():
+            add_plan(allp[n], pl)
+    add_jobs(allp[n], shape)
     # the mesh's shards (phase 17): each run's local plans, and the whole grid
     mesh_fns = {}
     for row, n, shape, sizes, names, dims, runs in MESH_ROWS:
@@ -962,6 +1028,19 @@ def main() -> int:
         u64p[n], shape, host_tile.choose_host_tiles(u64p[n], shape, budget, 1), 1)
     add_jobs(u64p[n], u64_tiling[2])
     add_jobs(u64p[n], shape)
+    # the entry points (phase 20): entry()'s sweep, and each dry run's shards
+    # and whole grid
+    add_jobs(programs["jacobi3d"], entry_points.ENTRY_GRID, iterate=1)
+    for n_dev in DRYRUN_DEVICES:
+        for cfg in entry_points.dryrun_configs(n_dev):
+            q = cfg["program"]
+            for pl in mesh.build_sharded_fn(
+                    q, mesh.make_mesh(cfg["sizes"], cfg["names"], [dev] * n_dev),
+                    grid_shape=cfg["grid"], dims=cfg["dims"],
+                    iterate=entry_points.DRYRUN_ITERATE,
+                    sweeps_per_exchange=1).local_plans().values():
+                add_plan(q, pl)
+            add_jobs(q, cfg["grid"], iterate=entry_points.DRYRUN_ITERATE)
     # the fuzz phase (19): every program's plan, and a mesh seed's shards
     fuzz = fuzz_cases(dev)
     for c in fuzz:
@@ -1106,6 +1185,7 @@ def main() -> int:
             host_ms = (time.perf_counter() - t0) / reps * 1e3
             torch.cuda.synchronize()
             dev_ms = device_ms(run_kernel, reps)
+            alone_512 = dev_ms
             log(f"at-size {n} {shape}: host {host_ms:.4f} ms per call "
                 f"(enqueue, no sync); device time of the kernel alone "
                 f"{fmt(dev_ms)} ms per sweep")
@@ -1132,6 +1212,38 @@ def main() -> int:
                           bound_ms=rep.bound_ms, bound_by=rep.bound_by,
                           library_ms=lib_ms)
         del ins, pars, fn
+        torch.cuda.empty_cache()
+
+    # grids no tile divides: kernel 1 once with its counter just reset, the
+    # whole grid against the plain version, then alone beside 512^3
+    for n, shape in AT_SIZE_ODD:
+        p = programs[n]
+        x = {"t0": torch.randn(shape, generator=gen, device=dev)}
+        fn = cuda.build_fn(p, grid_shape=shape, sweeps=1)
+        cuda.reset_launches()
+        got = fn(x, {})
+        torch.cuda.synchronize()
+        launched = cuda.launch_counts()
+        plain = eager.run(p, x, {}, device=dev)
+        err, exact = max_abs_err(got, plain), bitwise_equal(got, plain)
+        del got, plain
+        fn(x, {})
+        alone = device_ms(lambda: fn(x, {}), 10)
+        rep = report.analyze(fn.plan)
+        g = fn.plan.groups[0]
+        ok = launched["linebuffer3d"] == sum(launched.values()) == 1 and err <= KERNEL_TOL
+        log(f"at-size {n} {shape}: rows of {4 * shape[-1]} B, load {g.load}; launches "
+            f"{launched}; max|kernel-plain| {err:.3g} on the whole grid "
+            f"({'bit for bit' if exact else 'not bit for bit'}; "
+            f"{'ok' if ok else 'MISMATCH'}); alone {fmt(alone)} ms / bound "
+            f"{rep.bound_ms:.4f}"
+            f"{f' ({100 * rep.bound_ms / alone:.1f}%)' if alone else ''}, 512^3 alone "
+            f"{fmt(alone_512)}; {g.describe()}; "
+            f"{ptxas_registers(cuda.group_kernel(p, g).build().log)}; card {card}")
+        if not ok:
+            log(f"FAILED at-size check: {n} {shape}")
+            return 1
+        del x, fn
         torch.cuda.empty_cache()
 
     n, shape = BIG
@@ -1822,6 +1934,70 @@ def main() -> int:
             f"{tile_plan.groups[0].describe()}")
         del whole, x_host
         torch.cuda.empty_cache()
+    # the gate of `scripts/tpu_check.py`: each case bit for bit against the
+    # whole-grid run on the whole grid
+    for (n, shape, _, _), (tiles, geo) in zip(HOST_TILE_GATE, gate_tilings):
+        p = allp[n]
+        n_tiles, nf, passes = geo[3], geo[4], geo[5]
+        ins, ps = rand_inputs(p, shape, np.random.default_rng(7))
+        whole = to_numpy(p, cuda.run(p, ins, ps))
+        win = tuple(min(e, d) for e, d in zip(geo[2], shape))
+        tile_plan = plan(p, win, iterate=None if nf == max(p.iterate, 1) else nf)
+        want = (math.prod(n_tiles) * passes * len(tile_plan.groups)
+                * nf // tile_plan.groups[0].sweeps)
+        st = {}
+        cuda.reset_launches()
+        got = host_tile.run_host_tiled(p, ins, ps, tiles=tiles, sweeps_per_pass=nf, stats=st)
+        launched = cuda.launch_counts()
+        ok = (sum(launched.values()) == want and all(
+            np.array_equal(got[k].view(np.uint8), whole[k].view(np.uint8)) for k in whole))
+        log(f"host-tiling gate {n} {shape} ({', '.join(str(p.tensors[k].type) for k in whole)}): "
+            f"{'x'.join(map(str, n_tiles))} tiles of {'x'.join(map(str, tiles))} (+halo -> "
+            f"{'x'.join(map(str, win))}), {passes} pass(es) x {nf} sweep(s); launches "
+            f"{launched} ({want} wanted); {'bit for bit' if ok else 'MISMATCH'} against "
+            f"the whole-grid run on the whole grid; "
+            f"{sum(st['pass_seconds']) / passes:.3f} s a pass; card {card}")
+        if not ok:
+            log(f"FAILED host-tiling gate: {n} {shape} {tiles}")
+            return 1
+        del ins, whole, got
+    # over a mesh of the visible cards (round robin): at one sweep an exchange
+    # bit for bit on the whole grid, at the automatic cadence outside the rim
+    n, shape, msizes, budget = HOST_TILED_MESH
+    p = allp[n]
+    tiles, n_tiles, nf, passes = (tiled_mesh_geo[0], tiled_mesh_geo[3],
+                                  tiled_mesh_geo[4], tiled_mesh_geo[5])
+    x = torch.randn(shape, generator=gen, device=dev)
+    whole = cuda.run(p, {"t0": x}, {})["t1"].cpu().numpy()
+    x_host = {"t0": x.cpu().numpy()}
+    del x
+    for cadence in (1, None):
+        st = {}
+        cuda.reset_launches()
+        got = host_tile.run_host_tiled(p, x_host, tiles=tiles, mesh=tiled_mesh,
+                                       sweeps_per_exchange=cadence, stats=st)["t1"]
+        launched = cuda.launch_counts()
+        rim = 0 if cadence == 1 else p.valid_rim()
+        inner = tuple(slice(rim, d - rim) for d in shape)
+        same = np.array_equal(got[inner].view(np.uint32), whole[inner].view(np.uint32))
+        ok = (same and st["mesh_exchange_bytes"] > 0 and math.prod(n_tiles) >= HOST_TILED_MESH_TILES
+              and sum(launched.values()) == st["mesh_group_calls"] > 0)
+        log(f"host tiled over a mesh {n} {shape} x {max(p.iterate, 1)}: "
+            f"{'x'.join(map(str, n_tiles))} tiles of {'x'.join(map(str, tiles))} under "
+            f"{budget} B a device, each over {'x'.join(map(str, msizes))} on "
+            f"{sorted({str(d) for d in tiled_mesh.devices.flat})}, cadence "
+            f"{cadence or 'auto'}, {passes} pass(es) x {nf} sweep(s); launches {launched}, "
+            f"the shards' group calls {st['mesh_group_calls']}; "
+            f"{st['mesh_exchange_bytes']} B exchanged; "
+            f"{'bit for bit' if same else 'MISMATCH'} against the whole grid"
+            f"{f' outside the rim {rim}' if rim else ' on the whole grid'}; "
+            f"{sum(st['pass_seconds']) / passes:.3f} s a pass; card {card}")
+        if not ok:
+            log(f"FAILED host tiling over a mesh: cadence {cadence}")
+            return 1
+        del got
+    del whole, x_host
+    torch.cuda.empty_cache()
 
     mark(15)
 
@@ -1942,6 +2118,32 @@ def main() -> int:
     del fuzz
 
     mark(19)
+
+    # ---- 20. the entry points ------------------------------------------------------
+    fn, args = entry_points.entry()
+    cuda.reset_launches()
+    y = fn(*args)
+    torch.cuda.synchronize()
+    launched = cuda.launch_counts()
+    plain = eager.run(programs["jacobi3d"], {"t0": args[0]}, {}, device=dev)["t1"]
+    err = float((y - plain).abs().max())
+    alone = device_ms(lambda: fn(*args), 20)
+    ok = (launched["linebuffer3d"] == sum(launched.values()) == 1 and err <= KERNEL_TOL
+          and tuple(y.shape) == entry_points.ENTRY_GRID and y.device == dev)
+    log(f"entry: entry() on {y.device}: launches {launched}; max|kernel-plain| "
+        f"{err:.3g} ({'ok' if ok else 'MISMATCH'}); alone {fmt(alone)} ms; card {card}")
+    if not ok:
+        log("FAILED entry check: entry()")
+        return 1
+    del y, plain, fn, args
+    for n_dev in DRYRUN_DEVICES:
+        t0 = time.perf_counter()
+        # raises on any failed check
+        ran = entry_points.dryrun_multichip(n_dev)
+        log(f"entry: dryrun_multichip({n_dev}) passed in {time.perf_counter() - t0:.2f} s: "
+            f"{json.dumps(ran)}")
+
+    mark(20)
     j, b, f = summary["jacobi3d"], summary2[MAIN_2D], summary3[MAIN_SWEEPS]
     for row, name in ((j, "linebuffer3d"), (b, "linebuffer2d"), (f, "sweeps"),
                       (summary4, "windows")):

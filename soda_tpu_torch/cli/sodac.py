@@ -230,9 +230,9 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--link-model", type=str, default=None,
                     metavar="CLASS=GBPS:LAT[,...]",
                     help="calibrate the links that pick the automatic "
-                         "cadence, e.g. 'nvlink=450:5e-6,ib=50:2e-5' (also "
-                         "SODA_LINK_MODEL); the defaults are modeled, not "
-                         "measured: see parallel/mesh.py")
+                         "cadence, e.g. 'nvlink=392.9:2.81e-5,ib=50:2e-5' (also "
+                         "SODA_LINK_MODEL); nvlink's default is measured on "
+                         "four H100s, ib's the data sheet's: see parallel/mesh.py")
     ap.add_argument("--unroll-iterate", type=int, nargs="?", const=0,
                     default=None, metavar="N",
                     help="unroll N sweeps into chained stage copies (no N: "

@@ -310,7 +310,8 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
     `in_flight` tiles share the card (2: tile k+1's copies overlap tile
     k's kernels; 1: one tile at a time).  `stats`, if given, receives the
     geometry, the wall seconds of each pass, and the bytes copied to and
-    from the card (and, with a mesh, between its shards).
+    from the card (and, with a mesh, between its shards, and the shards'
+    group calls: on cards, their kernel launches).
 
     With `mesh` (`parallel/mesh.py::Mesh`) each tile runs sharded over it
     along `mesh_dims`, with the mesh's cadence, local backend, overlap and
@@ -395,13 +396,20 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
               "n_tiles": n_tiles, "sweeps_per_pass": nf, "passes": passes,
               "read_amplification": overhead, "in_flight": slots,
               "pass_seconds": [], "h2d_bytes": 0, "d2h_bytes": 0,
-              "mesh_exchange_bytes": 0}
+              "mesh_exchange_bytes": 0, "mesh_group_calls": 0}
 
     def run_tile(values, bufs):
         if mesh is None:
             return fn(values, pars, bufs=bufs)
+        # runs under the compute stream, which waited for the tile's upload:
+        # the scatter to a shard on another card is torch's peer copy,
+        # issued on this card's current stream (the compute stream) after a
+        # wait for the receiver's, and the receiver's stream then waits for
+        # it; the gather comes back the same way, before `computed` is
+        # recorded
         outs = fn(values, pars)
         record["mesh_exchange_bytes"] += fn.stats["exchange_bytes"]
+        record["mesh_group_calls"] += fn.stats["group_calls"]
         return outs
 
     in0, out0 = program.input_names[0], program.output_names[0]

@@ -165,18 +165,24 @@ def halo_exchange(shards: Sequence[torch.Tensor], dim: int, lo: int,
 
 
 # ---- link model --------------------------------------------------------
-# Modelled link constants per class: (GB/s each way for one device, s of
-# latency an exchange).  One card cannot calibrate them; only their ratio to
-# the card's arithmetic rate picks a cadence.
-# - "nvlink", between the cards of one host: NVLink 4 of the H100 SXM, 450
-#   GB/s each way (NVIDIA's H100 data sheet: 900 GB/s in all); the 5 us
-#   latency (a peer copy's launch and completion) is an assumption.
+# Link constants per class: (GB/s each way for one device, s of latency an
+# exchange).  Only their ratio to the card's arithmetic rate picks a cadence.
+# - "nvlink", between the cards of one host: measured by
+#   `scripts/torch_mesh_cards.py` on four NVIDIA H100 80GB HBM3 at a
+#   700.00 W power limit (`nvidia-smi --query-gpu=name,power.limit`): the
+#   median over the 12 ordered pairs of a 1 GiB peer `copy_`, 392.9 GB/s
+#   (386.4-394.6; the data sheet's 450), and of a 4 KiB one by the host
+#   clock around both cards' synchronisation, 28.1 us (24.9-37.2): what one
+#   exchange costs the single controller.  A second run read 390.6 GB/s
+#   and 31.9 us; both pick the same cadences for heat3d 512^3 and jacobi2d
+#   16384^2.
 # - "ib", between hosts: NDR InfiniBand, 400 Gb/s = 50 GB/s a card (one
-#   adapter a card); the 20 us latency is an assumption.
-# Calibrate with `sodac --link-model 'nvlink=450:5e-6,ib=50:2e-5'`, the
+#   adapter a card), the data sheet's figure; the 20 us latency is an
+#   assumption.  Not measured: no machine here spans two hosts.
+# Calibrate with `sodac --link-model 'nvlink=392.9:2.81e-5,ib=50:2e-5'`, the
 # SODA_LINK_MODEL variable (same syntax) or set_link_model().
 LINK_MODEL = {
-    "nvlink": (450.0, 5e-6),
+    "nvlink": (392.9, 2.81e-5),
     "ib": (50.0, 20e-6),
 }
 FAST_LINK, SLOW_LINK = "nvlink", "ib"
@@ -196,7 +202,7 @@ def set_link_model(spec: str) -> None:
         except ValueError as e:
             raise ValueError(
                 f"bad --link-model entry {part!r}: expected "
-                f"class=GBps:latency_s (e.g. nvlink=450:5e-6)") from e
+                f"class=GBps:latency_s (e.g. nvlink=392.9:2.81e-5)") from e
 
 
 _env_spec = os.environ.get("SODA_LINK_MODEL")

@@ -2,8 +2,9 @@
 `iterate` cascades (`backend/sweeps.py`) and the windows kernel
 (`backend/windows.py`, kernel 4) on the card against their plain version,
 and the cascades and the windows kernel against the line-buffer kernels;
-host tiling and the mesh (`parallel/mesh.py`, shards on one card) against
-the whole-grid kernels.
+host tiling and the mesh (`parallel/mesh.py`, shards on one card), apart
+and together, against the whole-grid kernels; the entry points
+(`entry.py`) on the card.
 
 Marked `gpu`; each test asks the `cuda_device` fixture for a card and skips
 without one.  This file imports neither jax nor soda_tpu's TPU backends, so
@@ -299,6 +300,55 @@ def test_host_tiled_on_the_card(cuda_device, name, grid, tiles, nf, in_flight):
         assert np.array_equal(got[k].view(np.uint8), whole[k].view(np.uint8)), k
     cpu = run_host_tiled(p, ins, ps, tiles=tiles, sweeps_per_pass=nf, device="cpu")
     assert compare_outputs(p, got, cpu, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cadence", [1, None])
+def test_host_tiled_over_a_mesh_on_the_card(cuda_device, cadence):
+    """Host tiling with each tile sharded over four shards of the card: the
+    kernel launches equal the shards' group calls; bit for bit against the
+    whole-grid kernels on the whole grid at one sweep an exchange, outside
+    `valid_rim()` at the automatic cadence; and against the same tiles over
+    CPU shards (`compare_outputs`)."""
+    from soda_tpu_torch.parallel import mesh
+    from soda_tpu_torch.parallel.host_tile import run_host_tiled
+
+    p = _program("jacobi2d")
+    grid, tiles = (300, 520), (64, 0)
+    ins, ps = rand_inputs(p, grid, np.random.default_rng(95))
+    stats = {}
+    before = _launches()
+    got = run_host_tiled(p, ins, ps, tiles=tiles, sweeps_per_exchange=cadence, stats=stats,
+                         mesh=mesh.make_mesh([2, 2], devices=[cuda_device] * 4))
+    assert _launches() - before == stats["mesh_group_calls"] > 0
+    assert stats["mesh_exchange_bytes"] > 0 and np.prod(stats["n_tiles"]) > 1
+    whole = to_numpy(p, cuda.run(p, ins, ps, device=cuda_device))
+    rim = 0 if cadence == 1 else p.valid_rim()
+    inner = tuple(slice(rim, g - rim) for g in grid)
+    for k in whole:
+        assert np.array_equal(got[k][inner].view(np.uint8), whole[k][inner].view(np.uint8)), k
+    cpu = run_host_tiled(p, ins, ps, tiles=tiles, sweeps_per_exchange=cadence,
+                         mesh=mesh.make_mesh([2, 2], devices=["cpu"] * 4))
+    assert compare_outputs(p, got, cpu, 0)
+
+
+@pytest.mark.gpu
+def test_entry_points_on_the_card(cuda_device):
+    """`entry()` runs its sweep through kernel 1 on the card, within 1e-4
+    of the plain version; `dryrun_multichip(4)` passes its own checks with
+    its shards on the visible cards, every group call a launch."""
+    from soda_tpu_torch import entry
+
+    fn, (x,) = entry.entry()
+    assert x.device.type == "cuda"
+    before = linebuffer.LAUNCHES
+    got = fn(x)
+    torch.cuda.synchronize()
+    assert linebuffer.LAUNCHES - before == 1
+    plain = eager.run(_program("jacobi3d"), {"t0": x}, {}, device=x.device)["t1"]
+    assert float((got - plain).abs().max()) <= 1e-4
+    for r in entry.dryrun_multichip(4).values():
+        assert sum(r["launches"].values()) == r["group_calls"] > 0
 
 
 @pytest.mark.gpu

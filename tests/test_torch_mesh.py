@@ -249,12 +249,13 @@ def test_choose_exchange_cadence_where_the_links_decide_and_at_the_defaults():
         mesh.LINK_MODEL.update(saved)
         ref_mesh.LINK_MODEL.update(ref_saved)
     # the defaults, by design apart: on heat3d 512^3 the port's fast axis
-    # exchanges 8 sweeps apart, the TPU model's 2 (the H100's halo recompute
-    # is cheap beside a 5 us NVLink exchange; the v5e's ICI takes 2 us)
+    # exchanges 16 sweeps apart, the TPU model's 2 (the H100's halo
+    # recompute is cheap beside a 28 us NVLink exchange, measured by
+    # scripts/torch_mesh_cards.py; the v5e's ICI takes 2 us)
     h, rh = PROGRAMS["heat3d"], REF["heat3d"]
     got = mesh.choose_exchange_cadence(h, (512,) * 3, pm, (0, 1), 16, PORT_LINKS)
     want = ref_mesh.choose_exchange_cadence(rh, (512,) * 3, rm, (0, 1), 16, REF_LINKS)
-    assert got == {"dcn": 16, "x": 8} and want == {"dcn": 16, "x": 2}
+    assert got == {"dcn": 16, "x": 16} and want == {"dcn": 16, "x": 2}
 
 
 def test_link_model_hook_and_its_error_text():

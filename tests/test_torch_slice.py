@@ -208,7 +208,8 @@ def test_port_imports_neither_jax_nor_lark_nor_the_tpu_backends():
     jax, lark or soda_tpu: any module whose first name is one of them."""
     files = [*(ROOT / "soda_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
              *(ROOT / "scripts").glob("torch_*.py")]
-    assert {"torch_fuzz_wide.py", "torch_fuzz_mesh.py"} <= {f.name for f in files}
+    assert {"torch_fuzz_wide.py", "torch_fuzz_mesh.py", "torch_mesh_cards.py",
+            "entry.py"} <= {f.name for f in files}
     for f in files:
         for m in _imports(f):
             assert m.split(".")[0] not in ("jax", "lark", "soda_tpu"), (
