@@ -139,7 +139,9 @@ Phases (any failure exits nonzero):
 16. the CLI on the card with no --device: `--tcse --report --dump-plan
    --run` on gauss5x5, `--host-tile auto --hbm-budget 8 MiB
    --host-tile-sweeps auto --run` on jacobi2d 2048^2, and `--benchmark`
-   on jacobi3d 512^3 (CUDA events, beside phase 4's figure);
+   on jacobi3d 512^3 (CUDA events, beside phase 4's figure); then
+   `--host-tile 512,0 --mesh 2,2 --device cuda:0 --run` on jacobi2d
+   1024^2 x 8 (`CLI_HOST_TILED_MESH`: every tile's shards on card 0);
 17. the mesh on the card (`parallel/mesh.py`), every shard on cuda:0: the
    on-card copy rate of a 1 GiB copy; then (`MESH_ROWS`) a. jacobi3d
    512^3 (kernel 1) on a 2x2 mesh, synchronous and overlapped, each bit for
@@ -152,7 +154,16 @@ Phases (any failure exits nonzero):
    padded to shard, bit for bit; each run's kernel launches must equal the
    group calls its shards made, and each prints ms a call by CUDA events
    beside the whole-grid `build_fn` in turns (whole, mesh, whole), the
-   bytes exchanged a call, and the shards' plans; f. `sodac jacobi3d.soda
+   bytes exchanged a call, and the shards' plans; every run also takes
+   its grid resident (`parallel/sharded.py`: `shard_grid` in, a
+   `ShardedGrid` out), with launches equal to its group calls, 0 bytes
+   scattered and gathered, the gathered output bit for bit against the
+   gathered call, and two chained calls bit for bit against `run_sharded`
+   at twice the sweeps and one sweep an exchange (outside the rim where
+   the run's cadence is deeper), the first output unchanged by the second
+   call; a loop of chained calls timed by events in the same turns
+   (whole, gathered, resident, whole) with the host's enqueue
+   (`mesh ... resident` lines); f. `sodac jacobi3d.soda
    --grid-shape 512,512,512 --mesh 2,2 --device cuda:0 --run` exits 0;
 18. wide integers (`wide_phase`): the uint64 programs of `U64_SOURCES`
    at size with inputs over the whole range [0, 2^64), each through its
@@ -272,6 +283,9 @@ TCSE_MAIN = ("gauss5x5", (16384, 16384))
 HOST_TILED = (("jacobi3d", (1024, 1024, 1024), 1, 2 * 2**30),
               ("jacobi2d", (32768, 32768), "auto", 2 * 2**30))
 CLI_HOST_TILED = ("jacobi2d", (2048, 2048), 8 * 2**20)
+# `sodac --host-tile ... --mesh 2,2 --device cuda:0 --run` (phase 16): every
+# tile's shards on card 0, through `shard_grid` and `gather_grid`
+CLI_HOST_TILED_MESH = ("jacobi2d", (1024, 1024), (512, 0), "2,2")
 # host tiling's gate of `scripts/tpu_check.py:111-116` (phase 15): (program,
 # grid, tiles, sweeps a pass); "auto" chooses both under HOST_TILE_GATE_BUDGET
 HOST_TILE_GATE = (("jacobi3d", (512, 512, 512), (256, 256, 512), None),
@@ -849,6 +863,7 @@ def main() -> int:
     from soda_tpu_torch.ir.types import UnsupportedTypeError
     from soda_tpu_torch.optimize import tcse
     from soda_tpu_torch.parallel import host_tile, mesh
+    from soda_tpu_torch.parallel.sharded import gather_grid, shard_grid
     from soda_tpu_torch.plan.planner import fused_depths, plan
     from soda_tpu_torch.utils import report
     from soda_tpu_torch.utils.testing import (CORPUS, INT3D_SOURCES,
@@ -1007,7 +1022,23 @@ def main() -> int:
                 sweeps_per_exchange=cadence, overlap=overlap)
             for pl in fn.local_plans().values():
                 add_plan(allp[n], pl)
+        # two resident calls are held against run_sharded at twice the
+        # sweeps, one sweep an exchange
+        it = max(allp[n].iterate, 1)
+        for pl in mesh.build_sharded_fn(allp[n], on_card, grid_shape=shape, dims=dims,
+                                        iterate=2 * it, sweeps_per_exchange=1
+                                        ).local_plans().values():
+            add_plan(allp[n], pl)
         add_jobs(allp[n], shape)
+    # the CLI's host tiles over a mesh of cuda:0 (phase 16): the shards of a tile
+    n, shape, tiles, spec = CLI_HOST_TILED_MESH
+    geo = host_tile.plan_host_tiling(allp[n], shape, tiles)
+    sizes, names, links = sodac._parse_mesh(spec)
+    for pl in mesh.build_sharded_fn(
+            allp[n], mesh.make_mesh(sizes, names, [dev] * math.prod(sizes)),
+            grid_shape=tuple(min(e, d) for e, d in zip(geo[2], shape)), iterate=geo[4],
+            link_classes=links).local_plans().values():
+        add_plan(allp[n], pl)
     gauss_cli = rewritten["gauss5x5"]
     add_jobs(gauss_cli, sodac._grid_shape(gauss_cli, sodac.make_parser().parse_args(
         [str(CORPUS / "gauss5x5.soda")])))
@@ -2007,7 +2038,11 @@ def main() -> int:
             ([f"{n}.soda", "--grid-shape", ",".join(map(str, shape)), "--host-tile",
               "auto", "--hbm-budget", str(budget), "--host-tile-sweeps", "auto",
               "--run"], False),
-            (["jacobi3d.soda", "--grid-shape", "512,512,512", "--benchmark"], True))
+            (["jacobi3d.soda", "--grid-shape", "512,512,512", "--benchmark"], True),
+            ([f"{CLI_HOST_TILED_MESH[0]}.soda", "--grid-shape",
+              ",".join(map(str, CLI_HOST_TILED_MESH[1])), "--host-tile",
+              ",".join(map(str, CLI_HOST_TILED_MESH[2])), "--mesh", CLI_HOST_TILED_MESH[3],
+              "--device", "cuda:0", "--run"], False))
     for argv, show in runs:
         buf = io.StringIO()
         cuda.reset_launches()
@@ -2054,13 +2089,51 @@ def main() -> int:
             ok = launched == calls > 0 and bitwise_equal(
                 {k: v[inner].contiguous() for k, v in got.items()},
                 {k: whole[k][inner].contiguous() for k in got})
+            # the resident call: ShardedGrids in and out, nothing scattered
+            # or gathered; then two of them chained
+            grids = {k: shard_grid(v, fn.mesh, fn.dims) for k, v in ins.items()}
+            cuda.reset_launches()
+            res = fn(grids, {})
+            torch.cuda.synchronize()
+            res_launched = sum(cuda.launch_counts().values())
+            res_calls = fn.stats["group_calls"]
+            moved = fn.stats["scatter_bytes"] + fn.stats["gather_bytes"]
+            first = {k: gather_grid(v, dev) for k, v in res.items()}
+            res_same = bitwise_equal(first, got)
+            it = max(p.iterate, 1)
+            twice = fn({**grids, p.input_names[0]: res[p.output_names[0]]}, {})
+            # the next call leaves the grid it was given as it was
+            res_kept = bitwise_equal({k: gather_grid(v, dev) for k, v in res.items()}, first)
+            chained = {k: gather_grid(v, dev) for k, v in twice.items()}
+            along = mesh.run_sharded(p, ins, {}, mesh=fn.mesh, dims=dims, iterate=2 * it,
+                                     sweeps_per_exchange=1)
+            # the same schedule at one sweep an exchange, else the mesh's rim
+            rim2 = 0 if fn.sweeps_per_exchange == 1 else p.valid_rim(2 * it)
+            inner2 = tuple(slice(rim2, d - rim2) for d in shape)
+            chain_same = bitwise_equal({k: v[inner2].contiguous() for k, v in chained.items()},
+                                       {k: along[k][inner2].contiguous() for k in chained})
+            del res, twice, chained, along, first
+            state = [grids]
+
+            def step():
+                # a call of the loop: its output is the next call's input
+                out = fn(state[0], {})
+                state[0] = {**state[0], p.input_names[0]: out[p.output_names[0]]}
+
             ms = events_ms(lambda: fn(ins, {}), MESH_REPS)
+            res_ms = events_ms(step, MESH_REPS)
             whole_ms.append(events_ms(lambda: whole_fn(ins, {}), MESH_REPS))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(MESH_REPS):
                 fn(ins, {})
             host_ms = (time.perf_counter() - t0) * 1e3 / MESH_REPS
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MESH_REPS):
+                step()
+            res_host_ms = (time.perf_counter() - t0) * 1e3 / MESH_REPS
+            del grids, state
             alone = device_ms(lambda: fn(ins, {}), 3, MESH_SLEEPS)
             whole_alone = device_ms(lambda: whole_fn(ins, {}), 3)
             plans = "; ".join(
@@ -2077,7 +2150,21 @@ def main() -> int:
                 f"(events), whole grid {whole_ms[-2]:.4f} / {whole_ms[-1]:.4f}; alone "
                 f"{fmt(alone)}, whole grid alone {fmt(whole_alone)}; the host's enqueue "
                 f"{host_ms:.4f} ms a call; card {card}")
-            if not ok:
+            res_ok = (res_same and res_kept and chain_same and moved == 0
+                      and res_launched == res_calls > 0)
+            log(f"mesh {row} resident {n} {shape} over {'x'.join(map(str, sizes))}, "
+                f"cadence {fn.sweeps_per_exchange}, {'overlap' if overlap else 'sync'}: "
+                f"ShardedGrids in and out; launches {res_launched}/{res_calls}; "
+                f"{'bit for bit' if res_same else 'MISMATCH'} against the gathered call"
+                f"{'' if res_kept else ', OVERWRITTEN by the next call'}; "
+                f"two chained calls {'bit for bit' if chain_same else 'MISMATCH'} against "
+                f"run_sharded at iterate {2 * it}, one sweep an exchange"
+                f"{f' outside the rim {rim2}' if rim2 else ' on the whole grid'}; "
+                f"{moved} B scattered and gathered; {res_ms:.4f} ms a call of the loop (events), "
+                f"gathered {ms:.4f}, whole grid {whole_ms[-2]:.4f} / {whole_ms[-1]:.4f}; the "
+                f"host's enqueue {res_host_ms:.4f} ms a call (gathered {host_ms:.4f}); "
+                f"card {card}")
+            if not (ok and res_ok):
                 log(f"FAILED mesh check: row {row} run {i}")
                 return 1
             got_runs.append(got)

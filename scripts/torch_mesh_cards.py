@@ -29,15 +29,25 @@ thread).  Shard i of a mesh sits on card i mod n (n the cards), as in
    the shards' group calls, bit for bit against the whole grid (outside
    `valid_rim()` where the row says so).
 3. At size: jacobi3d 1024^3 on [2, 2] across the cards beside the whole
-   grid on one card (bit for bit); jacobi2d 16384^2 x 8 on [4] at every
-   cadence (1 bit for bit on the whole grid, the rest outside the rim),
-   the measured fastest beside the mesh's default cadence and
+   grid on one card (bit for bit); the same grid laid out on the cards
+   (`parallel/sharded.py`): `shard_grid` from pinned host memory and from
+   the first card and `gather_grid` to the host and to the first card,
+   s and GB/s, bytes by source, each round trip bit for bit; then
+   resident, `ShardedGrid`s in and out, ten chained calls (ms a call,
+   enqueue) beside the gathered call and the whole grid on one card, bit
+   for bit against ten whole-grid sweeps.  jacobi2d 16384^2 x 8 on [4] at
+   every cadence (1 bit for bit on the whole grid, the rest outside the
+   rim), the measured fastest beside the mesh's default cadence and
    `choose_exchange_cadence`'s pick under the data sheet's NVLink and
-   under this run's measured link.
+   under this run's measured link; then resident at the default cadence,
+   ten chained calls, the first bit for bit against the gathered call.
+   `run_sharded` on numpy inputs (jacobi3d 512^3 on [2, 2]): the bytes by
+   source show every shard copied from the host.
 4. Host tiling over the mesh: jacobi3d 1024^3 under 2 GiB a card on [2, 2]
-   across the cards, beside the same grid host-tiled on the first card
-   alone under 2 GiB; each bit for bit against the whole grid computed on
-   one card.
+   across the cards (every tile's shards from the host to their own
+   cards, the bytes by source printed), beside the same grid host-tiled on
+   the first card alone under 2 GiB; each bit for bit against the whole
+   grid computed on one card.
 5. `entry.dryrun_multichip(n)` for n the cards, on its default devices,
    and `sodac jacobi3d.soda --grid-shape 512,512,512 --mesh 2,2 --run`
    with no `--device`.
@@ -68,12 +78,14 @@ LATENCY_BYTES = 4096
 LINK_REPS = 5
 LATENCY_REPS = 100
 REPS = 10
+RESIDENT_CALLS = 10   # chained calls with the grid on the cards
 # NVIDIA's H100 SXM data sheet: 900 GB/s of NVLink 4 in all, 450 each way;
 # the latency is the port's assumption before this script measured one
 NVLINK_DATASHEET = (450.0, 5e-6)
 BIG_3D = ("jacobi3d", (1024, 1024, 1024), (2, 2))
 CADENCE_ROW = ("jacobi2d", (16384, 16384), (4,), (1, 2, 4, 8))
 TILED = ("jacobi3d", (1024, 1024, 1024), (2, 2), 2 * 2**30)
+FROM_HOST = ("jacobi3d", (512, 512, 512), (2, 2))     # run_sharded on numpy inputs
 CLI = ["jacobi3d.soda", "--grid-shape", "512,512,512", "--mesh", "2,2", "--run"]
 
 
@@ -186,6 +198,7 @@ def run(cards: list[int]) -> int:
     from soda_tpu_torch.cli import sodac
     from soda_tpu_torch.frontend.parser import parse_file
     from soda_tpu_torch.parallel import host_tile, mesh
+    from soda_tpu_torch.parallel.sharded import gather_grid, shard_grid
     from soda_tpu_torch.plan.planner import plan
     from soda_tpu_torch.utils.report import card as card_info
     from soda_tpu_torch.utils.testing import CORPUS
@@ -294,7 +307,8 @@ def run(cards: list[int]) -> int:
             f"{'x'.join(map(str, fn.shard_shape))}; launches {launched}/{calls}; "
             f"{'bit for bit' if ok else 'MISMATCH'} against the whole grid"
             f"{'' if exact else f' outside the rim {rim}'}; {fn.stats['exchange_bytes']} B "
-            f"exchanged a call; {ms:.4f} ms a call, enqueue {enq:.4f}; whole grid on "
+            f"exchanged a call, into the shards by source {fn.stats['scatter_from']}, "
+            f"{fn.stats['gather_bytes']} B gathered; {ms:.4f} ms a call, enqueue {enq:.4f}; whole grid on "
             f"cuda:{cards[0]} {w0:.4f} / {w1:.4f}; card {card}")
         if not ok:
             log(f"FAILED mesh row {row} {layout}")
@@ -314,7 +328,7 @@ def run(cards: list[int]) -> int:
     sync(cards)
     launched = sum(cuda.launch_counts().values())
     ok = launched == big_fn.stats["group_calls"] > 0 and bitwise_equal(got, whole)
-    del got, whole
+    del got
     w0 = wall_ms(lambda: whole_fn(x, {}), 5, cards)
     ms = wall_ms(lambda: big_fn(x, {}), 5, cards)
     enq = enqueue_ms(lambda: big_fn(x, {}), 5, cards)
@@ -328,7 +342,87 @@ def run(cards: list[int]) -> int:
     if not ok:
         log(f"FAILED at size {n}")
         return 1
-    del x, whole_fn
+
+    # the grid laid out on the cards, from the host and from the first card,
+    # and back; each twice (the first call pays for pinned host memory)
+    m, dims = big_fn.mesh, big_fn.dims
+    nbytes = x["t0"].numel() * x["t0"].element_size()
+    x_pin = torch.empty(shape, dtype=x["t0"].dtype, pin_memory=True)
+    x_pin.copy_(x["t0"])
+
+    def timed_copy(copy):
+        moved = {}
+        sync(cards)
+        t0 = time.perf_counter()
+        out = copy(moved)
+        sync(cards)
+        return out, time.perf_counter() - t0, moved
+
+    for label, src in (("pinned host memory", x_pin), (f"cuda:{cards[0]}", x["t0"])):
+        for rep in (1, 2):
+            g, sec, moved = timed_copy(lambda st: shard_grid(src, m, dims, stats=st))
+            same = torch.equal(gather_grid(g, dev0).view(torch.int32), x["t0"].view(torch.int32))
+            log(f"layout: shard_grid of {n} {shape} from {label} onto "
+                f"{'x'.join(map(str, sizes))} across {cards}, call {rep}: {sec:.4f} s, "
+                f"{nbytes / sec / 1e9:.1f} GB/s; into the shards by source "
+                f"{moved['scatter_from']}; {'bit for bit' if same else 'MISMATCH'} gathered "
+                f"back; card {card}")
+            if not same:
+                log("FAILED shard_grid")
+                return 1
+    for label, to, want in (("the host", "cpu", x_pin), (f"cuda:{cards[0]}", dev0, x["t0"])):
+        for rep in (1, 2):
+            back, sec, moved = timed_copy(lambda st: gather_grid(g, to, stats=st))
+            same = torch.equal(back.view(torch.int32), want.view(torch.int32))
+            log(f"layout: gather_grid of {n} {shape} from {'x'.join(map(str, sizes))} across "
+                f"{cards} to {label}, call {rep}: {sec:.4f} s, {nbytes / sec / 1e9:.1f} GB/s; "
+                f"{moved['gather_bytes']} B; {'bit for bit' if same else 'MISMATCH'}; "
+                f"card {card}")
+            del back
+            if not same:
+                log("FAILED gather_grid")
+                return 1
+    del g, x_pin
+
+    # resident: ShardedGrids in and out, the grid on the cards between calls
+    g = {"t0": shard_grid(x["t0"], m, dims)}
+    cuda.reset_launches()
+    first = big_fn(g, {})
+    sync(cards)
+    launched = sum(cuda.launch_counts().values())
+    ok = (launched == big_fn.stats["group_calls"] > 0
+          and big_fn.stats["scatter_bytes"] == big_fn.stats["gather_bytes"] == 0
+          and bitwise_equal({"t1": gather_grid(first["t1"], dev0)}, whole))
+    del first
+    want = x["t0"]
+    for _ in range(RESIDENT_CALLS):
+        want = whole_fn({"t0": want}, {})["t1"]
+    sync(cards)
+    t0 = time.perf_counter()
+    for _ in range(RESIDENT_CALLS):
+        g = {"t0": big_fn(g, {})["t1"]}
+    sync(cards)
+    res_ms = (time.perf_counter() - t0) * 1e3 / RESIDENT_CALLS
+    chain_ok = torch.equal(gather_grid(g["t0"], dev0).view(torch.int32), want.view(torch.int32))
+    del want
+    t0 = time.perf_counter()
+    for _ in range(RESIDENT_CALLS):
+        g = {"t0": big_fn(g, {})["t1"]}
+    res_enq = (time.perf_counter() - t0) * 1e3 / RESIDENT_CALLS
+    sync(cards)
+    w2 = wall_ms(lambda: whole_fn(x, {}), 5, cards)
+    log(f"resident {n} {shape} over {'x'.join(map(str, sizes))} across {cards}: ShardedGrids "
+        f"in and out; launches {launched}/{big_fn.stats['group_calls']}; "
+        f"{big_fn.stats['scatter_bytes'] + big_fn.stats['gather_bytes']} B scattered and "
+        f"gathered; the first call {'bit for bit' if ok else 'MISMATCH'} against the whole "
+        f"grid; {RESIDENT_CALLS} chained calls {res_ms:.4f} ms a call, enqueue {res_enq:.4f}, "
+        f"{'bit for bit' if chain_ok else 'MISMATCH'} against {RESIDENT_CALLS} whole-grid "
+        f"sweeps; {big_fn.stats['exchange_bytes']} B exchanged a call; the gathered call "
+        f"{ms:.4f}; whole grid on cuda:{cards[0]} {w0:.4f} / {w1:.4f} / {w2:.4f}; card {card}")
+    if not (ok and chain_ok):
+        log(f"FAILED resident {n}")
+        return 1
+    del g, x, whole, whole_fn
     torch.cuda.empty_cache()
 
     n, shape, sizes, cadences = CADENCE_ROW
@@ -352,6 +446,8 @@ def run(cards: list[int]) -> int:
         enq = enqueue_ms(lambda: fn(x, {}), REPS, cards)
         if c is not None:
             timed[c] = ms
+        else:
+            default_ms = ms
         log(f"cadence {n} {shape} x {it} over {'x'.join(map(str, sizes))} across {cards}: "
             f"asked {c or 'default'}, ran {fn.sweeps_per_exchange}; launches {launched}/"
             f"{fn.stats['group_calls']}; {'bit for bit' if ok else 'MISMATCH'} against the "
@@ -379,8 +475,63 @@ def run(cards: list[int]) -> int:
         f"under the data sheet {NVLINK_DATASHEET} picks {picks['data sheet']}, under the "
         f"measured ({link['gbps']:.1f}, {link['latency_s']:.3g}) picks {picks['measured']}; "
         f"whole grid on cuda:{cards[0]} {w:.4f} ms; card {card}")
-    del x, whole, whole_fn, cad_fns
+    # resident at the default cadence
+    fn = cad_fns[None]
+    gathered = fn(x, {})
+    g = {"t0": shard_grid(x["t0"], fn.mesh, fn.dims)}
+    cuda.reset_launches()
+    first = fn(g, {})
+    sync(cards)
+    launched = sum(cuda.launch_counts().values())
+    ok = (launched == fn.stats["group_calls"] > 0
+          and fn.stats["scatter_bytes"] == fn.stats["gather_bytes"] == 0
+          and bitwise_equal({"t1": gather_grid(first["t1"], dev0)}, gathered))
+    del first, gathered
+    sync(cards)
+    t0 = time.perf_counter()
+    for _ in range(RESIDENT_CALLS):
+        g = {"t0": fn(g, {})["t1"]}
+    sync(cards)
+    res_ms = (time.perf_counter() - t0) * 1e3 / RESIDENT_CALLS
+    t0 = time.perf_counter()
+    for _ in range(RESIDENT_CALLS):
+        g = {"t0": fn(g, {})["t1"]}
+    res_enq = (time.perf_counter() - t0) * 1e3 / RESIDENT_CALLS
+    sync(cards)
+    log(f"resident {n} {shape} x {it} over {'x'.join(map(str, sizes))} across {cards}, "
+        f"cadence {fn.sweeps_per_exchange}: ShardedGrids in and out; launches {launched}/"
+        f"{fn.stats['group_calls']}; the first call {'bit for bit' if ok else 'MISMATCH'} "
+        f"against the gathered call; {RESIDENT_CALLS} chained calls {res_ms:.4f} ms a call, "
+        f"enqueue {res_enq:.4f}; the gathered call {default_ms:.4f}; whole grid on cuda:"
+        f"{cards[0]} {w:.4f}; card {card}")
+    if not ok:
+        log(f"FAILED resident {n}")
+        return 1
+    del g, x, whole, whole_fn, cad_fns
     torch.cuda.empty_cache()
+
+    # run_sharded on numpy inputs: every shard from the host to its own card
+    n, shape, sizes = FROM_HOST
+    p = programs[n]
+    x_host = {"t0": torch.randn(shape, generator=gen, device=dev0).cpu().numpy()}
+    whole = cuda.run(p, x_host, {}, device=dev0)
+    st = {}
+    sync(cards)
+    t0 = time.perf_counter()
+    got = mesh.run_sharded(p, x_host, {}, mesh=mesh.make_mesh(sizes, None, across(
+        math.prod(sizes))), stats=st)
+    sync(cards)
+    sec = time.perf_counter() - t0
+    ok = bitwise_equal(got, whole) and set(st["scatter_from"]) == {"cpu"}
+    log(f"run_sharded {n} {shape} from numpy over {'x'.join(map(str, sizes))} across {cards}: "
+        f"into the shards by source {st['scatter_from']}; {st['gather_bytes']} B gathered "
+        f"onto cuda:{cards[0]}; {st['exchange_bytes']} B exchanged; "
+        f"{'bit for bit' if ok else 'MISMATCH'} against the whole grid; {sec:.3f} s with the "
+        f"host's copies; card {card}")
+    if not ok:
+        log(f"FAILED run_sharded from numpy {n}")
+        return 1
+    del got, whole, x_host
 
     # ---- 4. host tiling over the mesh ----------------------------------------------
     n, shape, sizes, budget = TILED
@@ -405,8 +556,11 @@ def run(cards: list[int]) -> int:
             f"{'x'.join(map(str, tiles))} under {budget} B a device{where}; launches "
             f"{launched}/{calls}; "
             f"{st['mesh_exchange_bytes']} B exchanged; {st['h2d_bytes']} B to the cards "
+            f"(by source {st.get('scatter_from', {'cpu': st['h2d_bytes']})}) "
             f"and {st['d2h_bytes']} back; {'bit for bit' if same else 'MISMATCH'} against "
-            f"the whole grid; {sum(st['pass_seconds']):.3f} s a pass; card {card}")
+            f"the whole grid; {sum(st['pass_seconds']):.3f} s a pass (the host: staging "
+            f"{st['stage_seconds']:.3f}, waiting {st['wait_seconds']:.3f}, stitching "
+            f"{st['stitch_seconds']:.3f}); card {card}")
         if not ok:
             log(f"FAILED host tiling {label}")
             return 1

@@ -700,7 +700,8 @@ def _run_and_verify(program, the_plan, tiling, shape, ins, ps, args, plan_kw) ->
         print(f"host tiling: {st['n_tiles']} tiles, {st['passes']} pass(es), "
               f"{sum(st['pass_seconds']):.3f} s; {st['h2d_bytes']} B to the "
               f"card, {st['d2h_bytes']} B back"
-              + (f"; {st['mesh_exchange_bytes']} B between shards" if mesh_kw else ""))
+              + (f"; {st['mesh_exchange_bytes']} B between shards; into the shards "
+                 f"by source {st['scatter_from']}" if mesh_kw else ""))
     elif args.mesh is not None:
         from ..parallel.mesh import run_sharded
         sizes, _, links = args.mesh
@@ -715,7 +716,8 @@ def _run_and_verify(program, the_plan, tiling, shape, ins, ps, args, plan_kw) ->
               f"{'x'.join(map(str, st['shard_shape']))} on {st['devices']}, "
               f"{st['sweeps_per_exchange']} sweep(s) an exchange; "
               f"{st['exchange_bytes']} B between shards, {st['group_calls']} "
-              f"group calls")
+              f"group calls; into the shards by source {st['scatter_from']}, "
+              f"{st['gather_bytes']} B gathered")
     elif args.backend == "eager":
         outs = to_numpy(program, eager.run(program, ins, ps, device=args.device))
     else:

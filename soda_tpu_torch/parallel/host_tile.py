@@ -11,7 +11,10 @@ bounded by host memory, not by the card's 80 GB.  With a mesh
 (`parallel/mesh.py::build_sharded_fn`): host tiles, then mesh shards, then
 the kernels' tiles, for a grid larger than all the mesh's devices; the
 budget is then per device (`_shard_ext_shape`), and `model_mesh_exchange`
-models the halo bytes a tile's shards exchange.
+models the halo bytes a tile's shards exchange.  A tile's window then goes
+from the host grid straight to every shard's device, and its outputs come
+straight back (`parallel/sharded.py`), each card on a copy stream and a
+compute stream of its own (`_mesh_tiles`).
 
 The geometry is the reference's:
 - halo per tiled dim = the chain creep of one sweep x sweeps per pass,
@@ -296,6 +299,147 @@ def _window(starts, tiles, halos, win, grid_shape):
     return origin, dst, src
 
 
+def _card_tiles(program: StencilProgram, fn, dev, params, win, tiles, slots: int,
+                record: dict):
+    """A tile at a time through `build_fn` on one device: `run(s, windows,
+    src)` starts slot `s`'s tile (the inputs' windows) and returns what the
+    slot holds; `stitch(s, held)` returns the tile's cells (`src` of its
+    window) on the host, once they are there.
+
+    On the card: two pinned staging buffers a slot (the extended tile, its
+    interior), a copy stream and the compute stream, ordered by events;
+    device buffers made once.  On the CPU each tile runs at once."""
+    pars = params_to_torch(program, params, dev)
+    dtypes = {n: torch_dtype(program.tensors[n].type) for n in program.tensors
+              if n in program.input_names or n in program.output_names}
+    on_card = dev.type == "cuda"
+    stage_in = [{n: torch.empty(win, dtype=dtypes[n], pin_memory=on_card)
+                 for n in program.input_names} for _ in range(slots)]
+    if not on_card:
+        def run_cpu(s: int, windows: dict, src):
+            for n, buf in stage_in[s].items():
+                bits(buf).copy_(bits(windows[n]))
+            outs = fn(stage_in[s], pars)
+            return {n: outs[n][src] for n in program.output_names}
+
+        return run_cpu, lambda s, cells: cells
+    dev_in = [{n: torch.empty(win, dtype=dtypes[n], device=dev)
+               for n in program.input_names} for _ in range(slots)]
+    dev_bufs = [fn.alloc(dev) for _ in range(slots)]
+    stage_out = [{n: torch.empty(math.prod(tiles), dtype=dtypes[n], pin_memory=True)
+                  for n in program.output_names} for _ in range(slots)]
+    copy_stream = torch.cuda.Stream(dev)
+    compute_stream = torch.cuda.Stream(dev)
+    # the params were copied to the card on the current stream
+    compute_stream.wait_stream(torch.cuda.current_stream(dev))
+    h2d_done = [torch.cuda.Event() for _ in range(slots)]
+    computed = [torch.cuda.Event() for _ in range(slots)]
+    d2h_done = [torch.cuda.Event() for _ in range(slots)]
+    in_bytes = math.prod(win) * storage_bytes(program, program.input_names)
+    out_cell = storage_bytes(program, program.output_names)
+
+    def run(s: int, windows: dict, src):
+        t0 = time.perf_counter()
+        for n, buf in stage_in[s].items():
+            bits(buf).copy_(bits(windows[n]))
+        record["stage_seconds"] += time.perf_counter() - t0
+        with torch.cuda.stream(copy_stream):
+            for n, buf in stage_in[s].items():
+                bits(dev_in[s][n]).copy_(bits(buf), non_blocking=True)
+            h2d_done[s].record(copy_stream)
+        compute_stream.wait_event(h2d_done[s])
+        with torch.cuda.stream(compute_stream):
+            outs = fn(dev_in[s], pars, bufs=dev_bufs[s])
+            computed[s].record(compute_stream)
+        # the interior goes back on the copy stream once the tile is
+        # computed, into the slot's pinned buffer
+        shape = tuple(sl.stop - sl.start for sl in src)
+        copy_stream.wait_event(computed[s])
+        with torch.cuda.stream(copy_stream):
+            for n, buf in stage_out[s].items():
+                bits(buf)[:math.prod(shape)].view(shape).copy_(
+                    bits(outs[n])[src], non_blocking=True)
+            d2h_done[s].record(copy_stream)
+        record["h2d_bytes"] += in_bytes
+        record["d2h_bytes"] += math.prod(shape) * out_cell
+        return {n: buf[:math.prod(shape)].view(shape) for n, buf in stage_out[s].items()}
+
+    def stitch(s: int, cells: dict) -> dict:
+        t0 = time.perf_counter()
+        d2h_done[s].synchronize()
+        record["wait_seconds"] += time.perf_counter() - t0
+        return cells
+
+    return run, stitch
+
+
+def _mesh_tiles(program: StencilProgram, fn, mesh, params, win, slots: int, record: dict):
+    """A tile at a time sharded over `mesh` (`fn` from `build_sharded_fn`),
+    with `_card_tiles`' interface.  The host copies a tile's window into
+    its slot's pinned window (one a slot for every input and output, made
+    once); `shard_grid` copies that to every shard by its contiguous runs
+    on each card's copy stream; each card's compute stream runs once that
+    card's copies have landed; and `gather_grid(..., "cpu", out=)` brings
+    the outputs back by runs into the slot's pinned windows on the copy
+    streams once each card has computed them.  No byte passes through
+    another card.  On CPU shards each tile runs at once."""
+    from .sharded import gather_grid, on_streams, shard_grid
+
+    cards = sorted({d for d in mesh.devices.flat if d.type == "cuda"}, key=str)
+    copy_streams = {d: torch.cuda.Stream(d) for d in cards}
+    compute_streams = {d: torch.cuda.Stream(d) for d in cards}
+    for d, stream in compute_streams.items():
+        stream.wait_stream(torch.cuda.current_stream(d))
+    h2d_done = [{d: torch.cuda.Event() for d in cards} for _ in range(slots)]
+    computed = [{d: torch.cuda.Event() for d in cards} for _ in range(slots)]
+    dtypes = {n: torch_dtype(program.tensors[n].type)
+              for n in [*program.input_names, *program.output_names]}
+    pinned = [{n: torch.empty(win, dtype=dt, pin_memory=bool(cards))
+               for n, dt in dtypes.items()} for _ in range(slots)]
+    record["scatter_from"] = {}
+
+    def run(s: int, windows: dict, src):
+        moved: dict = {}
+        t0 = time.perf_counter()
+        for n, w in windows.items():
+            bits(pinned[s][n]).copy_(bits(w))
+        with on_streams(copy_streams.values()):
+            grids = {n: shard_grid(pinned[s][n], mesh, fn.dims, stats=moved)
+                     for n in windows}
+            for d, stream in copy_streams.items():
+                h2d_done[s][d].record(stream)
+        record["stage_seconds"] += time.perf_counter() - t0
+        for d, stream in compute_streams.items():
+            stream.wait_event(h2d_done[s][d])
+        with on_streams(compute_streams.values()):
+            outs = fn(grids, params)
+            for d, stream in compute_streams.items():
+                computed[s][d].record(stream)
+        record["mesh_exchange_bytes"] += fn.stats["exchange_bytes"]
+        record["mesh_group_calls"] += fn.stats["group_calls"]
+        if cards:
+            record["h2d_bytes"] += moved["scatter_bytes"]
+        for dev, nbytes in moved["scatter_from"].items():
+            record["scatter_from"][dev] = record["scatter_from"].get(dev, 0) + nbytes
+        return src, grids, outs       # the input shards live until stitched
+
+    def stitch(s: int, held) -> dict:
+        src, _, outs = held
+        for d, stream in copy_streams.items():
+            stream.wait_event(computed[s][d])
+        moved: dict = {}
+        t0 = time.perf_counter()
+        with on_streams(copy_streams.values()):
+            host = {n: gather_grid(g, "cpu", stats=moved, out=pinned[s][n])
+                    for n, g in outs.items()}
+        record["wait_seconds"] += time.perf_counter() - t0
+        if cards:
+            record["d2h_bytes"] += moved.get("gather_bytes", 0)
+        return {n: t[src] for n, t in host.items()}
+
+    return run, stitch
+
+
 def run_host_tiled(program: StencilProgram, inputs, params=None, *,
                    tiles, grid_shape=None, sweeps_per_pass=None,
                    iterate=None, device="cuda", in_flight: int = 2,
@@ -309,15 +453,19 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
 
     `in_flight` tiles share the card (2: tile k+1's copies overlap tile
     k's kernels; 1: one tile at a time).  `stats`, if given, receives the
-    geometry, the wall seconds of each pass, and the bytes copied to and
-    from the card (and, with a mesh, between its shards, and the shards'
+    geometry, the wall seconds of each pass, the host's seconds in all
+    copying windows into pinned staging (`stage_seconds`), waiting for a
+    tile's outputs to reach the host (`wait_seconds`) and copying its cells
+    into the grid (`stitch_seconds`), and the bytes copied to and from the
+    card (and, with a mesh, between its shards, and the shards'
     group calls: on cards, their kernel launches).
 
     With `mesh` (`parallel/mesh.py::Mesh`) each tile runs sharded over it
     along `mesh_dims`, with the mesh's cadence, local backend, overlap and
-    link classes (`mesh.build_sharded_fn`); `device` is then the mesh's
-    first device, where a tile enters the sharded fn and its interior
-    comes back from.  The mesh's contract (`parallel/mesh.py`) then holds:
+    link classes (`mesh.build_sharded_fn`): each shard of a tile's window
+    goes from the host straight to its own device and back
+    (`parallel/sharded.py`), and `stats["scatter_from"]` counts the bytes
+    by source.  The mesh's contract (`parallel/mesh.py`) then holds:
     deeper passes, and a multi-stage program's intermediate stages, differ
     inside `valid_rim()`, where the shards' exchange zero-fills."""
     if mesh is not None:
@@ -360,8 +508,7 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
         raise ValueError(f"{sorted(plan_kwargs)} plan a whole tile; over a mesh "
                          f"every shard is planned for its own shape")
     if mesh is not None:
-        # the sharded fn plans its shards' kernels itself and gathers a
-        # tile's outputs into tensors of its own, kept until stitched
+        # the sharded fn plans its shards' kernels itself
         from .mesh import build_sharded_fn
         fn = build_sharded_fn(
             program, mesh, grid_shape=win, dims=mesh_dims, iterate=nf,
@@ -369,48 +516,21 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
             overlap=overlap, link_classes=link_classes)
     else:
         fn = build_fn(program, grid_shape=win, iterate=it_arg, **plan_kwargs)
-    pars = params_to_torch(program, params, dev)
     on_card = dev.type == "cuda"
     slots = in_flight if on_card else 1
     outs_t = {n: torch_dtype(program.tensors[n].type) for n in program.output_names}
-    stage_in = [{n: torch.empty(win, dtype=a.dtype, pin_memory=on_card)
-                 for n, a in host.items()} for _ in range(slots)]
-    if on_card:
-        dev_in = [{n: torch.empty(win, dtype=a.dtype, device=dev)
-                   for n, a in host.items()} for _ in range(slots)]
-        dev_bufs = [None if mesh is not None else fn.alloc(dev) for _ in range(slots)]
-        stage_out = [{n: torch.empty(math.prod(tiles), dtype=dt, pin_memory=True)
-                      for n, dt in outs_t.items()} for _ in range(slots)]
-        copy_stream = torch.cuda.Stream(dev)
-        compute_stream = torch.cuda.Stream(dev)
-        # the params were copied to the card on the current stream
-        compute_stream.wait_stream(torch.cuda.current_stream(dev))
-        h2d_done = [torch.cuda.Event() for _ in range(slots)]
-        computed = [torch.cuda.Event() for _ in range(slots)]
-        d2h_done = [torch.cuda.Event() for _ in range(slots)]
-    else:
-        dev_in = stage_in
-    in_bytes = math.prod(win) * storage_bytes(program, program.input_names)
-    out_cell = storage_bytes(program, program.output_names)
     record = {"tiles": tuple(tiles), "halos": halos, "ext_shape": win,
               "n_tiles": n_tiles, "sweeps_per_pass": nf, "passes": passes,
               "read_amplification": overhead, "in_flight": slots,
-              "pass_seconds": [], "h2d_bytes": 0, "d2h_bytes": 0,
+              "pass_seconds": [], "stage_seconds": 0.0, "wait_seconds": 0.0,
+              "stitch_seconds": 0.0, "h2d_bytes": 0, "d2h_bytes": 0,
               "mesh_exchange_bytes": 0, "mesh_group_calls": 0}
-
-    def run_tile(values, bufs):
-        if mesh is None:
-            return fn(values, pars, bufs=bufs)
-        # runs under the compute stream, which waited for the tile's upload:
-        # the scatter to a shard on another card is torch's peer copy,
-        # issued on this card's current stream (the compute stream) after a
-        # wait for the receiver's, and the receiver's stream then waits for
-        # it; the gather comes back the same way, before `computed` is
-        # recorded
-        outs = fn(values, pars)
-        record["mesh_exchange_bytes"] += fn.stats["exchange_bytes"]
-        record["mesh_group_calls"] += fn.stats["group_calls"]
-        return outs
+    if mesh is not None:
+        run_tile, stitch_tile = _mesh_tiles(program, fn, mesh, params, win, slots,
+                                            record)
+    else:
+        run_tile, stitch_tile = _card_tiles(program, fn, dev, params, win, tiles,
+                                            slots, record)
 
     in0, out0 = program.input_names[0], program.output_names[0]
     values = host
@@ -418,15 +538,17 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
     for _ in range(passes):
         t0 = time.perf_counter()
         host_out = {n: torch.empty(grid_shape, dtype=dt) for n, dt in outs_t.items()}
-        pending: list = [None] * slots   # per slot: (dst, cells' shape, outputs)
+        pending: list = [None] * slots   # per slot: (dst, what the tile holds)
 
         def stitch(s: int) -> None:
-            # the slot's copy to the host has landed: its interior goes
-            # into the grid, and the slot's buffers may be reused
-            dst, shape, _ = pending[s]
-            d2h_done[s].synchronize()
-            for n, buf in stage_out[s].items():
-                bits(host_out[n])[dst].copy_(bits(buf)[:math.prod(shape)].view(shape))
+            # the slot's cells reach the host, go into the grid, and the
+            # slot's buffers may be reused
+            dst, held = pending[s]
+            cells = stitch_tile(s, held)
+            t0 = time.perf_counter()
+            for n, t in cells.items():
+                bits(host_out[n])[dst].copy_(bits(t))
+            record["stitch_seconds"] += time.perf_counter() - t0
             pending[s] = None
 
         for k, idx in enumerate(itertools.product(*(range(m) for m in n_tiles))):
@@ -434,37 +556,14 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
             starts = tuple(i * t for i, t in zip(idx, tiles))
             origin, dst, src = _window(starts, tiles, halos, win, grid_shape)
             window = tuple(slice(o, o + w) for o, w in zip(origin, win))
-            if on_card and pending[s] is not None:
+            if pending[s] is not None:
                 stitch(s)
-            for n, buf in stage_in[s].items():
-                bits(buf).copy_(bits(values[n])[window])
+            pending[s] = (dst, run_tile(s, {n: values[n][window] for n in host}, src))
             if not on_card:
-                outs = run_tile(dev_in[s], None)
-                for n in outs_t:
-                    bits(host_out[n])[dst].copy_(bits(outs[n])[src])
-                continue
-            with torch.cuda.stream(copy_stream):
-                for n, buf in stage_in[s].items():
-                    bits(dev_in[s][n]).copy_(bits(buf), non_blocking=True)
-                h2d_done[s].record(copy_stream)
-            compute_stream.wait_event(h2d_done[s])
-            with torch.cuda.stream(compute_stream):
-                outs = run_tile(dev_in[s], dev_bufs[s])
-                computed[s].record(compute_stream)
-            copy_stream.wait_event(computed[s])
-            shape = tuple(sl.stop - sl.start for sl in dst)
-            with torch.cuda.stream(copy_stream):
-                for n, buf in stage_out[s].items():
-                    bits(buf)[:math.prod(shape)].view(shape).copy_(
-                        bits(outs[n])[src], non_blocking=True)
-                d2h_done[s].record(copy_stream)
-            pending[s] = (dst, shape, outs)
-            record["h2d_bytes"] += in_bytes
-            record["d2h_bytes"] += math.prod(shape) * out_cell
-        if on_card:
-            for s in range(slots):
-                if pending[s] is not None:
-                    stitch(s)
+                stitch(s)
+        for s in range(slots):
+            if pending[s] is not None:
+                stitch(s)
         record["pass_seconds"].append(time.perf_counter() - t0)
         if passes > 1:
             values = dict(host)

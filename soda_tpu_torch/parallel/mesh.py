@@ -27,6 +27,12 @@ the plain PyTorch sweeps (`"eager"`), the counterpart of the reference's
 the extended shards, are allocated at the first call and reused by every
 later call.
 
+A sharded fn takes and returns `ShardedGrid`s (`parallel/sharded.py`),
+the reference's arrays laid out by its tensor spec: a loop of calls keeps
+the grid on the mesh and moves only halos, as the reference's jitted
+`shard_map` step does.  Whole-grid tensors are scattered to the shards
+and the outputs gathered onto the first device.
+
 Uneven grids pad to shard: each sharded dim is zero-padded up to a
 multiple of its mesh axis, the pad rows of every output are re-zeroed
 after every chunk (so an exchange carries zeros from them, the zero-fill
@@ -46,7 +52,7 @@ refuses them (`ir/dtypes.py::check_kernel_types`).
 
 from __future__ import annotations
 
-import contextlib
+import dataclasses
 import itertools
 import math
 import os
@@ -62,6 +68,9 @@ from ..ir.program import StencilProgram
 from ..utils.device import resolve
 from ..utils.opcount import H100_SXM_PEAK_TFLOPS, ops_per_cell
 from .host_tile import check_mesh_dims, storage_bytes
+from .sharded import (ShardedGrid, copy_padded, describe_layout, gather_grid,
+                      narrow, padded_shard_shape, positions as mesh_positions,
+                      on_streams, region, same_mesh, shard_grid)
 
 
 class Mesh:
@@ -290,26 +299,9 @@ def _eager_fn(program: StencilProgram, n: int):
     return fn
 
 
-def _narrow(x: torch.Tensor, spans: Mapping[int, tuple[int, int]]) -> torch.Tensor:
-    for d, (start, size) in spans.items():
-        x = x.narrow(d, start, size)
-    return x
-
-
 def _copy(dst: torch.Tensor, src: torch.Tensor) -> None:
     """dst[...] = src (uint64 through the int64 views)."""
     bits(dst).copy_(bits(src))
-
-
-def _copy_padded(dst: torch.Tensor, src: torch.Tensor) -> None:
-    """dst[:src.shape] = src, zeros in the rest of dst (src may be empty)."""
-    dst, src = bits(dst), bits(src)
-    if tuple(src.shape) != tuple(dst.shape):
-        dst.zero_()
-        if src.numel() == 0:
-            return
-        dst = _narrow(dst, {d: (0, s) for d, s in enumerate(src.shape)})
-    dst.copy_(src)
 
 
 def build_sharded_fn(
@@ -326,10 +318,20 @@ def build_sharded_fn(
 ):
     """fn(inputs, params) -> outputs for `grid_shape`, sharded over `mesh`.
 
-    Inputs are whole-grid tensors in their declared dtypes on any device,
-    params tensors; fn scatters the inputs to the shards, runs, and
-    gathers the outputs onto the mesh's first device.  `dims[k]` is the
-    grid dim that mesh axis k shards (default: the leading dims).
+    Inputs are either all `ShardedGrid`s laid out for this fn
+    (`shard_grid(x, mesh, fn.dims)`, or an earlier call's outputs): fn
+    reads each shard on its own device and returns a `ShardedGrid` per
+    output, scattering and gathering nothing, the reference's jitted
+    `shard_map` step; or all whole-grid tensors in their declared dtypes on
+    any device: fn scatters them to the shards, runs, and gathers the
+    outputs onto the mesh's first device.  No later call writes a
+    returned grid's shards, and their pad rows hold zero; on the uniform
+    synchronous schedule each is the centre of a buffer of its own whose
+    halo rows the next call refills in place, elsewhere a copy.  A
+    `ShardedGrid` of another mesh, other dims or another grid is refused
+    with a ValueError naming both layouts.  Params are tensors or numpy
+    arrays.  `dims[k]` is the grid dim that mesh axis k shards (default:
+    the leading dims; `fn.dims`, beside `fn.mesh`).
 
     The cadence: an int (every axis exchanges every that many sweeps), a
     mapping of axis name to sweeps (a nested schedule, slowest axis
@@ -345,9 +347,12 @@ def build_sharded_fn(
     bit for bit; halos wider than one shard and nested cadences take the
     synchronous chunk.
 
-    `fn.stats` holds the last call's `exchange_bytes` (copied between
-    shards) and `group_calls` (calls of a group's kernel, or of its plain
-    version on CPU shards)."""
+    `fn.stats` holds the last call's `scatter_bytes` (whole inputs into
+    the shards) with `scatter_from` (the same by source device),
+    `gather_bytes` (the shards' outputs onto the first device), both 0 for
+    `ShardedGrid`s, `exchange_bytes` (copied between shards) and
+    `group_calls` (calls of a group's kernel, or of its plain version on
+    CPU shards)."""
     check_kernel_types(program)
     if local_backend not in ("cuda", "eager"):
         raise ValueError(f"local_backend is 'cuda' or 'eager', not {local_backend!r}")
@@ -389,17 +394,15 @@ def build_sharded_fn(
     # pad to shard; the automatic cadence prefers halos within one shard (an
     # explicit one is honoured: wider halos gather from k-hop neighbours)
     creep = program.chain_creep()
-    shard = list(grid_shape)
+    shard = padded_shard_shape(grid_shape, msize, dims)
     pads: dict[int, int] = {}      # mesh axis -> rows of the real grid
     for a, (m, d) in enumerate(zip(msize, dims)):
-        shard[d] = -(-grid_shape[d] // m)
         if shard[d] * m != grid_shape[d]:
             pads[a] = grid_shape[d]
         r = max(-creep[d][0], creep[d][1])
         if sweeps_per_exchange is None and cad is None:
             while nf > 1 and (nf * r > shard[d] or it % nf != 0):
                 nf -= 1
-    shard = tuple(shard)
 
     # the schedule: levels of (mesh axes, sweeps per exchange), outermost
     # first; one level for a uniform cadence, one per axis, slowest first,
@@ -444,10 +447,11 @@ def build_sharded_fn(
              for key in keys}
 
     in0, out0 = program.input_names[0], program.output_names[0]
-    positions = list(itertools.product(*(range(m) for m in msize)))
+    positions = mesh_positions(msize)
     device_of = {idx: mesh.devices[idx] for idx in positions}
     buffers: dict = {}
-    stats = {"exchange_bytes": 0, "group_calls": 0}
+    stats = {"scatter_bytes": 0, "scatter_from": {}, "gather_bytes": 0,
+             "exchange_bytes": 0, "group_calls": 0}
 
     def call(f, n: int, values: dict, params: dict, bufs) -> dict:
         if f.plan is not None:
@@ -464,7 +468,7 @@ def build_sharded_fn(
 
     def centre(x: torch.Tensor, level: int) -> torch.Tensor:
         axes, k = levels[level]
-        return _narrow(x, {dims[a]: (halo(a, k)[0], shard[dims[a]]) for a in axes})
+        return narrow(x, {dims[a]: (halo(a, k)[0], shard[dims[a]]) for a in axes})
 
     def exchange(level: int, ext: dict, names) -> None:
         """Fill the halos of level `level`'s axes in `ext[idx][name]`
@@ -482,7 +486,7 @@ def build_sharded_fn(
                 line = [rest[:a] + (i,) + rest[a + 1:] for i in range(msize[a])]
                 for name in names:
                     stats["exchange_bytes"] += _exchange(
-                        [_narrow(ext[idx][name], later) for idx in line],
+                        [narrow(ext[idx][name], later) for idx in line],
                         dims[a], lo, hi)
 
     def mask_pads(outs: dict, level: int) -> None:
@@ -498,11 +502,29 @@ def build_sharded_fn(
                     for v in vals.values():
                         bits(v).narrow(d, valid, shard[d] - valid).zero_()
 
-    def run_level(level: int, source, sweeps: int, pars: dict) -> dict:
+    # where a shard sits in its level-0 extended buffer
+    room_strides = torch.empty(ext_shapes[0], device="meta").stride()
+    room_offset = sum(halo(a, levels[0][1])[0] * room_strides[dims[a]]
+                      for a in range(len(msize)))
+
+    def room(t: torch.Tensor):
+        """The level-0 extended buffer around `t` when `t` is its centre, as
+        the shards of a grid this fn returned are (their halo rows are free
+        to refill), else None."""
+        if (t.stride() == room_strides and t.storage_offset() == room_offset
+                and t.untyped_storage().nbytes()
+                == math.prod(ext_shapes[0]) * t.element_size()):
+            return t.as_strided(ext_shapes[0], room_strides, 0)
+        return None
+
+    def run_level(level: int, source, sweeps: int, pars: dict, fresh: bool = False) -> dict:
         """`sweeps` sweeps of every shard at this level: every `k` of them
         an exchange along the level's axes, then the next level (or the
         local evaluation) on the extended arrays, whose centres are kept.
-        `source(idx, name)` gives the level's input arrays."""
+        `source(idx, name)` gives the level's input arrays.  `fresh` (one
+        level only): an input that is the centre of an extended buffer
+        (`room`) is exchanged in place, and the last chunk's outputs go to
+        buffers of their own, whose centres are returned."""
         axes, k = levels[level]
         shape = ext_shapes[level]
         inner = level + 1 == len(levels)
@@ -514,18 +536,24 @@ def build_sharded_fn(
                 [{idx: alloc(f, idx) for idx in positions} for _ in range(2)]
                 if inner else None)
         ext, out_bufs = buffers[level]
-        outs, full = None, None
+        outs, full, first = None, None, None
         for j in range(sweeps // k):
             if j == 0:
+                first = {idx: {} for idx in positions}
                 for idx in positions:
                     for n in program.input_names:
-                        _copy_padded(centre(ext[idx][n], level), source(idx, n))
-                exchange(level, ext, program.input_names)
-                ins = ext
+                        x = source(idx, n)
+                        base = room(x) if fresh else None
+                        if base is None:
+                            base = ext[idx][n]
+                            copy_padded(centre(base, level), x)
+                        first[idx][n] = base
+                exchange(level, first, program.input_names)
+                ins = first
             elif inner:
                 # the last call's first output holds the new centres: its
                 # halos are refilled in place
-                ins = {idx: {**ext[idx], in0: full[idx][out0]} for idx in positions}
+                ins = {idx: {**first[idx], in0: full[idx][out0]} for idx in positions}
                 exchange(level, ins, [in0])
             else:
                 for idx in positions:
@@ -533,8 +561,10 @@ def build_sharded_fn(
                 exchange(level, ext, [in0])
                 ins = ext
             if inner:
+                own = fresh and j + 1 == sweeps // k
                 full = {idx: call(f, k, ins[idx], pars[device_of[idx]],
-                                  out_bufs[j % 2][idx]) for idx in positions}
+                                  None if own else out_bufs[j % 2][idx])
+                        for idx in positions}
             else:
                 full = run_level(level + 1, lambda idx, n: ext[idx][n], k, pars)
             outs = {idx: {n: centre(v, level) for n, v in full[idx].items()}
@@ -570,16 +600,14 @@ def build_sharded_fn(
             for idx in positions:
                 if j == 0:
                     for n in names:
-                        _copy_padded(state[idx][n], source(idx, n))
+                        copy_padded(state[idx][n], source(idx, n))
                 else:
                     state[idx][in0] = outs[idx][out0]
             # the exchange on each card's copy stream, after what its
             # compute stream wrote before
             for dev, s in copy_streams.items():
                 s.wait_event(torch.cuda.current_stream(dev).record_event())
-            with contextlib.ExitStack() as on_copy:
-                for s in copy_streams.values():
-                    on_copy.enter_context(torch.cuda.stream(s))
+            with on_streams(copy_streams.values()):
                 for idx in positions:
                     for n in names:
                         _copy(centre(ext[idx][n], 0), state[idx][n])
@@ -602,47 +630,71 @@ def build_sharded_fn(
                         _copy(slab_in[n], ext[idx][n].narrow(d, start, rows))
                     res = call(f, k, slab_in, pars[device_of[idx]], bufs)
                     for n in program.output_names:
-                        strip = _narrow(res[n], others).narrow(d, halo(a, k)[0], width)
+                        strip = narrow(res[n], others).narrow(d, halo(a, k)[0], width)
                         _copy(outs[idx][n].narrow(d, start, width), strip)
             mask_pads(outs, 0)
         return outs
 
-    def fn(inputs: Mapping[str, torch.Tensor],
-           params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        stats["exchange_bytes"] = stats["group_calls"] = 0
+    def check_layout(name: str, g: ShardedGrid) -> None:
+        if not (same_mesh(g.mesh, mesh) and tuple(g.dims) == dims
+                and tuple(g.grid_shape) == grid_shape and tuple(g.shard_shape) == shard):
+            raise ValueError(
+                f"input {name!r} is a ShardedGrid laid out as {g.layout()}; this fn "
+                f"takes the {describe_layout(mesh, dims, grid_shape, shard)}")
+        want = torch_dtype(program.tensors[name].type)
+        if g.dtype != want:
+            raise ValueError(f"input {name!r} is a ShardedGrid of {g.dtype}; this fn "
+                             f"takes {want}")
+
+    def fn(inputs: Mapping, params: Mapping) -> dict:
+        stats.update(scatter_bytes=0, scatter_from={}, gather_bytes=0, exchange_bytes=0,
+                     group_calls=0)
+        resident = [n for n in program.input_names if isinstance(inputs[n], ShardedGrid)]
+        if resident and len(resident) != len(program.input_names):
+            raise ValueError(f"inputs {resident} are ShardedGrids and the others are "
+                             f"not: pass every input as a ShardedGrid or none")
         for n in program.input_names:
-            if tuple(inputs[n].shape) != grid_shape:
-                raise ValueError(f"input {n!r} has shape {tuple(inputs[n].shape)}, "
+            x = inputs[n]
+            if resident:
+                check_layout(n, x)
+                continue
+            if tuple(x.shape) != grid_shape:
+                raise ValueError(f"input {n!r} has shape {tuple(x.shape)}, "
                                  f"this fn was built for {grid_shape}")
+            nbytes = x.numel() * x.element_size()
+            stats["scatter_bytes"] += nbytes
+            by = stats["scatter_from"]
+            by[str(x.device)] = by.get(str(x.device), 0) + nbytes
         pars = {dev: params_to_torch(program, params, dev)
                 for dev in set(device_of.values())}
 
-        def region(idx) -> dict[int, tuple[int, int]]:
-            """The shard's rows of the real grid along each sharded dim."""
-            spans = {}
-            for a, d in enumerate(dims):
-                start = min(idx[a] * shard[d], grid_shape[d])
-                spans[d] = (start, min(shard[d], grid_shape[d] - start))
-            return spans
-
         def source(idx, name):
-            return _narrow(inputs[name], region(idx))
+            if resident:
+                return inputs[name].shards[idx]
+            return narrow(inputs[name], region(idx, grid_shape, shard, dims))
 
+        # a resident call of one level writes its last outputs to buffers of
+        # their own; the others' outputs view buffers the next call rewrites
+        own = bool(resident) and not overlap_ok and len(levels) == 1
         outs = (run_overlap(source, pars) if overlap_ok
-                else run_level(0, source, it, pars))
-        result = {}
-        for n in program.output_names:
-            result[n] = empty(grid_shape, n, positions[0])
-            for idx in positions:
-                spans = region(idx)
-                if all(size > 0 for _, size in spans.values()):
-                    _copy(_narrow(result[n], spans), _narrow(
-                        outs[idx][n], {d: (0, size) for d, (_, size) in spans.items()}))
-        return result
+                else run_level(0, source, it, pars, fresh=own))
+        grids = {n: ShardedGrid(mesh, dims, grid_shape, shard,
+                                torch_dtype(program.tensors[n].type),
+                                {idx: outs[idx][n] for idx in positions})
+                 for n in program.output_names}
+        if not resident:
+            return {n: gather_grid(g, device_of[positions[0]], stats=stats)
+                    for n, g in grids.items()}
+        if own:
+            return grids
+        return {n: dataclasses.replace(g, shards={
+            idx: bits(v).clone(memory_format=torch.contiguous_format).view(g.dtype)
+            for idx, v in g.shards.items()}) for n, g in grids.items()}
 
     fn.stats = stats
     fn.sweeps_per_exchange = cad if cad is not None else nf
     fn.shard_shape = shard
+    fn.mesh, fn.dims = mesh, dims
     fn.local_plans = lambda: {key: f.plan for key, f in local.items()}
     return fn
 
@@ -667,9 +719,12 @@ def run_sharded(
     """Shard numpy arrays or tensors over a mesh, run, gather.  Without a
     `mesh`, one of `axis_sizes` (default: one axis over every device) over
     `devices` (default: the visible cards; the CPU only when asked for,
-    e.g. `devices=["cpu"] * 8`).  Returns tensors on the mesh's first
-    device in the declared dtypes.  `stats`, if given, receives the run's
-    `fn.stats`, the shard shape, the cadence and the devices."""
+    e.g. `devices=["cpu"] * 8`).  Each input goes to the shards through
+    `shard_grid`, from the host (numpy arrays, CPU tensors) straight to
+    every card, or from the card it is on.  Returns tensors on the mesh's
+    first device in the declared dtypes.  `stats`, if given, receives the
+    run's `fn.stats` with the scatter's and the gather's bytes, the shard
+    shape, the cadence and the devices."""
     params = dict(params or {})
     check_io(program, inputs, params)
     if mesh is None:
@@ -679,15 +734,22 @@ def run_sharded(
         elif axis_sizes is None:
             axis_sizes = [len(devices)]
         mesh = make_mesh(axis_sizes, axis_names, devices)
-    ins, pars = to_torch(program, inputs, params, mesh.devices.flat[0])
+    on = next((v.device for v in inputs.values()
+               if isinstance(v, torch.Tensor) and v.device.type == "cuda"),
+              torch.device("cpu"))
+    ins, _ = to_torch(program, inputs, params, on)
     grid_shape = tuple(next(iter(ins.values())).shape)
     fn = build_sharded_fn(
         program, mesh, grid_shape=grid_shape, dims=dims, iterate=iterate,
         sweeps_per_exchange=sweeps_per_exchange, local_backend=local_backend,
         overlap=overlap, link_classes=link_classes)
-    outs = finalize_outputs(program, fn(ins, pars))
+    moved: dict = {}
+    grids = fn({n: shard_grid(x, mesh, fn.dims, stats=moved) for n, x in ins.items()},
+               params)
+    outs = finalize_outputs(program, {
+        n: gather_grid(g, mesh.devices.flat[0], stats=moved) for n, g in grids.items()})
     if stats is not None:
-        stats.update(fn.stats, shard_shape=fn.shard_shape,
+        stats.update(fn.stats, **moved, shard_shape=fn.shard_shape,
                      sweeps_per_exchange=fn.sweeps_per_exchange,
                      devices=sorted({str(d) for d in mesh.devices.flat}))
     return outs

@@ -3,7 +3,8 @@
 (`backend/windows.py`, kernel 4) on the card against their plain version,
 and the cascades and the windows kernel against the line-buffer kernels;
 host tiling and the mesh (`parallel/mesh.py`, shards on one card), apart
-and together, against the whole-grid kernels; the entry points
+and together, against the whole-grid kernels, and the mesh's grids kept
+on the card between calls (`parallel/sharded.py`); the entry points
 (`entry.py`) on the card.
 
 Marked `gpu`; each test asks the `cuda_device` fixture for a card and skips
@@ -330,6 +331,44 @@ def test_host_tiled_over_a_mesh_on_the_card(cuda_device, cadence):
     cpu = run_host_tiled(p, ins, ps, tiles=tiles, sweeps_per_exchange=cadence,
                          mesh=mesh.make_mesh([2, 2], devices=["cpu"] * 4))
     assert compare_outputs(p, got, cpu, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overlap", [False, True])
+def test_resident_grids_on_one_card(cuda_device, overlap):
+    """Three chained calls with `ShardedGrid`s in and out on four shards of
+    the card: no byte scattered or gathered, every group call a launch,
+    the first output never written by the later calls, and the result bit
+    for bit against `run_sharded` at three times the sweeps (the same
+    schedule) and against the same loop on CPU shards (`compare_outputs`)."""
+    from soda_tpu_torch.parallel import mesh
+    from soda_tpu_torch.parallel.sharded import gather_grid, shard_grid
+
+    p = _program("jacobi3d")
+    grid = (20, 21, 40)
+    ins, ps = rand_inputs(p, grid, np.random.default_rng(96))
+    results = {}
+    for where in (cuda_device, "cpu"):
+        m = mesh.make_mesh([2, 2], devices=[where] * 4)
+        fn = mesh.build_sharded_fn(p, m, grid_shape=grid, sweeps_per_exchange=1,
+                                   overlap=overlap)
+        g = {"t0": shard_grid(ins["t0"], m, fn.dims)}
+        before = _launches()
+        first = fn(g, ps)["t1"]
+        kept = gather_grid(first, "cpu")
+        out = first
+        for _ in range(2):
+            out = fn({"t0": out}, ps)["t1"]
+        assert fn.stats["scatter_bytes"] == fn.stats["gather_bytes"] == 0
+        if where != "cpu":
+            torch.cuda.synchronize()
+            assert _launches() - before == 3 * fn.stats["group_calls"] > 0
+        assert torch.equal(gather_grid(first, "cpu"), kept)
+        results[str(where)] = gather_grid(out, "cpu").numpy()
+        want = mesh.run_sharded(p, ins, ps, mesh=m, iterate=3, sweeps_per_exchange=1,
+                                overlap=overlap)["t1"].cpu().numpy()
+        assert np.array_equal(results[str(where)].view(np.uint8), want.view(np.uint8))
+    assert compare_outputs(p, {"t1": results[str(cuda_device)]}, {"t1": results["cpu"]}, 0)
 
 
 @pytest.mark.gpu
