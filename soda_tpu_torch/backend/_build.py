@@ -24,6 +24,8 @@ import shutil
 import subprocess
 import time
 
+from ..utils import trace
+
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "cuda"
 
@@ -80,7 +82,15 @@ def build(name: str, source: str, *, emulate: bool = False,
     emulate=False: nvcc for sm_90a (the card).  emulate=True: the host C++
     compiler with -DSODA_HOST_EMULATION (the CPU tests); hazard=True adds
     -DSODA_HAZARD (copies land at issue, a step's stages and a stage's work
-    items in reverse order: `csrc/async_copy.cuh` and the marches)."""
+    items in reverse order: `csrc/async_copy.cuh` and the marches).
+
+    The call is the span `soda.build`, a compile inside it the span
+    `soda.build.compile` (`utils/trace.py`)."""
+    with trace.span("soda.build"):
+        return _compile_and_load(name, source, emulate, hazard)
+
+
+def _compile_and_load(name: str, source: str, emulate: bool, hazard: bool) -> Built:
     headers = "\0".join(h.read_text() for h in sorted(CSRC.glob("*.cuh")))
     if hazard and not emulate:
         raise ValueError("the hazard emulation is host C++ (emulate=True)")
@@ -97,7 +107,8 @@ def build(name: str, source: str, *, emulate: bool = False,
     seconds, log = 0.0, ""
     if not out.exists():
         src.write_text(source)
-        seconds, log = _compile(cmd, src, out)
+        with trace.span("soda.build.compile"):
+            seconds, log = _compile(cmd, src, out)
         log_file.write_text(log)
     elif log_file.exists():
         log = log_file.read_text()   # built by an earlier process

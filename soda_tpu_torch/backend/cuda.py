@@ -32,6 +32,7 @@ from ..ir.dtypes import check_kernel_types, torch_dtype
 from ..ir.program import StencilProgram
 from ..plan.planner import GroupPlan, Plan
 from ..plan.planner import plan as make_plan
+from ..utils import trace
 from ..utils.device import resolve
 from . import linebuffer, linebuffer2d, sweeps, windows
 from .io import finalize_outputs, to_torch
@@ -52,9 +53,11 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count to 0, and clear the timing
+    spans and device intervals (`utils/trace.py::reset`) with them."""
     for m in COUNTED.values():
         m.LAUNCHES = 0
+    trace.reset()
 
 
 def group_kernel(program: StencilProgram, g: GroupPlan) -> linebuffer.GroupKernel:
@@ -75,7 +78,8 @@ def build_fn(program: StencilProgram, the_plan: Plan | None = None,
     sweeps) on one grid shape.  Inputs and params are tensors on one device
     in their declared dtypes (`io.to_torch`).  The kernels allocate their
     outputs, unless `fn(..., bufs=fn.alloc(device))` hands them buffers
-    made once (host tiling runs every tile through the same ones)."""
+    made once (host tiling runs every tile through the same ones).  While a
+    profiler records, each call is the span `soda.fn` (`utils/trace.py`)."""
     check_kernel_types(program)
     it = max(program.iterate if iterate is None else iterate, 1)
     if the_plan is None:
@@ -96,20 +100,21 @@ def build_fn(program: StencilProgram, the_plan: Plan | None = None,
     def fn(inputs: Mapping[str, torch.Tensor],
            params: Mapping[str, torch.Tensor],
            bufs: list[dict] | None = None) -> dict[str, torch.Tensor]:
-        values = dict(inputs)
-        bufs = list(bufs or [])
-        bufs += [None] * (2 - len(bufs))
-        for c in range(chunks):
-            produced: dict[str, torch.Tensor] = {}
-            for k in kernels:
-                outs = k(values, params, out=bufs[c % 2])
-                values.update(outs)
-                produced.update(outs)
-            bufs[c % 2] = produced
-            if c + 1 < chunks:
-                values = {n: inputs[n] for n in program.input_names}
-                values[in0] = produced[out0]
-        return {n: values[n] for n in program.output_names}
+        with trace.span("soda.fn"):
+            values = dict(inputs)
+            bufs = list(bufs or [])
+            bufs += [None] * (2 - len(bufs))
+            for c in range(chunks):
+                produced: dict[str, torch.Tensor] = {}
+                for k in kernels:
+                    outs = k(values, params, out=bufs[c % 2])
+                    values.update(outs)
+                    produced.update(outs)
+                bufs[c % 2] = produced
+                if c + 1 < chunks:
+                    values = {n: inputs[n] for n in program.input_names}
+                    values[in0] = produced[out0]
+            return {n: values[n] for n in program.output_names}
 
     def alloc(device) -> list[dict[str, torch.Tensor]]:
         """Buffers for every tensor the groups write, at the plan's grid

@@ -42,6 +42,7 @@ import torch
 from ..ir.dtypes import torch_dtype
 from ..ir.program import StencilProgram
 from ..plan.planner import GroupPlan, ctas_per_sm
+from ..utils import trace
 from . import _build
 from .cuda_codegen import RunGen, column_run, offset_tag, ring_var, run_rows, storage_ctype
 
@@ -349,7 +350,8 @@ class GroupKernel:
     Called on CPU tensors it runs `group_plain`.  Called on CUDA tensors it
     builds the kernel (once), checks every tensor, allocates the outputs
     (unless `out` provides them) and launches on the current stream; it
-    never falls back.  `LAUNCHES` counts the launches.
+    never falls back.  `LAUNCHES` counts the launches.  On CUDA tensors the
+    call is the span `soda.kernel` (`utils/trace.py`).
 
     `linebuffer2d.GroupKernel` (kernel 2, rank 2), `sweeps.GroupKernel`
     (fused sweeps, ranks 2 and 3) and `windows.GroupKernel` (kernel 4,
@@ -451,31 +453,32 @@ class GroupKernel:
             return self._plain(values, params)
         if device.type != "cuda":
             raise ValueError(f"the {self.prefix} kernel runs on CUDA tensors, got {device}")
-        shape = tuple(values[g.external_inputs[0]].shape)
-        if len(shape) != self.rank or min(shape) == 0:
-            raise ValueError(f"the {self.prefix} kernel takes a non-empty "
-                             f"{self.rank}-D grid, got {shape}")
-        for n in g.external_inputs:
-            self._check(n, values[n], torch_dtype(p.tensors[n].type), shape, device)
-        for n in g.params:
-            self._check(n, params[n], torch_dtype(p.params[n].type),
-                        p.params[n].shape, device)
-        if g.load == "vector":
-            self._check_vector_rows(values, shape)
-        outs = {}
-        for n in g.outputs:
-            dt = torch_dtype(p.tensors[n].type)
-            if out is not None and n in out:
-                self._check(f"out[{n}]", out[n], dt, shape, device)
-                if any(out[n].data_ptr() == t.data_ptr() for t in operands):
-                    raise ValueError(f"out[{n}] is also an input of the kernel")
-                outs[n] = out[n]
-            else:
-                outs[n] = torch.empty(shape, dtype=dt, device=device)
-        if self._entry is None:
-            self.build()
-        with torch.cuda.device(device):
-            self.launch(self._entry, values, params, outs,
-                        torch.cuda.current_stream(device).cuda_stream)
-        self._count()
-        return outs
+        with trace.span("soda.kernel"):
+            shape = tuple(values[g.external_inputs[0]].shape)
+            if len(shape) != self.rank or min(shape) == 0:
+                raise ValueError(f"the {self.prefix} kernel takes a non-empty "
+                                 f"{self.rank}-D grid, got {shape}")
+            for n in g.external_inputs:
+                self._check(n, values[n], torch_dtype(p.tensors[n].type), shape, device)
+            for n in g.params:
+                self._check(n, params[n], torch_dtype(p.params[n].type),
+                            p.params[n].shape, device)
+            if g.load == "vector":
+                self._check_vector_rows(values, shape)
+            outs = {}
+            for n in g.outputs:
+                dt = torch_dtype(p.tensors[n].type)
+                if out is not None and n in out:
+                    self._check(f"out[{n}]", out[n], dt, shape, device)
+                    if any(out[n].data_ptr() == t.data_ptr() for t in operands):
+                        raise ValueError(f"out[{n}] is also an input of the kernel")
+                    outs[n] = out[n]
+                else:
+                    outs[n] = torch.empty(shape, dtype=dt, device=device)
+            if self._entry is None:
+                self.build()
+            with torch.cuda.device(device):
+                self.launch(self._entry, values, params, outs,
+                            torch.cuda.current_stream(device).cuda_stream)
+            self._count()
+            return outs

@@ -21,7 +21,9 @@ the plan, and then does what the flags ask:
                         against the NumPy reference (exit 1 on mismatch)
   --benchmark           time the selected backend on the card with CUDA
                         events (back-to-back calls after a warm-up)
-  --profile DIR         a torch.profiler trace of --run/--benchmark
+  --profile DIR         a torch.profiler trace of --run/--benchmark, then
+                        the program's spans (count, total and self ms) and,
+                        on a mesh, its device intervals by card
 
 `--backend` picks what runs: `cuda` (the default: the hand-written
 kernels), `eager` (the plain PyTorch path) or `numpy` (the reference).
@@ -248,7 +250,9 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--xocl-header", type=str, default=None, metavar="FILE")
     ap.add_argument("--torch-driver", type=str, default=None, metavar="FILE")
     ap.add_argument("--profile", type=str, default=None, metavar="DIR",
-                    help="write a torch.profiler trace of --run/--benchmark")
+                    help="write a torch.profiler trace of --run/--benchmark and "
+                         "print the program's spans and, on a mesh, its device "
+                         "intervals by card (utils/trace.py)")
     ap.add_argument("--dump-plan", type=str, nargs="?", const="-",
                     default=None, metavar="FILE")
     ap.add_argument("--report", action="store_true")
@@ -651,10 +655,13 @@ def main(argv=None) -> int:
     profiler = None
     if args.profile:
         import torch
+
+        from ..utils import trace
         acts = [torch.profiler.ProfilerActivity.CPU]
         if args.device != "cpu" and torch.cuda.is_available():
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=acts)
+        trace.reset()
         profiler.__enter__()
     rc = 0
     try:
@@ -669,7 +676,25 @@ def main(argv=None) -> int:
             out.mkdir(parents=True, exist_ok=True)
             profiler.export_chrome_trace(str(out / f"{program.name}.trace.json"))
             print(f"profiler trace written to {out / f'{program.name}.trace.json'}")
+            for line in _trace_table():
+                print(line)
     return rc
+
+
+def _trace_table() -> list[str]:
+    """The program's spans over the profiled run (count, total and self
+    ms) and its device intervals by card, as `utils/trace.py` holds them."""
+    from ..utils import trace
+
+    lines = [f"{'span':<24} {'count':>8} {'total ms':>12} {'self ms':>12}"]
+    for name, t in sorted(trace.totals().items()):
+        lines.append(f"{name:<24} {t.count:>8} {t.total_s * 1e3:>12.3f} "
+                     f"{t.self_s * 1e3:>12.3f}")
+    for kind, by_card in trace.device_ms().items():
+        for card, (n, ms) in by_card.items():
+            lines.append(f"interval {kind} on {card}: {n} x, {ms:.3f} ms, "
+                         f"{ms / n:.4f} ms each")
+    return lines
 
 
 def _run_and_verify(program, the_plan, tiling, shape, ins, ps, args, plan_kw) -> int:

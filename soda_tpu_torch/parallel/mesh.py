@@ -65,6 +65,7 @@ from ..backend import cuda, eager
 from ..backend.io import check_io, finalize_outputs, params_to_torch, to_torch
 from ..ir.dtypes import bits, check_kernel_types, torch_dtype
 from ..ir.program import StencilProgram
+from ..utils import trace
 from ..utils.device import resolve
 from ..utils.opcount import H100_SXM_PEAK_TFLOPS, ops_per_cell
 from .host_tile import check_mesh_dims, storage_bytes
@@ -352,7 +353,12 @@ def build_sharded_fn(
     `gather_bytes` (the shards' outputs onto the first device), both 0 for
     `ShardedGrid`s, `exchange_bytes` (copied between shards) and
     `group_calls` (calls of a group's kernel, or of its plain version on
-    CPU shards)."""
+    CPU shards).
+
+    While a profiler records (`utils/trace.py`), a call is the span
+    `soda.mesh.call`, each exchange the span `soda.mesh.exchange` and, on
+    every card, the interval "exchange", and each shard's local
+    evaluation the interval "local" on its card."""
     check_kernel_types(program)
     if local_backend not in ("cuda", "eager"):
         raise ValueError(f"local_backend is 'cuda' or 'eager', not {local_backend!r}")
@@ -449,14 +455,17 @@ def build_sharded_fn(
     in0, out0 = program.input_names[0], program.output_names[0]
     positions = mesh_positions(msize)
     device_of = {idx: mesh.devices[idx] for idx in positions}
+    cards = list(dict.fromkeys(device_of.values()))
     buffers: dict = {}
     stats = {"scatter_bytes": 0, "scatter_from": {}, "gather_bytes": 0,
              "exchange_bytes": 0, "group_calls": 0}
 
-    def call(f, n: int, values: dict, params: dict, bufs) -> dict:
+    def call(f, n: int, idx, values: dict, params: dict, bufs) -> dict:
+        """`f` on position `idx`'s shard: the interval "local" on its card."""
         if f.plan is not None:
             stats["group_calls"] += len(f.plan.groups) * n // f.plan.groups[0].sweeps
-        return f(values, params, bufs=bufs)
+        with trace.device_interval("local", device_of[idx]):
+            return f(values, params, bufs=bufs)
 
     def alloc(f, idx):
         dev = device_of[idx]
@@ -474,20 +483,22 @@ def build_sharded_fn(
         """Fill the halos of level `level`'s axes in `ext[idx][name]`
         (arrays at the level's extended shape whose centres hold the
         shards), axis by axis in mesh order: an axis's slabs span the halos
-        of the axes before it and the centres of those after it."""
+        of the axes before it and the centres of those after it.  The span
+        `soda.mesh.exchange`, and on every card the interval "exchange"."""
         axes, k = levels[level]
-        for q, a in enumerate(axes):
-            lo, hi = halo(a, k)
-            if lo == hi == 0:
-                continue
-            later = {dims[b]: (halo(b, k)[0], shard[dims[b]]) for b in axes[q + 1:]}
-            for rest in itertools.product(*(range(m) if b != a else [None]
-                                            for b, m in enumerate(msize))):
-                line = [rest[:a] + (i,) + rest[a + 1:] for i in range(msize[a])]
-                for name in names:
-                    stats["exchange_bytes"] += _exchange(
-                        [narrow(ext[idx][name], later) for idx in line],
-                        dims[a], lo, hi)
+        with trace.span("soda.mesh.exchange"), trace.device_interval("exchange", *cards):
+            for q, a in enumerate(axes):
+                lo, hi = halo(a, k)
+                if lo == hi == 0:
+                    continue
+                later = {dims[b]: (halo(b, k)[0], shard[dims[b]]) for b in axes[q + 1:]}
+                for rest in itertools.product(*(range(m) if b != a else [None]
+                                                for b, m in enumerate(msize))):
+                    line = [rest[:a] + (i,) + rest[a + 1:] for i in range(msize[a])]
+                    for name in names:
+                        stats["exchange_bytes"] += _exchange(
+                            [narrow(ext[idx][name], later) for idx in line],
+                            dims[a], lo, hi)
 
     def mask_pads(outs: dict, level: int) -> None:
         """Zero the pad rows of level `level`'s dims in every output: only
@@ -562,7 +573,7 @@ def build_sharded_fn(
                 ins = ext
             if inner:
                 own = fresh and j + 1 == sweeps // k
-                full = {idx: call(f, k, ins[idx], pars[device_of[idx]],
+                full = {idx: call(f, k, idx, ins[idx], pars[device_of[idx]],
                                   None if own else out_bufs[j % 2][idx])
                         for idx in positions}
             else:
@@ -614,7 +625,7 @@ def build_sharded_fn(
                 exchange(0, ext, names)
                 copied = {dev: s.record_event() for dev, s in copy_streams.items()}
             # meanwhile the interiors, from the shards' own rows
-            outs = {idx: call(f_in, k, state[idx], pars[device_of[idx]],
+            outs = {idx: call(f_in, k, idx, state[idx], pars[device_of[idx]],
                               out_bufs[j % 2][idx]) for idx in positions}
             for dev, ev in copied.items():
                 torch.cuda.current_stream(dev).wait_event(ev)
@@ -628,7 +639,7 @@ def build_sharded_fn(
                     slab_in, bufs = slab_bufs[(a, start)][idx]
                     for n in program.input_names:
                         _copy(slab_in[n], ext[idx][n].narrow(d, start, rows))
-                    res = call(f, k, slab_in, pars[device_of[idx]], bufs)
+                    res = call(f, k, idx, slab_in, pars[device_of[idx]], bufs)
                     for n in program.output_names:
                         strip = narrow(res[n], others).narrow(d, halo(a, k)[0], width)
                         _copy(outs[idx][n].narrow(d, start, width), strip)
@@ -646,7 +657,7 @@ def build_sharded_fn(
             raise ValueError(f"input {name!r} is a ShardedGrid of {g.dtype}; this fn "
                              f"takes {want}")
 
-    def fn(inputs: Mapping, params: Mapping) -> dict:
+    def step(inputs: Mapping, params: Mapping) -> dict:
         stats.update(scatter_bytes=0, scatter_from={}, gather_bytes=0, exchange_bytes=0,
                      group_calls=0)
         resident = [n for n in program.input_names if isinstance(inputs[n], ShardedGrid)]
@@ -690,6 +701,10 @@ def build_sharded_fn(
         return {n: dataclasses.replace(g, shards={
             idx: bits(v).clone(memory_format=torch.contiguous_format).view(g.dtype)
             for idx, v in g.shards.items()}) for n, g in grids.items()}
+
+    def fn(inputs: Mapping, params: Mapping) -> dict:
+        with trace.span("soda.mesh.call"):
+            return step(inputs, params)
 
     fn.stats = stats
     fn.sweeps_per_exchange = cad if cad is not None else nf
