@@ -13,8 +13,9 @@ The rows are this checkout's `chip_smoke.py` rows: kernels 1, 2 and 4 one
 sweep per call (`AT_SIZE`, `BIG`, `AT_SIZE_2D`, `MAIN_WINDOWS`), the fused rows at the
 planner's depth (`AT_SIZE_SWEEPS`) and the depth sweep (`DEPTH_SWEEP`, at
 every depth the timed copy's planner fits), and kernel 1's `EXTRA` rows
-(u64_3d 512^3 over the whole uint64 range, and the radius-8 f64 star
-512^3 pinned to the line buffer by a 227 KiB budget); the optional third
+(u64_3d 512^3 over the whole uint64 range, the radius-8 f64 star
+512^3 pinned to the line buffer by a 227 KiB budget, jacobi3d on the
+benchmark's 1026 x 1026 x 2048 mesh shard and on 511^3); the optional third
 argument keeps the rows of the programs it names.  The corpus is always
 this checkout's `tests/soda`; u64_3d and star3d_r8 are the timed copy's
 `utils/testing.py` programs.  Per row it prints the CUDA-event time per sweep
@@ -41,9 +42,13 @@ import time
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
 CORPUS = HERE / "tests" / "soda"
-# (program, grid, sweeps, plan keywords) beyond chip_smoke's tables
+# (program, grid, sweeps, plan keywords) beyond chip_smoke's tables: kernel
+# 1 on the benchmark's mesh shard (2048^3 on [2, 2] with its halo) and on
+# 511^3 (the scalar load path)
 EXTRA = (("u64_3d", (512, 512, 512), 1, {}),
-         ("star3d_r8", (512, 512, 512), 1, {"smem_budget": 227 * 1024}))
+         ("star3d_r8", (512, 512, 512), 1, {"smem_budget": 227 * 1024}),
+         ("jacobi3d", (1026, 1026, 2048), 1, {}),
+         ("jacobi3d", (511, 511, 511), 1, {}))
 
 
 def _smoke():

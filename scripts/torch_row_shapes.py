@@ -73,7 +73,14 @@ VARIANTS = {
     # SM's shared memory
     ("jacobi3d", (512, 512, 512), 1): [
         ((32, 64), "skew", None), ((16, 64), "skew", None),
-        ((32, 32), "skew", None), ((16, 32), "skew", None)],
+        ((32, 32), "skew", None), ((16, 32), "skew", None),
+        ((32, 128), "skew", None), ((16, 128), "skew", None), ((8, 128), "skew", None),
+        ((16, 192), "skew", None), ((64, 64), "skew", None),
+        ((32, 128), "skew", None, 32), ((32, 128), "skew", None, 128)],
+    # the mesh cell's shard (2048^3 on [2, 2] with its halo)
+    ("jacobi3d", (1026, 1026, 2048), 1): [
+        ((32, 64), "skew", None), ((32, 128), "skew", None), ((16, 128), "skew", None),
+        ((8, 128), "skew", None), ((16, 192), "skew", None)],
     ("denoise3d", (256, 256, 256), 1): [
         ((16, 64), "barrier", None), ((16, 32), "skew", None),
         ((32, 64), "skew", BIG), ((8, 64), "skew", None)],

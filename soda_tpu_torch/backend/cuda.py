@@ -52,11 +52,21 @@ def launch_counts() -> dict[str, int]:
     return {k: m.LAUNCHES for k, m in COUNTED.items()}
 
 
+def feed_counts() -> dict[str, int]:
+    """Z-march launches (kernel 1, and the rank-3 cascade it runs) since
+    `reset_launches`, by the feed of their input rings: "tma" or
+    "scalar" (`linebuffer.FEED_LAUNCHES`)."""
+    return dict(linebuffer.FEED_LAUNCHES)
+
+
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0, and clear the timing
-    spans and device intervals (`utils/trace.py::reset`) with them."""
+    """Set every kernel wrapper's launch count and the z-march's counts by
+    feed to 0, and clear the timing spans and device intervals
+    (`utils/trace.py::reset`) with them."""
     for m in COUNTED.values():
         m.LAUNCHES = 0
+    for feed in linebuffer.FEED_LAUNCHES:
+        linebuffer.FEED_LAUNCHES[feed] = 0
     trace.reset()
 
 

@@ -5,24 +5,31 @@ one fused group of a rank-3 single-sweep program over the whole grid
 (and, through `backend/sweeps.py`, the rank-3 cascade of fused sweeps).
 `kernel_source` generates the group's CUDA kernel from the IR around the
 march in `csrc/linebuffer3d.cuh` (see the note there for the design and
-what bounds it: device-memory bytes, which a march that waits a memory
-latency a plane and a barrier a stage does not reach); `group_plain` is
-the same group evaluated over full grids by the plain PyTorch path;
-`GroupKernel` is the wrapper.
+what bounds it: device-memory bytes, of which the y/x halo's sectors are
+a tenth to a quarter, and copies in flight that cost the computing
+threads nothing); `group_plain` is the same group evaluated over full
+grids by the plain PyTorch path; `GroupKernel` is the wrapper.
 
 A CTA owns a (TY, TX) column tile and a chunk of BZ planes, and marches
-its planes one a step, one wait a step.  During step s it copies the
-leading plane of every input ring for step s + 1 (16-byte `cp.async`, or
-element loads through registers: `GroupPlan.load`) and computes each
-stage at level L (`GroupPlan.levels`) at the plane of step s - (L - 1):
-its leading plane (or, for outputs no stage of the group reads, an
-output plane).  With `GroupPlan.sync` "skew" no stage reads a plane
-written in the same step, so the stages need no barrier between them;
-with "barrier" every stage is at level 1 and a barrier follows each stage
-but the last.  The step ends with the wait.  Steps before the chunk's
-first plane only fill the rings (the warm-up), and the last DRAIN steps
-only run the lagging stages.  A stage is computed in column runs
-(`column_run`), runs wholly inside the grid without the per-row checks.
+its planes one a step.  How its input rings are fed is the plan's
+`feed`: where the grid's rows are whole 16-byte chunks on an aligned
+base ("tma"), thread 0 copies the input planes of step s + AHEAD
+(`GroupPlan.ahead`) with one TMA instruction each during step s, into
+ring slots guarded by mbarriers, and every thread waits on the slot of
+the step's leading plane; elsewhere ("scalar") each thread loads its
+elements of the next step's plane into registers during step s and
+stores them to the ring before the step's wait.  `FEED_LAUNCHES` counts
+the z-march's launches by feed.  Step s computes each stage at level L
+(`GroupPlan.levels`) at the plane of step s - (L - 1): its leading plane
+(or, for outputs no stage of the group reads, an output plane).  With
+`GroupPlan.sync` "skew" no stage reads a plane written in the same step,
+so the stages need no barrier between them; with "barrier" every stage
+is at level 1 and a barrier follows each stage but the last.  A step
+begins (TMA feed) or ends (scalar path) with the CTA's one barrier of
+the step.  Steps before the chunk's first plane only fill the rings (the
+warm-up), and the last DRAIN steps only run the lagging stages.  A stage
+is computed in column runs (`column_run`), runs wholly inside the grid
+without the per-row checks.
 
 The kernel computes every stage with the oracle's zero-fill semantics: an
 input read outside the grid is zero, and so is an intermediate stage's
@@ -51,6 +58,9 @@ RUN_ROWS = (1, 2, 4, 8)
 
 # kernel launches made through GroupKernel (the CPU plain path never counts)
 LAUNCHES = 0
+# z-march launches (kernel 1, and the rank-3 cascade it runs) by the feed
+# of their input rings (`GroupPlan.feed`): "tma" or "scalar"
+FEED_LAUNCHES = {"tma": 0, "scalar": 0}
 
 
 def _ctype_store(program: StencilProgram, name: str) -> str:
@@ -119,26 +129,81 @@ def entry_points(kernel: str, decl: str, call: str, block: str, grid: str,
             "#endif", ""]
 
 
+def tma_entry_points(kernel: str, decl: str, call: str, block: str, grid: str,
+                     host_loops: list[str], maps: list[str], ctas_per_sm: int) -> list[str]:
+    """`entry_points` for a TMA-fed z-march: `soda_launch` first encodes a
+    tensor map of each input in `maps` (its box the ring's rows by its
+    columns, `<n>_R` x `<n>_C`; zeros outside the grid) and passes it to
+    the kernel as a `__grid_constant__`.  Under SODA_HOST_EMULATION it
+    fails where the emulated feed broke its protocol
+    (`csrc/linebuffer3d.cuh`)."""
+    params = ", ".join([f"const __grid_constant__ soda_tmap {n}_m" for n in maps] + [decl])
+    passed = ", ".join([f"{n}_m" for n in maps] + [call])
+    encode = [f"  soda_tmap {', '.join(f'{n}_m' for n in maps)};", "  int e = 0;",
+              *(ln for n in maps for ln in (
+                  f"  e = soda_tmap_encode(&{n}_m, {n}_g, (int)sizeof(*{n}_g), "
+                  f"d0, d1, d2, {n}_C, {n}_R);",
+                  "  if (e != 0) return e;"))]
+    bounds = "NT" if ctas_per_sm <= 1 else f"NT, {ctas_per_sm}"
+    return ["#ifndef SODA_HOST_EMULATION",
+            f'extern "C" __global__ void __launch_bounds__({bounds}) {kernel}(',
+            f"    {params}) {{",
+            "  extern __shared__ __align__(128) unsigned char soda_smem[];",
+            f"  soda_body({block}, soda_smem,",
+            f"            {passed});",
+            "}",
+            "",
+            f'extern "C" int soda_launch({decl}, void* stream) {{',
+            *encode,
+            "  if (SMEM_BYTES > 48 * 1024) {",
+            f"    e = (int)cudaFuncSetAttribute({kernel}, "
+            "cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);",
+            "    if (e != 0) return e;",
+            "  }",
+            f"  const dim3 grid({grid});",
+            f"  {kernel}<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(",
+            f"      {passed});",
+            "  return (int)cudaGetLastError();",
+            "}",
+            "#else",
+            "#include <vector>",
+            f'extern "C" int soda_launch({decl}, void* stream) {{',
+            "  (void)stream;",
+            *encode,
+            "  std::vector<unsigned char> smem(SMEM_BYTES + 16);",
+            "  soda_emu_fault() = 0;",
+            "  soda_boxes().clear();",
+            *host_loops,
+            f"      {passed});",
+            "  return soda_emu_fault();",
+            "}",
+            "#endif", ""]
+
+
 def kernel_source(program: StencilProgram, g: GroupPlan,
                   kernel: str = "soda_lb3d_kernel", note: str = "") -> str:
     """CUDA C++ for one group under one plan (tile, chunk, rings, levels,
-    load path); the `__global__` is named `kernel`, and `note` (comment
-    lines) heads the source."""
+    feed); the `__global__` is named `kernel`, and `note` (comment lines)
+    heads the source."""
     ty, tx = g.tile
     ring_names = [r.name for r in g.rings]
     gen = RunGen(program, set(ring_names))
     out_set = set(g.outputs)
-    vector = g.load == "vector"
+    tma = g.feed == "tma"
+    fed = [r.name for r in g.rings if r.pitch]   # the TMA-fed input rings
     args, names = kernel_args(program, g)
     dims = "int64_t d0, int64_t d1, int64_t d2"
 
     L = [*note.splitlines(),
          f"// generated by soda_tpu_torch for kernel `{program.name}`, "
          f"stages {g.stages}, levels {g.levels}, {g.sync} sync, "
-         f"{g.load} plane copies",
+         + (f"TMA plane copies {g.ahead} step(s) ahead" if tma
+            else f"{g.load} plane copies"),
          '#include "linebuffer3d.cuh"', "",
          "namespace {",
          f"constexpr int TY = {ty}, TX = {tx}, BZ = {g.bz}, WARM = {g.warm};",
+         *([f"constexpr int AHEAD = {g.ahead};  // steps the TMA feed runs ahead"]
+           if tma else []),
          "#ifdef SODA_HOST_EMULATION",
          "constexpr int NT = 1;  // one thread per CTA",
          "#else",
@@ -153,17 +218,22 @@ def kernel_source(program: StencilProgram, g: GroupPlan,
         L.append(f"constexpr int {r.name}_D = {r.depth}, {r.name}_ZLO = {zlo}, "
                  f"{r.name}_ZHI = {zhi}, {r.name}_YLO = {ylo}, "
                  f"{r.name}_XA = {r.col0}, {r.name}_R = {r.rows}, "
-                 f"{r.name}_C = {r.cols}, {r.name}_PS = {r.rows * r.cols};")
+                 f"{r.name}_C = {r.cols}, {r.name}_PS = {r.slot};")
         L.append(f"constexpr size_t {r.name}_OFF = {r.offset};")
+        if r.pitch:
+            L.append(f"constexpr size_t {r.name}_BAR = {r.bar};  // its slots' mbarriers")
+            L.append(f"constexpr unsigned {r.name}_BYTES = "
+                     f"{r.rows * r.cols * r.elem_bytes};  // a plane's box")
     L += ["}  // namespace", "",
           "// a stage's work items; in reverse under the hazard emulation",
           "#ifdef SODA_HAZARD",
           "#define SODA_ITEMS(i, n) for (int i = (n) - 1 - tid; i >= 0; i -= NT)",
           "#else",
           "#define SODA_ITEMS(i, n) for (int i = tid; i < (n); i += NT)",
-          "#endif", "",
-          "SODA_BODY void soda_body(int bx, int by, int bzi, int tid, unsigned char* smem,",
-          "                       " + ", ".join(args + [dims]) + ") {"]
+          "#endif", ""]
+    L += ["SODA_BODY void soda_body(int bx, int by, int bzi, int tid, unsigned char* smem,",
+          "                       " + ", ".join(
+              [f"const soda_tmap& {n}_m" for n in fed] + args + [dims]) + ") {"]
     for r in g.rings:
         L.append(f"  {_ctype_store(program, r.name)}* {ring_var(r.name)} = "
                  f"reinterpret_cast<{_ctype_store(program, r.name)}*>"
@@ -184,9 +254,9 @@ def kernel_source(program: StencilProgram, g: GroupPlan,
     depth = {r.name: r.depth for r in g.rings}
 
     def wrap(n: str, plane: str) -> str:
-        # a power-of-two ring's slot is a mask; another's a 32-bit
-        # remainder by a constant (plane >= n_ZLO)
-        if depth[n] & (depth[n] - 1):
+        # a power-of-two ring's slot is a mask; another's (a TMA-fed ring's
+        # always) a 32-bit remainder by a constant (plane >= n_ZLO)
+        if n in fed or depth[n] & (depth[n] - 1):
             return f"({plane} - {n}_ZLO) % {n}_D"
         return f"({plane} - {n}_ZLO) & ({n}_D - 1)"
 
@@ -198,40 +268,71 @@ def kernel_source(program: StencilProgram, g: GroupPlan,
 
     def fetch(n: str, step: str) -> list[str]:
         pl = f"{step} + {n}_ZHI"
-        if vector:
-            call = (f"soda_fetch_plane_v<{n}_R, {n}_C, NT>({slot(n, pl)}, {n}_g, "
-                    f"{where(n, pl)});")
-        else:
-            call = (f"soda_fetch_plane_s<{n}_R, {n}_C, NT>({n}_pre, {slot(n, pl)}, "
-                    f"{n}_g, {where(n, pl)});")
+        call = (f"soda_fetch_plane_s<{n}_R, {n}_C, NT>({n}_pre, {slot(n, pl)}, "
+                f"{n}_g, {where(n, pl)});")
         return [f"if ({pl} >= {n}_ZLO) {call}"]
 
     def store(n: str, step: str) -> list[str]:
         pl = f"{step} + {n}_ZHI"
-        if vector:
-            return []
         return [f"if ({pl} >= {n}_ZLO) soda_store_plane_s<{n}_R, {n}_C, NT>("
                 f"{slot(n, pl)}, {n}_pre, tid);"]
 
     def pre(n: str) -> list[str]:
-        return [] if vector else [
-            f"{_ctype_store(program, n)} {n}_pre[soda_per<{n}_R, {n}_C, NT>()];"]
+        return [f"{_ctype_store(program, n)} {n}_pre[soda_per<{n}_R, {n}_C, NT>()];"]
 
     ins = g.external_inputs
-    L += ["  soda_cta_begin();",
-          "  {  // the input planes of the first step",
-          *("    " + ln for n in ins for ln in pre(n) + fetch(n, "-WARM")
-            + store(n, "-WARM")),
-          "  }",
-          "  soda_step_wait();",
-          "  for (int zs = -WARM; zs < zlen + DRAIN; ++zs) {",
-          "    // 1. the planes of step zs + 1 of every input ring, in flight",
-          "    // while this step computes",
-          "    const bool ahead = zs + 1 < zlen;",
-          *("    " + ln for n in ins for ln in pre(n)),
-          "    if (ahead) {",
-          *("      " + ln for n in ins for ln in fetch(n, "zs + 1")),
-          "    }"]
+    if tma:
+        def feed(n: str, step: str) -> list[str]:
+            pl = f"{step} + {n}_ZHI"
+            return [f"if ({pl} >= {n}_ZLO) {{",
+                    f"  const int f = ({pl} - {n}_ZLO) % {n}_D;",
+                    f"  soda_tma_plane({ring_var(n)} + f * {n}_PS, {n}_m, {n}_b + f, "
+                    f"(int)(x0 + {n}_XA), (int)(y0 + {n}_YLO), (int)(z0 + {pl}), {n}_BYTES);",
+                    "}"]
+
+        def wait(n: str) -> list[str]:
+            pl = f"zs + {n}_ZHI"
+            return [f"if ({pl} >= {n}_ZLO) {{",
+                    f"  const int f = {pl} - {n}_ZLO;",
+                    f"  soda_bar_wait({n}_b + f % {n}_D, (unsigned)(f / {n}_D) & 1u);",
+                    "}"]
+
+        L += [*(f"  uint64_t* {n}_b = reinterpret_cast<uint64_t*>(smem + {n}_BAR);"
+                for n in fed),
+              *(f"  soda_bar_init({n}_b, {n}_D, tid);" for n in fed),
+              "  SODA_SYNC();",
+              "  // the feed (thread 0): the input planes of step s, copied at step",
+              "  // s - AHEAD (the first AHEAD steps' before the march)",
+              "  if (tid == 0) {",
+              "    for (int s = -WARM; s < -WARM + AHEAD && s < zlen; ++s) {",
+              *("      " + ln for n in fed for ln in feed(n, "s")),
+              "    }",
+              "  }",
+              "  for (int zs = -WARM; zs < zlen + DRAIN; ++zs) {",
+              "    // every thread is done with the step before: the slot the feed",
+              "    // refills now, and the stage planes that step wrote",
+              "    SODA_SYNC();",
+              "    if (zs < zlen) {  // 1. the feed runs on; this step's input planes land",
+              "      if (tid == 0 && zs + AHEAD < zlen) {",
+              *("        " + ln for n in fed for ln in feed(n, "zs + AHEAD")),
+              "      }",
+              *("      " + ln for n in fed for ln in wait(n)),
+              "    }"]
+    else:
+        L += ["  soda_cta_begin();",
+              "  {  // the input planes of the first step",
+              *("    " + ln for n in ins for ln in pre(n) + fetch(n, "-WARM")
+                + store(n, "-WARM")),
+              "  }",
+              "  soda_step_wait();",
+              "  for (int zs = -WARM; zs < zlen + DRAIN; ++zs) {",
+              "    // 1. the planes of step zs + 1 of every input ring, in flight",
+              "    // while this step computes",
+              "    const bool ahead = zs + 1 < zlen;",
+              *("    " + ln for n in ins for ln in pre(n)),
+              "    if (ahead) {",
+              *("      " + ln for n in ins for ln in fetch(n, "zs + 1")),
+              "    }"]
 
     # 2. every stage at the plane of its own step t = zs - (level - 1): a
     # thread takes a column and a run of rows of the plane (the last run
@@ -311,23 +412,27 @@ def kernel_source(program: StencilProgram, g: GroupPlan,
               "#else",
               *(ln for b in reversed(blocks) for ln in b),
               "#endif"]
+    call = ", ".join(names + ["d0", "d1", "d2"])
+    block = "blockIdx.x, blockIdx.y, blockIdx.z, threadIdx.x"
+    grid = ("(unsigned)((d2 + TX - 1) / TX), (unsigned)((d1 + TY - 1) / TY), "
+            "(unsigned)((d0 + BZ - 1) / BZ)")
+    loops = ["  for (int bzi = 0; bzi < (int)((d0 + BZ - 1) / BZ); ++bzi)",
+             "    for (int by = 0; by < (int)((d1 + TY - 1) / TY); ++by)",
+             "      for (int bx = 0; bx < (int)((d2 + TX - 1) / TX); ++bx)",
+             "        soda_body(bx, by, bzi, 0, smem.data(),"]
+    if tma:
+        L += ["  }", "  soda_feed_end();", "}", ""]
+        L += tma_entry_points(kernel, ", ".join(args + [dims]), call, block, grid, loops,
+                              fed, min_blocks(g, g.threads))
+        return "\n".join(L)
     stores = [ln for n in ins for ln in store(n, "zs + 1")]
     if stores:
         L += ["    if (ahead) {  // 3. the planes of step zs + 1 into the rings",
               *("      " + ln for ln in stores), "    }"]
     L += ["    soda_step_wait();", "  }", "}", ""]
 
-    call = ", ".join(names + ["d0", "d1", "d2"])
-    L += entry_points(
-        kernel, ", ".join(args + [dims]), call,
-        "blockIdx.x, blockIdx.y, blockIdx.z, threadIdx.x",
-        "(unsigned)((d2 + TX - 1) / TX), (unsigned)((d1 + TY - 1) / TY), "
-        "(unsigned)((d0 + BZ - 1) / BZ)",
-        ["  for (int bzi = 0; bzi < (int)((d0 + BZ - 1) / BZ); ++bzi)",
-         "    for (int by = 0; by < (int)((d1 + TY - 1) / TY); ++by)",
-         "      for (int bx = 0; bx < (int)((d2 + TX - 1) / TX); ++bx)",
-         "        soda_body(bx, by, bzi, 0, smem.data(),"],
-        min_blocks(g, g.threads))
+    L += entry_points(kernel, ", ".join(args + [dims]), call, block, grid, loops,
+                      min_blocks(g, g.threads))
     return "\n".join(L)
 
 
@@ -481,4 +586,6 @@ class GroupKernel:
                 self.launch(self._entry, values, params, outs,
                             torch.cuda.current_stream(device).cuda_stream)
             self._count()
+            if g.kernel == "linebuffer3d":
+                FEED_LAUNCHES[g.feed] += 1
             return outs

@@ -661,7 +661,8 @@ def main(argv=None) -> int:
         if args.device != "cpu" and torch.cuda.is_available():
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=acts)
-        trace.reset()
+        from ..backend import cuda
+        cuda.reset_launches()   # the spans, intervals and counts of the run alone
         profiler.__enter__()
     rc = 0
     try:
@@ -676,14 +677,17 @@ def main(argv=None) -> int:
             out.mkdir(parents=True, exist_ok=True)
             profiler.export_chrome_trace(str(out / f"{program.name}.trace.json"))
             print(f"profiler trace written to {out / f'{program.name}.trace.json'}")
-            for line in _trace_table():
+            for line in _trace_table(the_plan):
                 print(line)
     return rc
 
 
-def _trace_table() -> list[str]:
+def _trace_table(the_plan) -> list[str]:
     """The program's spans over the profiled run (count, total and self
-    ms) and its device intervals by card, as `utils/trace.py` holds them."""
+    ms) and its device intervals by card, as `utils/trace.py` holds them;
+    then the z-march's launches by feed (`cuda.feed_counts()`) and each
+    z-march group's feed."""
+    from ..backend import cuda
     from ..utils import trace
 
     lines = [f"{'span':<24} {'count':>8} {'total ms':>12} {'self ms':>12}"]
@@ -694,6 +698,12 @@ def _trace_table() -> list[str]:
         for card, (n, ms) in by_card.items():
             lines.append(f"interval {kind} on {card}: {n} x, {ms:.3f} ms, "
                          f"{ms / n:.4f} ms each")
+    lines.append(f"z-march launches by feed: {cuda.feed_counts()}")
+    for i, g in enumerate(the_plan.groups):
+        if g.kernel == "linebuffer3d":
+            ahead = f", {g.ahead} step(s) ahead" if g.ahead else ""
+            lines.append(f"group {i}: feed {g.feed}{ahead}, {g.ctas_per_sm} CTAs an SM, "
+                         f"grid {g.grid}")
     return lines
 
 

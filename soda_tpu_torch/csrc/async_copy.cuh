@@ -1,12 +1,13 @@
 // async_copy.cuh -- the copies both marches issue a step ahead, and the
 // step's one wait.
 //
-// Kernel 1's z-march (linebuffer3d.cuh) copies the leading plane of every
-// input ring for step s + 1, and kernel 2's row-march (linebuffer2d.cuh)
-// the leading rows, while step s computes.  A copy is a 16-byte
-// cp.async.cg from device memory into shared memory, its source size 0
-// outside the grid (the copy fills zeros); the step ends with one wait
-// (every copy this thread issued has landed) and the CTA's barrier.
+// Kernel 2's row-march (linebuffer2d.cuh) copies the leading rows of every
+// input ring for step s + 1 while step s computes, and so does kernel 1's
+// z-march (linebuffer3d.cuh) on its scalar path (element loads through
+// registers; its TMA feed has mbarriers of its own).  A row-march copy is
+// a 16-byte cp.async.cg from device memory into shared memory, its source
+// size 0 outside the grid (the copy fills zeros); the step ends with one
+// wait (every copy this thread issued has landed) and the CTA's barrier.
 //
 // Under SODA_HOST_EMULATION (one thread per CTA, soda_common.cuh) a copy
 // is queued and lands at the step's wait, the latest it can on the card,

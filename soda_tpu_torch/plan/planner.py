@@ -39,6 +39,13 @@ widened to whole 16-byte chunks from an aligned first column (`col0`)
 when the grid's width allows 16-byte copies (`load` "vector", else
 "scalar").
 
+Kernel 1 on a "vector" grid is fed by TMA (`GroupPlan.feed`): its input
+planes are copied `ahead` steps ahead (w = ahead above), the deepest up
+to TMA_AHEAD_MAX that keeps the CTAs an SM of one step ahead, into rings
+of their own depth whose slots are 128-byte aligned, each with an 8-byte
+mbarrier; one instruction copies a plane whatever its width, so the
+planner also tries the tiles of TMA_TILE_CANDIDATES, 128 columns wide.
+
 A ring's lag is how far its leading plane (its span's hi along the
 marched axis) runs ahead of the lowest plane a consumer in the group
 reads at the same step: c's span hi + c's lowest offset on it.
@@ -113,6 +120,11 @@ NTHREADS = 256                      # threads per CTA
 MAX_GRID_YZ = 65_535                # CUDA limit on gridDim.y and gridDim.z
 H100_SXM_PEAK_GBPS = 3350.0         # published HBM3 bandwidth at 700 W
 TILE_CANDIDATES = ((32, 64), (16, 64), (32, 32), (16, 32), (8, 32))  # (TY, TX)
+# the TMA-fed z-march's tiles besides: one copy a plane whatever its width,
+# and 128 columns read fewer halo sectors a cell (jacobi3d on the H100: (32,
+# 128) 0.4278 ms at 512^3 and 6.938 on a 1026 x 1026 x 2048 shard, against
+# 0.4380 and 7.571 at (32, 64); PERF.md)
+TMA_TILE_CANDIDATES = ((32, 128), (16, 128)) + TILE_CANDIDATES
 BZ_CANDIDATES = (256, 128, 64, 32, 16, 8)
 # (RB, TX): a step's RB rows are one column run a thread where the taps fit
 # its registers, and longer runs load fewer taps a cell (blur 16384^2:
@@ -143,6 +155,12 @@ ROW_THREADS_MIN = 128
 # nf 10 and 20 ran slower); a rank without an entry (rank 1: no march)
 # runs one sweep per call
 AUTO_SWEEPS_MAX = {2: 8, 3: 2}
+# kernel 1's TMA feed: at most this many steps of input planes in flight
+# (the planner takes the deepest that keeps the plan's CTAs an SM); a TMA
+# box is at most 256 cells along each axis; a slot is 128-byte aligned
+TMA_AHEAD_MAX = 4
+TMA_BOX_MAX = 256
+TMA_ALIGN = 128
 
 KERNELS = {3: "linebuffer3d", 2: "linebuffer2d"}
 # windows kernel blocks per rank, in cells per axis (the last axis last);
@@ -174,10 +192,16 @@ class Ring:
     cols: int               # TX + x halo (an input's: whole 16-byte chunks when copied so)
     offset: int             # byte offset in the CTA's shared memory
     col0: int = 0           # its first column relative to the tile or strip
+    pitch: int = 0          # elements from a slot to the next (0: rows x cols)
+    bar: int = -1           # byte offset of its slots' mbarriers (a TMA-fed ring)
+
+    @property
+    def slot(self) -> int:
+        return self.pitch or self.rows * self.cols
 
     @property
     def nbytes(self) -> int:
-        return self.depth * self.rows * self.cols * self.elem_bytes
+        return self.depth * self.slot * self.elem_bytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,17 +248,33 @@ class GroupPlan:
     windows: list[Window] = dataclasses.field(default_factory=list)
     direct: list[str] = dataclasses.field(default_factory=list)
     # the marches (ranks 2 and 3): threads per CTA, how input planes or
-    # rows are copied ("vector": 16-byte cp.async; "scalar": element loads
-    # through registers), how the stages of a step are ordered ("skew":
-    # each at its level, lagging level - 1 steps, one wait a step;
+    # rows are copied ("vector": rows of whole 16-byte chunks, by TMA in
+    # the z-march and 16-byte cp.async in the row-march; "scalar": element
+    # loads through registers), how the stages of a step are ordered
+    # ("skew": each at its level, lagging level - 1 steps, one wait a step;
     # "barrier": all at level 1, a barrier after each stage), each
-    # member's level, and CTAs per SM for the row-march's wave count (0:
-    # not modeled, as for rank 3)
+    # member's level, CTAs per SM for the row-march's wave count (0: not
+    # modeled, as for rank 3), and the steps of input planes the z-march's
+    # TMA feed keeps in flight (0: not TMA-fed)
     threads: int = NTHREADS
     load: str = ""
     sync: str = ""
     levels: dict[str, int] = dataclasses.field(default_factory=dict)
     slots_per_sm: int = 0
+    ahead: int = 0
+
+    @property
+    def feed(self) -> str:
+        """How the z-march's input rings are fed: "tma" (one copy a plane
+        by the Tensor Memory Accelerator, `ahead` steps ahead, into
+        mbarrier-guarded slots) or "scalar" (element loads through
+        registers, a step ahead)."""
+        return "tma" if self.ahead else "scalar"
+
+    @property
+    def ctas_per_sm(self) -> int:
+        """CTAs one SM runs at once (`ctas_per_sm`)."""
+        return ctas_per_sm(self.smem_bytes, self.threads)
 
     @property
     def warps_per_sm(self) -> int:
@@ -266,9 +306,10 @@ class GroupPlan:
                      f"{[w.name for w in self.windows if w.name in self.external_inputs]}, "
                      f"direct={self.direct}")
         elif self.kernel == "linebuffer3d":
-            shape = (f"tile={self.tile}, bz={self.bz}, load={self.load}, "
+            feed = f"feed=tma, ahead={self.ahead}" if self.ahead else "feed=scalar"
+            shape = (f"tile={self.tile}, bz={self.bz}, {feed}, load={self.load}, "
                      f"sync={self.sync}, threads={self.threads}, "
-                     f"ctas/SM={ctas_per_sm(self.smem_bytes, self.threads)}")
+                     f"ctas/SM={self.ctas_per_sm}")
         else:
             shape = (f"tile={self.tile}, by={self.bz}, load={self.load}, "
                      f"sync={self.sync}, threads={self.threads}, "
@@ -320,6 +361,8 @@ class Plan:
                 "smem_bytes": g.smem_bytes,
                 "threads": g.threads,
                 "load": g.load,
+                "feed": g.feed if g.kernel == "linebuffer3d" else "",
+                "ahead": g.ahead,
                 "sync": g.sync,
                 "levels": g.levels,
                 "slots_per_sm": g.slots_per_sm,
@@ -406,11 +449,11 @@ def ctas_per_sm(smem_bytes: int, threads: int) -> int:
                       65536 // (threads * 64), 32))
 
 
-def _shapes3(grid_shape, tile, bz, warm: int):
+def _shapes3(grid_shape, tile, bz, warm: int, tiles=TILE_CANDIDATES):
     """(tile, chunk, CUDA grid) candidates of kernel 1 on one grid."""
     longest = max(CHUNK_BASE_MAX[3], CHUNK_PER_WARM * warm)
     Z, Y, X = grid_shape
-    for ty, tx in [tile] if tile else TILE_CANDIDATES:
+    for ty, tx in [tile] if tile else tiles:
         for bz_ in [bz] if bz else [c for c in BZ_CANDIDATES if c <= longest]:
             yield (ty, tx), bz_, (-(-X // tx), -(-Y // ty), -(-Z // bz_))
 
@@ -458,27 +501,44 @@ def _ring_layout(program: StencilProgram, ring_names: list[str],
                  ext_inputs: list[str], spans: dict[str, Span],
                  pairs: list[tuple[str, str, int]], lv: dict[str, int], step: int,
                  rows: int | None, tx: int, vector: bool,
-                 pow2: bool = True) -> tuple[list[Ring], int]:
+                 pow2: bool = True, ahead: int = 0) -> tuple[list[Ring], int]:
     """The rings of one march (`step` slots a step: RB rows, or one
     plane) and the shared memory they take: each of at least lag + (w +
     L_c) * step slots for each consumer c (w 1 for an input, copied a step
     ahead; 1 - L for a stage at level L), rounded up to a power of two
     where `pow2`, of `rows` tile rows plus the ring's y halo (rank 3;
     None: one row), and TX plus its x halo in columns, an input's widened
-    to whole 16-byte chunks from an aligned first column where `vector`."""
+    to whole 16-byte chunks from an aligned first column where `vector`.
+
+    `ahead` > 0: the z-march's TMA feed.  An input ring is copied `ahead`
+    steps ahead (w = ahead) and keeps its own depth (a plane's slot is a
+    remainder); its row is the box's, whole 16-byte chunks from an
+    aligned first column (the TMA faults on a box whose first column is
+    not 16-byte aligned: an illegal instruction on the H100), its slots
+    are 128-byte aligned, and after the rings come its slots' 8-byte
+    mbarriers."""
     out, off = [], 0
     for n in ring_names:
         elem = _elem_bytes(program, n)
-        w = 1 if n in ext_inputs else 1 - lv[n]
+        tma = ahead > 0 and n in ext_inputs
+        w = (ahead if tma else 1) if n in ext_inputs else 1 - lv[n]
         depth = max(lag + (w + lv[c]) * step for q, c, lag in pairs if q == n)
-        depth = _pow2(depth) if pow2 else depth
+        depth = _pow2(depth) if pow2 and not tma else depth
         xlo, xhi = spans[n][-1]
-        v = 16 // elem if vector and n in ext_inputs else 1
+        v = 16 // elem if (vector or tma) and n in ext_inputs else 1
         col0 = xlo // v * v
         cols = -(-(tx + xhi - col0) // v) * v
         height = 1 if rows is None else rows + spans[n][1][1] - spans[n][1][0]
-        out.append(Ring(n, spans[n], elem, depth, height, cols, off, col0))
+        pitch = 0
+        if tma:
+            pitch = -(-height * cols * elem // TMA_ALIGN) * TMA_ALIGN // elem
+            off = -(-off // TMA_ALIGN) * TMA_ALIGN
+        out.append(Ring(n, spans[n], elem, depth, height, cols, off, col0, pitch))
         off += -(-out[-1].nbytes // 16) * 16
+    for i, r in enumerate(out):
+        if r.pitch:
+            out[i] = dataclasses.replace(r, bar=off)
+            off += 8 * r.depth
     return out, off
 
 
@@ -586,19 +646,44 @@ def _plan_group(program: StencilProgram, members: list[str],
             c.tile[0] >= ROW_RUN_MIN, c.warps_per_sm >= ROW_WARPS_MIN,
             c.tile[0] * c.tile[1], c.bz, c.sync == "skew", -c.modeled_seconds))
 
+    def rings3(tl: tuple[int, int], lv: dict[str, int]):
+        # (rings, shared memory, planes in flight) of one tile, or None:
+        # power-of-two depths (a plane's slot is a mask) where they fit,
+        # else the depths themselves (a 32-bit remainder by a constant,
+        # once a step for each plane a stage taps); with the TMA feed
+        # (`vector`), the input rings copied `ahead` steps ahead, the
+        # deepest (up to TMA_AHEAD_MAX) that keeps the CTAs an SM of one
+        # step ahead
+        def layout(ahead: int, pow2: bool):
+            return _ring_layout(program, ring_names, ext_inputs, spans, pairs, lv, 1,
+                                tl[0], tl[1], False, pow2=pow2, ahead=ahead)
+
+        first = 1 if vector else 0
+        pow2 = True
+        rings, off = layout(first, True)
+        if off > budget:
+            pow2 = False
+            rings, off = layout(first, False)
+        if off > budget or any(max(r.rows, r.cols) > TMA_BOX_MAX for r in rings if r.pitch):
+            return None
+        ahead = first
+        for k in range(TMA_AHEAD_MAX, 1, -1) if vector else ():
+            deeper, end = layout(k, pow2)
+            if end <= budget and ctas_per_sm(end, NTHREADS) == ctas_per_sm(off, NTHREADS):
+                rings, off, ahead = deeper, end, k
+                break
+        return rings, off, ahead
+
+    layouts = {}
+    tiles = TMA_TILE_CANDIDATES if vector else TILE_CANDIDATES
     for (tl, chunk, grid), (order, lv) in itertools.product(
-            _shapes3(grid_shape, tile, bz, warm), modes.items()):
+            _shapes3(grid_shape, tile, bz, warm, tiles), modes.items()):
         ty, tx = tl
-        # power-of-two depths (a plane's slot is a mask); where those
-        # exceed the budget, the depths themselves (a 32-bit remainder by
-        # a constant, once a step for each plane a stage taps)
-        rings, off = _ring_layout(program, ring_names, ext_inputs, spans, pairs,
-                                  lv, 1, ty, tx, vector)
-        if off > budget:
-            rings, off = _ring_layout(program, ring_names, ext_inputs, spans, pairs,
-                                      lv, 1, ty, tx, vector, pow2=False)
-        if off > budget:
+        if (tl, order) not in layouts:
+            layouts[tl, order] = rings3(tl, lv)
+        if layouts[tl, order] is None:
             continue
+        rings, off, ahead = layouts[tl, order]
         if grid[1] > MAX_GRID_YZ or grid[2] > MAX_GRID_YZ:
             continue
         # tile extent per dim: the marched axis in chunks, the others in tiles
@@ -611,7 +696,7 @@ def _plan_group(program: StencilProgram, members: list[str],
         gp = GroupPlan(tile=tl, bz=chunk, grid=grid, rings=rings, smem_bytes=off,
                        hbm_bytes_per_call=reads + writes,
                        cell_ops_per_call=cell_ops, load=load, levels=lv, sync=order,
-                       **common)
+                       ahead=ahead, **common)
         best = consider(best, gp, ty * tx)
     return None if best is None else best[1]
 

@@ -80,6 +80,29 @@ def test_kernel_matches_plain_and_oracle(cuda_device, name, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(512, 512, 512), (1026, 1026, 2048)])
+def test_tma_fed_march_at_the_benchmark_sizes(cuda_device, shape):
+    """Kernel 1 fed by TMA at the benchmark's sizes (jacobi3d 512^3, and
+    the mesh cell's 1026 x 1026 x 2048 shard), bit for bit against the
+    plain version computed slab by slab on the card (each slab with a
+    plane of halo); its one launch is on the TMA feed."""
+    p = _program("jacobi3d")
+    fn = cuda.build_fn(p, grid_shape=shape)
+    assert [g.feed for g in fn.plan.groups] == ["tma"]
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(shape, generator=gen, device=cuda_device)
+    cuda.reset_launches()
+    got = fn({"t0": x}, {})["t1"]
+    torch.cuda.synchronize()
+    assert cuda.feed_counts() == {"tma": 1, "scalar": 0}
+    for a in range(0, shape[0], 64):
+        lo, hi = max(a - 1, 0), min(a + 65, shape[0])
+        plain = eager.run(p, {"t0": x[lo:hi]}, {}, device=cuda_device)["t1"]
+        n = min(64, shape[0] - a)
+        assert torch.equal(got[a:a + n], plain[a - lo:a - lo + n]), a
+
+
+@pytest.mark.gpu
 def test_kernel_on_many_tiles_and_chunks(cuda_device):
     p = _program("denoise3d")
     shape = (37, 70, 90)

@@ -1,6 +1,6 @@
 """The line-buffer kernel module (`soda_tpu_torch/backend/linebuffer.py`).
 
-No card here, so the kernel's source is checked three ways:
+No card here, so the kernel's source is checked four ways:
 - the generated `.cu` holds the expected ring taps and no `std::` call;
 - compiled as host C++ (`-DSODA_HOST_EMULATION`: every CTA on one
   thread, barriers trivially kept), the kernel's march runs the real tile,
@@ -16,6 +16,11 @@ No card here, so the kernel's source is checked three ways:
   step's stages, and with rings of depths that are not powers of two;
   with the step's wait deleted from the source (a mismatch); against the
   JAX package's z-march (kernel 1, interpret mode) outside its rim;
+- the TMA feed (plans whose rows are whole 16-byte chunks) under both
+  emulations: boxes cut at each of the six faces, chunks of one plane,
+  five row types, two inputs, heat3d's cascade; a ring one slot
+  shallower, a copy issued into a slot still read and a box off 16-byte
+  alignment each fail;
 - the wrapper takes the plain version on CPU tensors, counts no launch,
   refuses other devices and checks a vector plan's rows.
 The kernel itself is held against its plain version on the card by
@@ -23,6 +28,7 @@ The kernel itself is held against its plain version on the card by
 """
 
 import pathlib
+import re
 import shutil
 
 import numpy as np
@@ -119,25 +125,31 @@ def test_jacobi3d_source_taps_the_input_ring():
     g = plan(p, (64, 64, 64)).groups[0]
     src = linebuffer.kernel_source(p, g)
     # a column run loads each tap of its rows once, from the plane slot
-    # computed once per step (a mask: the ring's depth is a power of two)
+    # computed once per step (a remainder: a TMA-fed ring keeps its own
+    # depth)
     tag = {-1: "m1", 0: "0", 1: "1"}
     for oz in (-1, 0, 1):
-        assert (f"const int __s_t0_{tag[oz]} = (pl + ({oz}) - t0_ZLO) & "
-                f"(t0_D - 1);") in src
+        assert f"const int __s_t0_{tag[oz]} = (pl + ({oz}) - t0_ZLO) % t0_D;" in src
     for oz, oy, ox in [(0, 0, 0), (0, 0, 1), (0, 0, -1), (0, 1, 0),
                        (0, -1, 0), (1, 0, 0), (-1, 0, 0)]:
         assert (f"t0_r[__s_t0_{tag[oz]} * t0_PS + "
                 f"(pb + ({oy}) - t0_YLO) * t0_C + (lx + ({ox}) - t0_XA)]") in src
-    # the input planes: the first step's, then each next step's, 16 bytes a copy
-    assert g.load == "vector"
-    assert src.count("soda_fetch_plane_v<t0_R, t0_C, NT>(") == 2
+    # the input planes: one TMA copy a plane by thread 0, the first AHEAD
+    # steps' before the march and then AHEAD steps ahead, each into a
+    # slot with its own mbarrier, which every thread waits on
+    assert (g.load, g.feed, g.ahead) == ("vector", "tma", 1)
+    assert src.count("soda_tma_plane(t0_r + f * t0_PS, t0_m, t0_b + f, ") == 2
+    assert "const __grid_constant__ soda_tmap t0_m" in src
+    assert "soda_tmap_encode(&t0_m, t0_g, (int)sizeof(*t0_g), d0, d1, d2, t0_C, t0_R)" in src
     body = src.split("#ifndef SODA_HOST_EMULATION")[0]
-    assert "soda_fetch_plane_s" not in body and "% t0_D" not in body
+    assert "soda_fetch_plane_s" not in body and "& (t0_D - 1)" not in body
     assert "0.142857" in body and "std::" not in body
     assert '#include "linebuffer3d.cuh"' in src
-    # one wait a step, and no barrier between the stages
+    # one barrier a step (no cp.async wait), then the wait on the slot of
+    # the step's leading plane; no barrier between the stages
     loop = body.split("for (int zs = -WARM;")[1]
-    assert loop.count("soda_step_wait();") == 1 and "SODA_SYNC" not in body
+    assert loop.count("SODA_SYNC();") == 1 and loop.count("soda_bar_wait(") == 1
+    assert "soda_step_wait" not in body
     assert "// outputs ['t1'] (level 1), runs of 8 row(s)" in src
 
 
@@ -229,8 +241,10 @@ def test_hazard_emulated_kernel_matches_oracle_on_whole_grid(built, name, grid, 
     for g in pl.groups:
         assert g.kernel == "linebuffer3d" and g.sync == sync
         assert g.load == ("scalar" if grid == "scalar" else "vector")
+        assert g.feed == ("scalar" if grid == "scalar" else "tma")
         assert g.bz < g.warm or grid != "short"
-        assert all(r.depth & (r.depth - 1) == 0 for r in g.rings)
+        # a TMA-fed ring keeps its own depth, the others a power of two
+        assert all(r.depth & (r.depth - 1) == 0 for r in g.rings if not r.pitch)
     _check(PROGRAMS[name], got, gold)
 
 
@@ -252,20 +266,37 @@ def test_hazard_emulated_rings_of_exact_depth_match_oracle(built, grid, sync):
 
 
 def _without_step_wait(src: str) -> str:
+    """The source without the step's wait: the scalar path's
+    `soda_step_wait()`, or every wait of the TMA feed on a slot's
+    mbarrier."""
     step = src.split("for (int zs = -WARM;")
+    if "soda_bar_wait(" in step[1]:
+        return step[0] + "for (int zs = -WARM;" + re.sub(r"soda_bar_wait\([^;]*;", ";", step[1])
     assert step[1].count("    soda_step_wait();\n") == 1
     return step[0] + "for (int zs = -WARM;" + step[1].replace("    soda_step_wait();\n", "")
 
 
+def _breaks(name, shape, seed, edit, **kw) -> bool:
+    """True where the emulated kernel with `edit` made to its source fails
+    to launch (the emulation found the card would fault or hang) or its
+    outputs differ from the oracle."""
+    try:
+        got, gold, _ = _emulate(name, shape, seed, edit=edit, draw=u64_inputs, **kw)
+    except RuntimeError as e:
+        assert "failed to launch" in str(e)
+        return True
+    return any(not np.array_equal(got[k], gold[k]) for k in gold)
+
+
 @pytest.mark.parametrize("grid", ["vector", "scalar"])
 def test_deleting_the_step_wait_breaks_the_emulated_kernel(gxx, grid):
-    """The host emulation lands a plane copy at the step's wait: with the
-    wait deleted from the source, the planes never reach the rings."""
+    """The host emulation lands a plane copy at the step's wait (the TMA
+    feed's: at the wait on its slot): with the wait deleted from the
+    source, the planes never reach the rings."""
     shape, kw = HAZARD_GRIDS[grid]
     got, gold, _ = _emulate("jacobi3d", shape, seed=10, **kw)
     assert np.array_equal(got["t1"], gold["t1"])
-    got, gold, _ = _emulate("jacobi3d", shape, seed=10, edit=_without_step_wait, **kw)
-    assert not np.array_equal(got["t1"], gold["t1"])
+    assert _breaks("jacobi3d", shape, 10, _without_step_wait, **kw)
 
 
 @pytest.mark.parametrize("name", ["jacobi3d", "denoise3d"])
@@ -332,3 +363,144 @@ def test_wrapper_checks_a_vector_plans_rows():
     shifted = torch.zeros(8 * 8 * 32 + 1)[1:].view(8, 8, 32)
     with pytest.raises(ValueError, match="16-byte boundary"):
         k._check_vector_rows({"t0": shifted}, (8, 8, 32))
+
+
+# the TMA feed (`GroupPlan.feed` "tma"): grids whose tiles and chunks are
+# cut at every face (20 rows in tiles of 8, 80 columns in tiles of 32, 19
+# planes in chunks of 8, the z halo outside the grid at both ends; a
+# chunk's copies outnumber its ring's slots, so slots are refilled), and
+# chunks of one plane, shorter than every warm-up
+TMA_GRIDS = {"faces": ((19, 20, 80), {"tile": (8, 32), "bz": 8}),
+             "one-plane": ((5, 20, 80), {"tile": (8, 32), "bz": 1})}
+# rows of f32, f64, uint64, int16 and uint16; two inputs (denoise3d)
+TMA_PROGRAMS = ("jacobi3d", "poisson3d_f64", "u64_3d", "divneg_i16", "box7_u16", "denoise3d")
+TMA_CASES = [(n, grid, hazard) for n in TMA_PROGRAMS for grid in TMA_GRIDS
+             for hazard in (False, True)]
+# heat3d x 4 as two calls of its cascade of two sweeps
+CASCADE = ("heat3d", (19, 20, 80), {"sweeps": 2, "tile": (8, 32), "bz": 8})
+
+
+def _tma_kernels(hazard: bool) -> list:
+    ks = [linebuffer.GroupKernel(PROGRAMS[n], g) for n in TMA_PROGRAMS
+          for shape, kw in TMA_GRIDS.values()
+          for g in pinned_plan(PROGRAMS[n], shape, dict(kw, iterate=1)).groups]
+    name, shape, kw = CASCADE
+    from soda_tpu_torch.backend import cuda
+    ks += [cuda.group_kernel(PROGRAMS[name], g)
+           for g in plan(PROGRAMS[name], shape, **kw).groups]
+    return ks
+
+
+@pytest.fixture(scope="module")
+def built_tma():
+    """The host emulation (and the hazard emulation) of the TMA-fed cases
+    below, compiled in parallel up front."""
+    if shutil.which("g++") is None:
+        pytest.skip("host emulation needs g++")
+    build_emulated(_tma_kernels(False))
+    build_emulated(_tma_kernels(True), hazard=True)
+
+
+@pytest.mark.parametrize("name,grid,hazard", TMA_CASES)
+def test_tma_fed_march_matches_oracle_on_whole_grid(built_tma, name, grid, hazard):
+    """Kernel 1 fed by TMA under host emulation (a copy lands at the wait
+    on its slot) and under the hazard emulation (at issue), against the
+    oracle on the whole grid: boxes cut at each of the six faces, chunks
+    shorter than the warm-up, five row types, two inputs."""
+    shape, kw = TMA_GRIDS[grid]
+    got, gold, pl = _emulate(name, shape, seed=21, hazard=hazard, draw=u64_inputs, **kw)
+    for g in pl.groups:
+        assert (g.feed, g.load, g.tile, g.bz) == ("tma", "vector", kw["tile"], kw["bz"])
+        assert g.ahead >= 1 and all(r.pitch for r in g.rings if r.name in g.external_inputs)
+        # the copies of a long chunk refill its slots
+        assert grid != "faces" or all(g.bz + g.warm > r.depth for r in g.rings if r.pitch)
+    assert len(pl.groups[0].external_inputs) == (2 if name == "denoise3d" else 1)
+    _check(PROGRAMS[name], got, gold)
+
+
+@pytest.mark.parametrize("hazard", [False, True])
+def test_tma_fed_cascade_matches_oracle_on_whole_grid(built_tma, hazard):
+    """heat3d x 4 at nf 2: the rank-3 cascade's input ring fed by TMA, its
+    copies' rings as before, two calls chained (`utils/testing.py::emulate`)."""
+    from soda_tpu_torch.utils.testing import emulate
+
+    name, shape, kw = CASCADE
+    p = PROGRAMS[name]
+    pl = plan(p, shape, **kw)
+    (g,) = pl.groups
+    assert (g.sweeps, g.feed) == (2, "tma") and p.iterate == 4
+    ins, ps = rand_inputs(p, shape, np.random.default_rng(22))
+    got = emulate(p, pl, ins, ps, hazard=hazard)
+    _check(p, got, numpy_interp.run(REF[name], ins, ps))
+
+
+def _ring_define(src: str, key: str) -> int:
+    return int(re.search(rf"constexpr int {key} = (-?\d+)", src).group(1))
+
+
+def _shallower(src: str) -> str:
+    """Every TMA-fed ring one slot shallower than the planner's."""
+    for n in re.findall(r"constexpr size_t (\w+)_BAR = ", src):
+        d = _ring_define(src, f"{n}_D")
+        src = src.replace(f"constexpr int {n}_D = {d},", f"constexpr int {n}_D = {d - 1},")
+    return src
+
+
+def _one_step_further(src: str) -> str:
+    """The feed one step further ahead than its rings allow: a copy lands
+    in a slot the march still reads."""
+    k = _ring_define(src, "AHEAD")
+    return src.replace(f"constexpr int AHEAD = {k};", f"constexpr int AHEAD = {k + 1};")
+
+
+def _unaligned(src: str) -> str:
+    """The input box starting at the tile's own first halo column, not at a
+    16-byte-aligned one."""
+    return src.replace("t0_XA = -4,", "t0_XA = -1,")
+
+
+@pytest.mark.parametrize("name", ["jacobi3d", "denoise3d"])
+@pytest.mark.parametrize("mutation", [_shallower, _one_step_further],
+                         ids=["shallower-ring", "copy-into-a-slot-still-read"])
+def test_tma_feed_mutations_break_the_hazard_emulation(gxx, name, mutation):
+    """A ring one slot shallower, or a copy issued into a slot still read,
+    shows under the hazard emulation (the copy lands at issue) as a wrong
+    result or as a wait that would hang on the card."""
+    shape, kw = TMA_GRIDS["faces"]
+    got, gold, _ = _emulate(name, shape, seed=23, hazard=True, **kw)
+    _check(PROGRAMS[name], got, gold)
+    assert _breaks(name, shape, 23, mutation, hazard=True, **kw)
+
+
+def test_an_unaligned_box_fails_as_on_the_card(gxx):
+    """The H100 faults (an illegal instruction) on a TMA box whose first
+    column is not 16-byte aligned; the emulation refuses the launch."""
+    shape, kw = TMA_GRIDS["faces"]
+    src = linebuffer.GroupKernel(PROGRAMS["jacobi3d"], pinned_plan(
+        PROGRAMS["jacobi3d"], shape, dict(kw, iterate=1)).groups[0]).source
+    assert "t0_XA = -4," in src
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _emulate("jacobi3d", shape, seed=24, edit=_unaligned, **kw)
+
+
+def test_feed_counts_describe_and_reset():
+    """`GroupPlan.feed` follows the grid's rows; `cuda.feed_counts()` counts
+    the z-march's launches by feed apart from `cuda.launch_counts()`, and
+    `cuda.reset_launches()` clears it; the CPU path counts nothing."""
+    from soda_tpu_torch.backend import cuda
+
+    p = PROGRAMS["jacobi3d"]
+    tma, scalar = plan(p, (8, 8, 32)).groups[0], plan(p, (8, 8, 30)).groups[0]
+    assert (tma.feed, scalar.feed, scalar.ahead) == ("tma", "scalar", 0)
+    assert f"feed=tma, ahead={tma.ahead}" in tma.describe()
+    assert "feed=scalar" in scalar.describe()
+    assert plan(p, (8, 8, 32)).to_json()["groups"][0]["feed"] == "tma"
+    cuda.reset_launches()
+    x = torch.zeros((8, 8, 32))
+    linebuffer.GroupKernel(p, tma)({"t0": x}, {})
+    assert cuda.feed_counts() == {"tma": 0, "scalar": 0}
+    linebuffer.FEED_LAUNCHES["tma"] += 2
+    assert cuda.feed_counts() == {"tma": 2, "scalar": 0}
+    assert not set(cuda.launch_counts()) & {"tma", "scalar"}
+    cuda.reset_launches()
+    assert cuda.feed_counts() == {"tma": 0, "scalar": 0}

@@ -54,21 +54,29 @@ def test_denoise3d_rings_follow_the_group_spans():
     rings = {r.name: (r.depth, r.rows, r.cols) for r in g.rings}
     # u spans +-2 (tapped at +-1 by grad, which w and then unew tap at
     # +-1).  One wait a step: grad, w and unew at levels 1, 2, 3, each a
-    # step behind the stage it reads.  A ring keeps a power of two of at
-    # least lag + (w + L_c) planes for each consumer c: the lag (its
-    # leading plane down to the lowest c reads), w = 1 for an input (the
-    # next step's plane in flight) or 1 - L for a stage, and c's level.
-    # u: unew (level 3) reads -1 against u's leading +2: 3 + 1 + 3 = 7 -> 8;
-    # rhs: unew reads 0: 0 + 1 + 3 -> 4; grad: w (level 2) reads 0 at its
+    # step behind the stage it reads.  A ring keeps at least lag + (w +
+    # L_c) planes for each consumer c: the lag (its leading plane down to
+    # the lowest c reads), w = the steps an input's planes are in flight
+    # or 1 - L for a stage, and c's level.  The inputs are fed by TMA 3
+    # steps ahead (the deepest that keeps four CTAs an SM: 4 would leave
+    # three) and keep their own depths; the stages' rings a power of two.
+    # u: unew (level 3) reads -1 against u's leading +2: 3 + 3 + 3 = 9;
+    # rhs: unew reads 0: 0 + 3 + 3 = 6; grad: w (level 2) reads 0 at its
     # own leading plane: 0 + 0 + 2 -> 2; w: unew reads -1 against +1:
     # 2 - 1 + 3 -> 4.  u's rows are whole 16-byte chunks from column -4
     # (36 -> 40 columns); unew is not a ring
-    assert rings == {"u": (8, 20, 40), "rhs": (4, 16, 32),
+    assert rings == {"u": (9, 20, 40), "rhs": (6, 16, 32),
                      "grad": (2, 18, 34), "w": (4, 18, 34)}
     assert g.levels == {"grad": 1, "w": 2, "unew": 3} and g.sync == "skew"
     assert g.load == "vector" and [r.col0 for r in g.rings] == [-4, 0, -1, -1]
+    assert (g.feed, g.ahead, g.ctas_per_sm) == ("tma", 3, 4)
     assert g.warm == 4
-    assert g.smem_bytes == sum(-(-r.nbytes // 16) * 16 for r in g.rings)
+    # a fed ring's slots are 128-byte aligned (u: 3200 B, rhs: 2048 B);
+    # after the rings, an 8-byte mbarrier for each of its slots
+    fed = [r for r in g.rings if r.pitch]
+    assert [(r.name, r.pitch * r.elem_bytes % 128, r.offset % 128) for r in fed] == [
+        ("u", 0, 0), ("rhs", 0, 0)]
+    assert g.smem_bytes == max(r.bar + 8 * r.depth for r in fed)
     assert g.grid == (2, 4, 8)
 
 
@@ -94,15 +102,16 @@ def test_full_size_plan_fills_the_card_within_shared_memory():
     g = planner.plan(p, (512, 512, 512)).groups[0]
     assert g.smem_bytes <= planner.SMEM_BUDGET
     assert np.prod(g.grid) >= 2 * planner.NUM_SMS
-    # tile (32, 64), chunks of 64 planes; a ring row is 72 columns, the
-    # tile and its halo of 1 widened to whole 16-byte chunks: the planned
-    # bytes count every column copied (8.826 B/cell against 8 ideal)
-    assert (g.tile, g.bz, g.grid) == ((32, 64), 64, (8, 16, 8))
+    # tile (32, 128) (the TMA feed's widest), chunks of 64 planes; a ring
+    # row is 136 columns, the tile and its halo of 1 widened to whole
+    # 16-byte chunks: the planned bytes count every column copied (8.554
+    # B/cell against 8 ideal; 8.826 at (32, 64))
+    assert (g.tile, g.bz, g.grid, g.feed) == ((32, 128), 64, (4, 16, 8), "tma")
     z = 65 * 2 + 66 * 6              # 8 chunks, the two at the edges clipped
     y = 33 * 2 + 34 * 14             # 16 tiles of 32 rows
-    x = 68 * 2 + 72 * 6              # 8 tiles of 64 columns
+    x = 132 * 2 + 136 * 2            # 4 tiles of 128 columns
     assert g.hbm_bytes_per_call == z * y * x * 4 + 512**3 * 4
-    assert g.hbm_bytes_per_call / g.useful_cells_per_call < 8.83
+    assert g.hbm_bytes_per_call / g.useful_cells_per_call < 8.56
 
 
 def test_small_budget_splits_into_chained_groups_that_still_match():
@@ -256,15 +265,16 @@ def test_radius8_star_falls_back_to_windows_at_the_default_budget(budget, kernel
 
 
 def test_small_budget_makes_jacobi3d_fall_back():
-    # a budget of 6399 B leaves no tile for the line buffer's ring of four
+    # a budget of 6687 B leaves no tile for the line buffer's ring of four
     # planes (the smallest tile, 8 x 32: 10 rows of 40 columns, whole
-    # 16-byte chunks, 6400 B): the stage runs in the windows kernel, in
-    # the largest block whose window fits
+    # 16-byte chunks, 1600 B a slot padded to 1664 for the TMA feed, and
+    # four 8-byte mbarriers: 6688 B): the stage runs in the windows
+    # kernel, in the largest block whose window fits
     p = parse_file(SODA / "jacobi3d.soda")
-    assert planner.plan(p, (16, 16, 16), smem_budget=6400).groups[0].kernel == "linebuffer3d"
-    pl = planner.plan(p, (16, 16, 16), smem_budget=6399)
+    assert planner.plan(p, (16, 16, 16), smem_budget=6688).groups[0].kernel == "linebuffer3d"
+    pl = planner.plan(p, (16, 16, 16), smem_budget=6687)
     (g,) = pl.groups
-    assert g.kernel == "windows" and g.direct == [] and g.smem_bytes <= 6399
+    assert g.kernel == "windows" and g.direct == [] and g.smem_bytes <= 6687
     ins, ps = rand_inputs(p, (16, 16, 16), np.random.default_rng(5))
     got = to_numpy(p, cuda.run(p, ins, ps, device="cpu", the_plan=pl))
     gold = numpy_interp.run(lark_parser.parse_file(SODA / "jacobi3d.soda"), ins, ps)
@@ -311,19 +321,24 @@ def _pinned(name, shape, pin):
 
 
 def test_rank3_rings_load_path_and_sync_are_pinned():
-    """Kernel 1's rings: a power of two of at least lag + (w + L_c) planes
-    for each consumer c (`planner._ring_layout`), an input's rows widened
-    to whole 16-byte chunks where the grid's rows are (`load` "vector"),
-    else element copies ("scalar"); one wait a step (`sync` "skew") where
-    the tile fits, else a barrier after each stage."""
+    """Kernel 1's rings: at least lag + (w + L_c) planes for each consumer
+    c (`planner._ring_layout`); where the grid's rows are whole 16-byte
+    chunks (`load` "vector") an input is fed by TMA, w steps ahead, in
+    rows widened to whole 16-byte chunks and a ring of its own depth, else
+    by element copies ("scalar") in a power of two; one wait a step
+    (`sync` "skew") where the tile fits, else a barrier after each
+    stage."""
     g = planner.plan(parse_file(SODA / "jacobi3d.soda"), (512, 512, 512)).groups[0]
     # the input is read at -1 by t1 (level 1) against its leading +1 and
-    # copied a step ahead: 2 + 1 + 1 = 4 planes of 34 rows of 72 columns
+    # copied a step ahead (a second would leave two CTAs an SM, not
+    # three): 2 + 1 + 1 = 4 planes of 34 rows of 136 columns
     assert [(r.name, r.depth, r.rows, r.cols, r.col0) for r in g.rings] == [
-        ("t0", 4, 34, 72, -4)]
+        ("t0", 4, 34, 136, -4)]
     assert (g.load, g.sync, g.levels, g.threads) == ("vector", "skew", {"t1": 1}, 256)
-    assert g.smem_bytes == 4 * 34 * 72 * 4
-    assert "load=vector, sync=skew, threads=256, ctas/SM=4" in g.describe()
+    # 18,496 B a plane, padded to 18,560; four mbarriers
+    assert g.smem_bytes == 4 * 18560 + 4 * 8
+    assert ("feed=tma, ahead=1, load=vector, sync=skew, threads=256, ctas/SM=3"
+            in g.describe())
     # an odd grid: element copies, a ring row exactly the tile and its halo
     g = _pinned("jacobi3d", (13, 37, 45), {"tile": (8, 32), "bz": 8})
     assert g.load == "scalar" and [(r.depth, r.cols, r.col0) for r in g.rings] == [
@@ -334,33 +349,36 @@ def test_rank3_rings_load_path_and_sync_are_pinned():
     assert g.load == "vector" and (g.rings[0].col0, g.rings[0].cols) == (
         -2, g.tile[1] + 4)
     # denoise3d with a barrier after each stage: every stage at level 1,
-    # shallower rings (u: 3 + 1 + 1 = 5 -> 8, rhs 0 + 1 + 1 = 2, grad 0 + 0
-    # + 1 = 1, w 2 + 0 + 1 = 3 -> 4)
+    # shallower rings (the inputs 4 steps ahead: u 3 + 4 + 1 = 8, rhs 0 +
+    # 4 + 1 = 5; grad 0 + 0 + 1 = 1, w 2 + 0 + 1 = 3 -> 4)
     g = _pinned("denoise3d", (64, 64, 64), {"tile": (16, 32), "bz": 8, "sync": "barrier"})
-    assert g.sync == "barrier" and set(g.levels.values()) == {1}
-    assert {r.name: r.depth for r in g.rings} == {"u": 8, "rhs": 2, "grad": 1, "w": 4}
+    assert g.sync == "barrier" and set(g.levels.values()) == {1} and g.ahead == 4
+    assert {r.name: r.depth for r in g.rings} == {"u": 8, "rhs": 5, "grad": 1, "w": 4}
 
 
 @pytest.mark.parametrize("sync", ["skew", "barrier"])
 def test_rank3_cascade_levels_and_rings(sync):
     """heat3d x 4: copy k at level k + 1 (skew) or all at level 1
-    (barrier); every ring 4 planes either way (lag 2, plus the plane in
-    flight or the skew, rounded up)."""
+    (barrier); every copy's ring 4 planes either way (lag 2, plus the skew
+    or the level, rounded up), the input's 5 (lag 2, its planes 2 steps in
+    flight, the first copy's level)."""
     g = _pinned("heat3d", (64, 64, 64), {"sweeps": 4, "sync": sync})
     assert g.sweeps == 4 and g.sync == sync and g.warm == 8
     want = ({s: k + 1 for k, s in enumerate(g.stages)} if sync == "skew"
             else dict.fromkeys(g.stages, 1))
     assert g.levels == want
-    assert {r.depth for r in g.rings} == {4} and len(g.rings) == 4
+    assert (g.feed, g.ahead) == ("tma", 2)
+    assert [r.depth for r in g.rings] == [5, 4, 4, 4]
 
 
 def test_rank3_rings_keep_their_own_depth_where_powers_of_two_do_not_fit():
-    """The radius-8 f64 star's ring needs 16 + 1 + 1 = 18 planes: 32 would
-    not fit 227 KB at any tile, 18 fit (16, 32); a plane's slot is then a
-    remainder, not a mask.  At the default budget it falls back to the
-    windows kernel."""
+    """The radius-8 f64 star's ring needs 16 + 1 + 1 = 18 planes: 18 fit
+    (16, 32) in 227 KB, one CTA an SM, so its planes are one step in
+    flight; a plane's slot is a remainder, not a mask.  At the default
+    budget it falls back to the windows kernel."""
     p = parse(STAR3D_R8)
     g = planner.plan(p, (512, 512, 512), smem_budget=227 * 1024).groups[0]
     assert g.kernel == "linebuffer3d" and [r.depth for r in g.rings] == [18]
-    assert g.tile == (16, 32) and g.smem_bytes == 18 * 32 * 48 * 8
+    assert (g.feed, g.ahead, g.ctas_per_sm) == ("tma", 1, 1)
+    assert g.tile == (16, 32) and g.smem_bytes == 18 * 32 * 48 * 8 + 18 * 8
     assert planner.plan(p, (512, 512, 512)).groups[0].kernel == "windows"

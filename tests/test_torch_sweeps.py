@@ -281,15 +281,17 @@ def test_fused_source_names_its_kernel_and_says_what_it_replaces():
 
 def test_rings_are_sized_by_lag():
     # heat3d at nf = 4: the input spans (-4, 4) but each copy reads the one
-    # before it at -1..1 around its own leading plane (lag 2); the input's
-    # next plane is in flight (+1) and each copy lags the one it reads by a
-    # step (level k + 1 reads level k: +1): every ring 2 + 1 + 1 = 4 planes
+    # before it at -1..1 around its own leading plane (lag 2); each copy
+    # lags the one it reads by a step (level k + 1 reads level k: +1):
+    # every copy's ring 2 + 1 + 1 = 4 planes; the input's planes are fed
+    # by TMA 2 steps ahead (+2): 2 + 2 + 1 = 5, its own depth
     p = PROGRAMS["heat3d"]
     g = planner.plan(p, (64, 64, 64), sweeps=4).groups[0]
     assert g.sweeps == 4 and g.warm == 8 and g.sync == "skew"
     assert [r.name for r in g.rings] == ["heat_in", "heat_out__it0",
                                          "heat_out__it1", "heat_out__it2"]
-    assert {r.depth for r in g.rings} == {4}
+    assert (g.feed, g.ahead) == ("tma", 2)
+    assert [r.depth for r in g.rings] == [5, 4, 4, 4]
     assert g.spans["heat_in"] == ((-4, 4),) * 3
     # rank 2: a power of two of at least lag + (w + level) * RB rows for
     # each consumer: the input (copied a step ahead, w = 1) and each copy
