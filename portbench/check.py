@@ -6,6 +6,15 @@ the program's own state for a later one) and every cell of the program's
 output is compared with it, bit for bit, in chunks of planes along dim 0
 on one device.  Nothing the program derived is used but the states it
 produced, which are what is judged.
+
+A reference module defines `HALO` and either `sweep(block, **fields)` or
+`sweep_at(block, z0, n0, **fields)`.  `block` holds planes [z0, z0 + len)
+of dim 0 of a grid of n0 planes, zero planes standing for the outside;
+`sweep_at` is also told where the block lies, which a reference that
+fuses several sweeps needs, to zero the planes outside [0, n0) again
+after each one, as the program stores zero outside the grid at every
+sweep.  Each fixed field of the configuration comes as a block of the
+same planes, by its name.
 """
 
 from __future__ import annotations
@@ -31,34 +40,52 @@ def zero_outside(get, a: int, b: int, n0: int, like_shape, dtype, device) -> tor
     return out
 
 
+def reference_sweep(reference, block: torch.Tensor, z0: int, n0: int,
+                    fields: dict | None = None) -> torch.Tensor:
+    """The reference's output planes [z0 + HALO, z0 + len - HALO) from
+    `block`, planes [z0, z0 + len) of a grid of n0 planes."""
+    if hasattr(reference, "sweep_at"):
+        return reference.sweep_at(block, z0, n0, **(fields or {}))
+    return reference.sweep(block, **(fields or {}))
+
+
 def compare_sweep(reference, src, dst, n0: int, plane_shape, chunk: int, dtype,
-                  device) -> dict:
+                  device, fields: dict | None = None) -> dict:
     """One sweep judged: `src(a, b)` and `dst(a, b)` give planes [a, b) of
     the sweep's input and of the program's output (inside the grid), in
-    `dtype` on `device`.  Returns the cells whose bits differ from the
+    `dtype` on `device`; `fields` maps each fixed field's name to a
+    `get(a, b)` alike.  Returns the cells whose bits differ from the
     reference's (`cells_off`) and the widest gap."""
     h = reference.HALO
     off, gap = 0, 0.0
     for z in range(0, n0, chunk):
         z1 = min(z + chunk, n0)
         block = zero_outside(src, z - h, z1 + h, n0, plane_shape, dtype, device)
-        want = reference.sweep(block)
+        blocks = {name: zero_outside(get, z - h, z1 + h, n0, plane_shape, dtype, device)
+                  for name, get in (fields or {}).items()}
+        want = reference_sweep(reference, block, z - h, n0, blocks)
         got = dst(z, z1)
         off += int((bits(got) != bits(want)).sum())
         gap = max(gap, float((got.double() - want.double()).abs().max()))
-        del block, want, got
+        del block, blocks, want, got
     return {"cells_off": off, "max_gap": gap}
 
 
-def sweep_in_chunks(reference, x: torch.Tensor, chunk: int, dtype: torch.dtype) -> torch.Tensor:
+def sweep_in_chunks(reference, x: torch.Tensor, chunk: int, dtype: torch.dtype,
+                    fields: dict | None = None) -> torch.Tensor:
     """A whole sweep of the grid `x` by the reference computed in `dtype`,
     chunk by chunk, returned in `x`'s dtype (the control, put in the
-    program's place)."""
+    program's place); `fields` maps each fixed field's name to its whole
+    grid."""
     h, n0 = reference.HALO, x.shape[0]
     out = torch.empty_like(x)
     for z in range(0, n0, chunk):
         z1 = min(z + chunk, n0)
-        block = zero_outside(lambda a, b: x[a:b], z - h, z1 + h, n0, x.shape[1:], x.dtype,
-                             x.device)
-        out[z:z1] = reference.sweep(block.to(dtype)).to(x.dtype)
+
+        def low(g):
+            return zero_outside(lambda a, b: g[a:b], z - h, z1 + h, n0, g.shape[1:], g.dtype,
+                                g.device).to(dtype)
+
+        blocks = {name: low(g) for name, g in (fields or {}).items()}
+        out[z:z1] = reference_sweep(reference, low(x), z - h, n0, blocks).to(x.dtype)
     return out

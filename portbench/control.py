@@ -7,7 +7,9 @@ control's and the faults'.  The benchmark's own runs never run this.
 `program` runs the cell as run.py does (its readings set the lower end of a
 limit).  The others put something in the place of the program's local
 sweep, `soda_tpu_torch.backend.cuda.build_fn`'s fn, which both entries
-call (the mesh on every shard), and leave the rest of the run as it is:
+call (the mesh on every shard), and leave the rest of the run as it is.
+The fn's first input is the state, the others the configuration's fixed
+fields:
 
     control      the reference in the program's place, computed in the
                  precision below the configuration's dtype (LOWER)
@@ -55,9 +57,10 @@ def _local(mode: str, real, reference, chunk: int, low):
     from portbench import check
 
     def fn(inputs, params, bufs=None):
-        (src, x), = inputs.items()
+        x = inputs[fn.src]
         if mode == "control":
-            return {fn.dst: check.sweep_in_chunks(reference, x, chunk, low)}
+            fields = {n: v for n, v in inputs.items() if n != fn.src}
+            return {fn.dst: check.sweep_in_chunks(reference, x, chunk, low, fields)}
         if mode == "unchanged":
             return {fn.dst: x}
         y = real(inputs, params, bufs=bufs)[fn.dst]
@@ -96,7 +99,7 @@ def patched(mode: str, reference, chunk: int, dtype: str = "float32"):
         real = None if mode in ("control", "unchanged") else real_build(
             program, the_plan, grid_shape, **kw)
         f = _local(mode, real, reference, chunk, low)
-        f.dst = program.output_names[0]
+        f.src, f.dst = program.input_names[0], program.output_names[0]
         return f
 
     with mock.patch.object(cuda, "build_fn", build_fn):

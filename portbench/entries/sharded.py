@@ -2,7 +2,8 @@
 `soda_tpu_torch.parallel.mesh.build_sharded_fn` on `ShardedGrid`s in and
 out, `g = {"t0": fn(g, {})["t1"]}` (the resident loop of
 scripts/torch_mesh_cards.py, copied, not imported).  The grid is laid out
-once by `shard_grid` from the tensor the benchmark made on the first card.
+once by `shard_grid` from the tensor the benchmark made on the first card,
+and each fixed field with it.
 The check reads each shard on its own card by the benchmark's own
 arithmetic of the layout (a sharded dim split in equal blocks, the last
 padded), not by the program's `gather_grid`."""
@@ -29,17 +30,19 @@ class System:
         self.fn = build_sharded_fn(program, self.mesh, grid_shape=self.grid,
                                    dims=list(self.dims), iterate=config["iterate"])
         self.src, self.dst = program.input_names[0], program.output_names[0]
+        self.fields = {}
         self.shard = list(self.grid)
         for size, d in zip(self.sizes, self.dims):
             self.shard[d] = -(-self.grid[d] // size)
 
-    def load(self, x: torch.Tensor):
+    def load(self, x: torch.Tensor, fields: dict):
         from soda_tpu_torch.parallel.sharded import shard_grid
 
+        self.fields = {n: shard_grid(f, self.mesh, list(self.dims)) for n, f in fields.items()}
         return shard_grid(x, self.mesh, list(self.dims))
 
     def call(self, g):
-        return self.fn({self.src: g}, {})[self.dst]
+        return self.fn({self.src: g, **self.fields}, {})[self.dst]
 
     def planes(self, g, a: int, b: int, device) -> torch.Tensor:
         """Planes [a, b) of dim 0 of the grid, assembled on `device` from
@@ -82,3 +85,4 @@ class System:
 
     def close(self) -> None:
         self.fn = None
+        self.fields = {}

@@ -4,8 +4,8 @@ timer, the statistics and the window's arithmetic.
 The parts of a cell are files found by the names in BENCHMARK.json, so a
 later change adds a cell or a metric by adding files:
 
-    configs/<config>.json      the program, grid, dtype, iterate, chips, mesh,
-                               entry, reference, roofline and limits
+    configs/<config>.json      the program, grid, dtype, fixed fields, iterate,
+                               chips, mesh, entry, reference, roofline and limits
     programs/<program>.soda    a frozen copy of the program
     traffic/<mix>.json         the loop's parameters, read by loop.py
     entries/<entry>.py         how the system under test is built and called
@@ -93,14 +93,16 @@ def peak_of(kind: str) -> dict | None:
 
 
 def bound_ms(count: dict, cells: int, sweeps: int, peak: dict | None) -> float | None:
-    """The least time of `sweeps` sweeps over `cells` cells on a card of
-    `peak`: the larger of the bytes over the memory's rate and the ops
-    over the float32 rate (None without a peak)."""
+    """The least time of one call of `sweeps` sweeps over `cells` cells on
+    a card of `peak`: the larger of the bytes over the memory's rate and
+    the ops over the float32 rate (None without a peak).  The ops count
+    every sweep, the bytes once a call: a call that fuses its sweeps need
+    read and write each cell only once."""
     if peak is None:
         return None
     bytes_s = count["bytes_per_cell"] * cells / peak["hbm_bytes_per_s"]
     ops_s = count["float32_ops_per_cell"] * cells / peak["float32_ops_per_s"]
-    return max(bytes_s, ops_s) * sweeps * 1e3
+    return max(bytes_s, ops_s * sweeps) * 1e3
 
 
 # -- statistics --------------------------------------------------------------
@@ -135,21 +137,21 @@ class Window:
         self.start: float | None = None
         self.end: float | None = None
         self.blocks_ms: list[float] = []
-        self.sweeps = 0
+        self.calls = 0
 
-    def add(self, t0: float, t1: float, sweeps: int) -> None:
+    def add(self, t0: float, t1: float, calls: int) -> None:
         if self.start is None:
             self.start = t0
         self.end = t1
         self.blocks_ms.append((t1 - t0) * 1e3)
-        self.sweeps += sweeps
+        self.calls += calls
 
     @property
     def seconds(self) -> float:
         return self.end - self.start
 
-    def gcells_per_s(self, cells: int) -> float:
-        return rate(cells * self.sweeps, self.seconds) / 1e9
+    def gcells_per_s(self, cells: int, sweeps_per_call: int = 1) -> float:
+        return rate(cells * self.calls * sweeps_per_call, self.seconds) / 1e9
 
     def block_p95_ms(self) -> float:
         return percentile(self.blocks_ms, 95)

@@ -7,11 +7,18 @@ slabs of that many planes along dim 0, slab k from a generator of its own
 seeded by (seed, k), so any run of planes can be made again, on the same
 device, without the rest of the grid: the check rebuilds the first input
 plane by plane instead of holding it.
+
+A configuration may also name `fields`: inputs of the program held fixed
+through the run beside the state, in the configuration's `dtype`, each
+with its own `dist`, `low`, `high` and `slab_planes`.  A field is made the
+same way from a seed of its own, `field_seed(seed, name)`, so the check
+makes any of its planes again too.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import torch
 
@@ -37,13 +44,29 @@ class Spec:
 
     @classmethod
     def of(cls, config: dict) -> "Spec":
-        got = config["inputs"]
+        """The state's: the configuration's `dtype` and `inputs`."""
+        return cls._make(config["dtype"], config["inputs"], "inputs")
+
+    @classmethod
+    def _make(cls, dtype: str, got: dict, what: str) -> "Spec":
         if got["dist"] not in DISTS:
-            raise ValueError(f"inputs.dist {got['dist']!r}: the generator makes only {DISTS}")
-        spec = cls(dtype_of(config["dtype"]), got["low"], got["high"], got["slab_planes"])
+            raise ValueError(f"{what}.dist {got['dist']!r}: the generator makes only {DISTS}")
+        spec = cls(dtype_of(dtype), got["low"], got["high"], got["slab_planes"])
         if not spec.low < spec.high:
-            raise ValueError(f"inputs on [{spec.low}, {spec.high}): an empty range")
+            raise ValueError(f"{what} on [{spec.low}, {spec.high}): an empty range")
         return spec
+
+
+def fields_of(config: dict) -> dict[str, Spec]:
+    """The configuration's fixed fields by name (none without `fields`)."""
+    return {name: Spec._make(config["dtype"], got, f"fields.{name}")
+            for name, got in (config.get("fields") or {}).items()}
+
+
+def field_seed(seed: int, name: str) -> int:
+    """The seed the field `name` is made from, for a run of `seed`."""
+    salt = int.from_bytes(hashlib.blake2b(name.encode(), digest_size=8).digest(), "little")
+    return (seed * 1_000_033 ^ salt) & _MASK
 
 
 def slab_seed(seed: int, k: int) -> int:

@@ -2,8 +2,12 @@
 
 The caller enqueues `block_sweeps` calls of the system under test back to
 back, each call's output the next call's input, then synchronises every
-card the cell uses, and only then starts the next block.  The grid is made
-on the first card from the seed and stays on the cards throughout.
+card the cell uses, and only then starts the next block.  A call runs the
+configuration's `iterate` sweeps, so `block_sweeps` counts calls.  The
+grid is made on the first card from the seed and stays on the cards
+throughout.  The state is the program's first input; the configuration's
+`fields`, made on the first card from the seed too, are its other inputs,
+held fixed and passed on every call.
 
 This is the only loop there is: a traffic file whose `loop` is not
 "closed" or whose `callers` is not 1 is refused, not run as this one.
@@ -87,6 +91,7 @@ class Cell:
             raise ValueError("warm_blocks: one block holding nothing, then at least one "
                              "holding the check's grids")
         self.inputs = inputs.Spec.of(self.config)
+        self.fields = inputs.fields_of(self.config)
         self.grid = tuple(grid or self.config["grid"])
         self.devices = list(devices or [f"cuda:{i}" for i in range(self.config["chips"])])
         self.cells = math.prod(self.grid)
@@ -140,6 +145,10 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float, log)
     per_block = tr["block_sweeps"]
     stamp("imports done")
     program = parse_file(harness.program_path(cfg["program"]))
+    if set(program.input_names[1:]) != set(cell.fields):
+        raise ValueError(f"program {cfg['program']!r} reads {program.input_names}: the state "
+                         f"{program.input_names[0]!r} and fields {program.input_names[1:]}, "
+                         f"the config names fields {sorted(cell.fields)}")
     sut = cell.system_cls(program, cfg, cell.grid, cell.devices)
     stamp("system built")
     first = torch.device(cell.devices[0])
@@ -149,7 +158,10 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float, log)
         for d in cards:
             torch.cuda.reset_peak_memory_stats(d)
 
-    x = sut.load(inputs.grid(cell.grid, seed, cell.inputs, first))
+    fields = {name: inputs.grid(cell.grid, inputs.field_seed(seed, name), spec, first)
+              for name, spec in cell.fields.items()}
+    x = sut.load(inputs.grid(cell.grid, seed, cell.inputs, first), fields)
+    del fields
     sync(cards)
     release(cards)        # the grid as made, once laid out
     stamp("grid made and laid out")
@@ -315,6 +327,9 @@ def _profiled(sut, box: list, blocks: int, per_block: int, cards, keep_last: boo
 def _judge(cell: Cell, seed: int, held: dict, planes, device, log) -> dict:
     n0, shape = cell.grid[0], cell.grid[1:]
     chunk = cell.traffic["check"]["chunk_planes"]
+    fields = {name: lambda a, b, name=name, spec=spec: inputs.planes(
+                  cell.grid, inputs.field_seed(seed, name), a, b, spec, device)
+              for name, spec in cell.fields.items()}
     out = {}
     for name, (src, dst) in held.items():
         if src is None:
@@ -325,7 +340,7 @@ def _judge(cell: Cell, seed: int, held: dict, planes, device, log) -> dict:
                 return planes(src, a, b, device)
         out[name] = check.compare_sweep(cell.reference, get_src,
                                         lambda a, b, dst=dst: planes(dst, a, b, device),
-                                        n0, shape, chunk, cell.inputs.dtype, device)
+                                        n0, shape, chunk, cell.inputs.dtype, device, fields)
         log(f"check {name}: {out[name]['cells_off']} cells off of {cell.cells}, "
             f"widest gap {out[name]['max_gap']!r}")
     return out

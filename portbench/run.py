@@ -68,12 +68,13 @@ def result(bench: dict, cell, got: dict, trace: bool) -> dict:
            "attempted": len(window.blocks_ms), "failed": failed}
     metrics = {}
     if not trace:
-        values = {"gcells_per_s": window.gcells_per_s(cell.cells),
+        values = {"gcells_per_s": window.gcells_per_s(cell.cells, cell.config["iterate"]),
                   "block_p95_ms": window.block_p95_ms(), "setup_s": got["setup_s"]}
         for m in harness.metrics_of(bench, cell.name, "end_to_end"):
             metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
         log(f"window {window.seconds!r} s, {len(window.blocks_ms)} blocks of "
-            f"{cell.traffic['block_sweeps']} sweeps, {window.sweeps} sweeps; block ms median "
+            f"{cell.traffic['block_sweeps']} calls of {cell.config['iterate']} sweeps, "
+            f"{window.calls} calls; block ms median "
             f"{harness.percentile(window.blocks_ms, 50)!r}, p95 {values['block_p95_ms']!r}, "
             f"max {max(window.blocks_ms)!r}")
     else:

@@ -27,4 +27,14 @@ def card():
 
 # tiny grids on the CPU: the program's plain path stands in for its kernels
 TINY = (20, 12, 16)
-CPU_DEVICES = {"jacobi3d-512.loop": ["cpu"], "jacobi3d-2048.mesh-loop": ["cpu"] * 4}
+# a rank-2 grid of three chunks of the check's 64 rows, the last one short
+TINY_2D = (150, 40)
+CPU_DEVICES = {"jacobi3d-512.loop": ["cpu"], "jacobi3d-2048.mesh-loop": ["cpu"] * 4,
+               "jacobi2d-16384.loop": ["cpu"]}
+GRIDS = {"jacobi2d-16384.loop": TINY_2D}
+
+
+def tiny(cell: str) -> tuple[int, ...]:
+    """The tiny grid a CPU test runs `cell` at."""
+    return GRIDS.get(cell, TINY)
+

@@ -2,18 +2,20 @@
 the control (the reference in bfloat16 in the program's place) fails: the
 rest of a run, past the look for a card, at sizes a test run holds."""
 
+import math
+
 import pytest
 
 from portbench import control, harness, loop, run
 
-from conftest import CPU_DEVICES, TINY
+from conftest import CPU_DEVICES, TINY, tiny
 
 BENCH = harness.load_benchmark()
 SEEDS = [3, 2**31 + 17]
 
 
 def _correct(cell, mode, seed):
-    got = control.readings(cell, [seed], 0.05, mode, grid=TINY, devices=CPU_DEVICES[cell],
+    got = control.readings(cell, [seed], 0.05, mode, grid=tiny(cell), devices=CPU_DEVICES[cell],
                            log=lambda *a: None)[seed]
     return got
 
@@ -29,7 +31,7 @@ def test_the_program_is_correct(cell, seed):
 @pytest.mark.parametrize("cell", sorted(CPU_DEVICES))
 def test_the_control_fails(cell, seed):
     got = _correct(cell, "control", seed)
-    cells = TINY[0] * TINY[1] * TINY[2]
+    cells = math.prod(tiny(cell))
     assert not got["correct"]
     # bfloat16 rounds nearly every cell away from the float32 reference
     assert min(got["checks"].values()) > cells // 2

@@ -14,7 +14,9 @@ from portbench import control
 from conftest import CHECKOUT
 
 SMALL = (96, 64, 128)
-ONE_CARD = {"jacobi3d-512.loop": ["cuda:0"], "jacobi3d-2048.mesh-loop": ["cuda:0"] * 4}
+SMALL_GRIDS = {"jacobi2d-16384.loop": (200, 1024)}
+ONE_CARD = {"jacobi3d-512.loop": ["cuda:0"], "jacobi3d-2048.mesh-loop": ["cuda:0"] * 4,
+            "jacobi2d-16384.loop": ["cuda:0"]}
 
 
 @pytest.mark.gpu
@@ -33,6 +35,6 @@ def test_a_short_run_of_the_one_card_cell(card):
 @pytest.mark.parametrize("mode,correct", [("program", True), ("control", False),
                                           ("altered", False)])
 def test_readings_on_the_card(card, cell, mode, correct):
-    got = control.readings(cell, [5, 2**31 + 1], 0.2, mode, grid=SMALL,
+    got = control.readings(cell, [5, 2**31 + 1], 0.2, mode, grid=SMALL_GRIDS.get(cell, SMALL),
                            devices=ONE_CARD[cell], log=lambda *a: None)
     assert all(g["correct"] is correct for g in got.values()), got

@@ -18,9 +18,11 @@ import json, sys
 sys.path.insert(0, sys.argv[1])
 from portbench import control, harness, loop, run
 bench = harness.load_benchmark()
-for name, devs in (("jacobi3d-512.loop", ["cpu"]), ("jacobi3d-2048.mesh-loop", ["cpu"] * 4)):
+for name, devs, grid in (("jacobi3d-512.loop", ["cpu"], (12, 8, 10)),
+                         ("jacobi3d-2048.mesh-loop", ["cpu"] * 4, (12, 8, 10)),
+                         ("jacobi2d-16384.loop", ["cpu"], (40, 24))):
     for trace in (False, True):
-        cell = loop.Cell(bench, name, grid=(12, 8, 10), devices=devs)
+        cell = loop.Cell(bench, name, grid=grid, devices=devs)
         got = loop.run(cell, 1, 0.02, trace, 0.0, lambda *a: None)
         run.result(bench, cell, got, trace)
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))

@@ -13,7 +13,7 @@ import pytest
 
 from portbench import harness, loop, run
 
-from conftest import CHECKOUT, CPU_DEVICES, TINY
+from conftest import CHECKOUT, CPU_DEVICES, TINY, tiny
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -60,7 +60,8 @@ def test_every_part_of_a_cell_found_by_name(cell):
     assert c.config["name"] == c.workload["config"]
     assert c.traffic["name"] == c.workload["traffic"]
     assert harness.program_path(c.config["program"]).is_file()
-    assert hasattr(c.reference, "sweep") and c.system_cls.__name__ == "System"
+    assert hasattr(c.reference, "sweep") or hasattr(c.reference, "sweep_at")
+    assert c.system_cls.__name__ == "System"
     assert c.config["chips"] == c.workload["chips"] == len(c.devices)
     for m in harness.metrics_of(BENCH, cell, "per_layer"):
         assert callable(harness.load_module("layers", m["name"]).read)
@@ -97,7 +98,7 @@ def test_an_added_file_is_found_without_editing(tmp_path, monkeypatch):
     cell = loop.Cell(bench, "jacobi3d-512.loop16", grid=TINY, devices=["cpu"])
     assert cell.traffic["block_sweeps"] == 16
     got = loop.run(cell, 5, 0.05, False, 0.0, lambda *a: None)
-    assert got["window"].sweeps % 16 == 0 and all(c["cells_off"] == 0
+    assert got["window"].calls % 16 == 0 and all(c["cells_off"] == 0
                                                    for c in got["checks"].values())
     names = [m["name"] for m in harness.metrics_of(bench, cell.name, "per_layer")]
     assert names == ["blocks_seen.loop"]
@@ -137,7 +138,7 @@ def test_held_bytes_count_each_storage_once():
 @pytest.mark.parametrize("trace", [0, 1])
 @pytest.mark.parametrize("cell", sorted(CPU_DEVICES))
 def test_the_last_lines_keys(cell, trace):
-    c = loop.Cell(BENCH, cell, grid=TINY, devices=CPU_DEVICES[cell])
+    c = loop.Cell(BENCH, cell, grid=tiny(cell), devices=CPU_DEVICES[cell])
     got = loop.run(c, 2**31 + 3, 0.05, bool(trace), 0.0, lambda *a: None)
     out = json.loads(json.dumps(run.result(BENCH, c, got, bool(trace))))
     keys = list(out)

@@ -43,7 +43,8 @@ def test_roofline_count_of_jacobi3d_at_512():
     assert bound == pytest.approx(0.3205, abs=5e-5)
     ops_ms = count["float32_ops_per_cell"] * cells / peak["float32_ops_per_s"] * 1e3
     assert ops_ms == pytest.approx(0.014, abs=5e-4) and ops_ms < bound   # bytes bound it
-    assert harness.bound_ms(count, cells, 4, peak) == pytest.approx(4 * bound)
+    # a call of 4 fused sweeps still reads and writes each cell once
+    assert harness.bound_ms(count, cells, 4, peak) == pytest.approx(bound)
     assert harness.peak_of("cpu") is None and harness.bound_ms(count, cells, 1, None) is None
 
 

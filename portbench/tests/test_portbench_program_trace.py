@@ -76,6 +76,7 @@ def test_the_cpu_plain_path_leaves_the_new_metrics_out(cell, trace):
 def test_each_new_metric_reads_its_own_cells():
     bench = harness.load_benchmark()
     per_layer = {m["name"]: m for m in bench["per_layer"]}
-    assert per_layer["wrapper_us.loop"]["workloads"] == ["jacobi3d-512.loop"]
+    assert per_layer["wrapper_us.loop"]["workloads"] == ["jacobi3d-512.loop",
+                                                         "jacobi2d-16384.loop"]
     for name in NEW[1:]:
         assert per_layer[name]["workloads"] == ["jacobi3d-2048.mesh-loop"]
