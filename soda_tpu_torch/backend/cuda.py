@@ -59,14 +59,31 @@ def feed_counts() -> dict[str, int]:
     return dict(linebuffer.FEED_LAUNCHES)
 
 
+def stage_count() -> int:
+    """Stages computed on chip by the z-march's launches since
+    `reset_launches`, summed over the launches: a launch of one sweep
+    computes its group's stages (3 for denoise3d, 1 for jacobi3d), a
+    cascade's each of its fused sweeps' (`linebuffer.STAGES`)."""
+    return linebuffer.STAGES
+
+
+def planned_bytes() -> int:
+    """Device-memory bytes planned for every kernel wrapper's launches since
+    `reset_launches`, each launch its group's
+    `GroupPlan.hbm_bytes_per_call` (`linebuffer.PLANNED_BYTES`)."""
+    return linebuffer.PLANNED_BYTES
+
+
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch count and the z-march's counts by
-    feed to 0, and clear the timing spans and device intervals
-    (`utils/trace.py::reset`) with them."""
+    """Set every kernel wrapper's launch count, the z-march's counts by
+    feed and its stage count, and the planned bytes to 0, and clear the
+    timing spans and device intervals (`utils/trace.py::reset`) with
+    them."""
     for m in COUNTED.values():
         m.LAUNCHES = 0
     for feed in linebuffer.FEED_LAUNCHES:
         linebuffer.FEED_LAUNCHES[feed] = 0
+    linebuffer.STAGES = linebuffer.PLANNED_BYTES = 0
     trace.reset()
 
 

@@ -19,9 +19,10 @@ ring slots guarded by mbarriers, and every thread waits on the slot of
 the step's leading plane; elsewhere ("scalar") each thread loads its
 elements of the next step's plane into registers during step s and
 stores them to the ring before the step's wait.  `FEED_LAUNCHES` counts
-the z-march's launches by feed.  Step s computes each stage at level L
-(`GroupPlan.levels`) at the plane of step s - (L - 1): its leading plane
-(or, for outputs no stage of the group reads, an output plane).  With
+the z-march's launches by feed, `STAGES` the stages they compute on chip.
+Step s computes each stage at level L (`GroupPlan.levels`) at the plane
+of step s - (L - 1): its leading plane (or, for outputs no stage of the
+group reads, an output plane).  With
 `GroupPlan.sync` "skew" no stage reads a plane written in the same step,
 so the stages need no barrier between them; with "barrier" every stage
 is at level 1 and a barrier follows each stage but the last.  A step
@@ -61,6 +62,12 @@ LAUNCHES = 0
 # z-march launches (kernel 1, and the rank-3 cascade it runs) by the feed
 # of their input rings (`GroupPlan.feed`): "tma" or "scalar"
 FEED_LAUNCHES = {"tma": 0, "scalar": 0}
+# stages computed on chip by the z-march's launches, each launch its
+# group's (a cascade's once a sweep: `GroupPlan.stages` lists them so)
+STAGES = 0
+# device-memory bytes planned for the launches of every kernel wrapper,
+# each launch its group's `GroupPlan.hbm_bytes_per_call`
+PLANNED_BYTES = 0
 
 
 def _ctype_store(program: StencilProgram, name: str) -> str:
@@ -455,8 +462,11 @@ class GroupKernel:
     Called on CPU tensors it runs `group_plain`.  Called on CUDA tensors it
     builds the kernel (once), checks every tensor, allocates the outputs
     (unless `out` provides them) and launches on the current stream; it
-    never falls back.  `LAUNCHES` counts the launches.  On CUDA tensors the
-    call is the span `soda.kernel` (`utils/trace.py`).
+    never falls back.  `LAUNCHES` counts the launches, `PLANNED_BYTES` adds
+    their planned bytes and, for the z-march, `FEED_LAUNCHES` and `STAGES`
+    their feed and stages.  On CUDA tensors the call is the span
+    `soda.kernel` (`utils/trace.py`), with the group's stage count as its
+    argument `stages`.
 
     `linebuffer2d.GroupKernel` (kernel 2, rank 2), `sweeps.GroupKernel`
     (fused sweeps, ranks 2 and 3) and `windows.GroupKernel` (kernel 4,
@@ -472,6 +482,7 @@ class GroupKernel:
         self.name = f"{self.prefix}_{program.name}"
         self._source: str | None = None
         self._entry = None          # the loaded C entry, after the first build
+        self._span_args = {"stages": len(g.stages)}
 
     def _generate(self) -> str:
         return kernel_source(self.program, self.group)
@@ -558,7 +569,7 @@ class GroupKernel:
             return self._plain(values, params)
         if device.type != "cuda":
             raise ValueError(f"the {self.prefix} kernel runs on CUDA tensors, got {device}")
-        with trace.span("soda.kernel"):
+        with trace.span("soda.kernel", self._span_args):
             shape = tuple(values[g.external_inputs[0]].shape)
             if len(shape) != self.rank or min(shape) == 0:
                 raise ValueError(f"the {self.prefix} kernel takes a non-empty "
@@ -586,6 +597,9 @@ class GroupKernel:
                 self.launch(self._entry, values, params, outs,
                             torch.cuda.current_stream(device).cuda_stream)
             self._count()
+            global PLANNED_BYTES, STAGES
+            PLANNED_BYTES += g.hbm_bytes_per_call
             if g.kernel == "linebuffer3d":
                 FEED_LAUNCHES[g.feed] += 1
+                STAGES += len(g.stages)
             return outs

@@ -685,8 +685,9 @@ def main(argv=None) -> int:
 def _trace_table(the_plan) -> list[str]:
     """The program's spans over the profiled run (count, total and self
     ms) and its device intervals by card, as `utils/trace.py` holds them;
-    then the z-march's launches by feed (`cuda.feed_counts()`) and each
-    z-march group's feed."""
+    then the z-march's launches by feed (`cuda.feed_counts()`), the stages
+    they computed on chip (`cuda.stage_count()`), the bytes planned for
+    every launch (`cuda.planned_bytes()`) and each z-march group's feed."""
     from ..backend import cuda
     from ..utils import trace
 
@@ -699,6 +700,8 @@ def _trace_table(the_plan) -> list[str]:
             lines.append(f"interval {kind} on {card}: {n} x, {ms:.3f} ms, "
                          f"{ms / n:.4f} ms each")
     lines.append(f"z-march launches by feed: {cuda.feed_counts()}")
+    lines.append(f"z-march stages on chip: {cuda.stage_count()}")
+    lines.append(f"planned device-memory bytes: {cuda.planned_bytes()}")
     for i, g in enumerate(the_plan.groups):
         if g.kernel == "linebuffer3d":
             ahead = f", {g.ahead} step(s) ahead" if g.ahead else ""

@@ -16,9 +16,20 @@ needs no event of its own; within a card, stream order suffices.
 Each sweep, or each chunk of `sweeps_per_exchange` fused sweeps, a shard
 is extended along every sharded dim by its neighbours' rows (the chain
 creep of one sweep x the chunk's sweeps, `StencilProgram.chain_creep`),
-runs the chunk on the extended shard and keeps its centre: the
-reference's overlapped tiling across devices.  Shards at the mesh's edge
-get zero halos, which is the zero-fill border.  Every local evaluation
+runs the chunk on the extended shard (its window) and keeps the shard:
+the reference's overlapped tiling across devices.  Shards at the mesh's
+edge get zero halos past the grid's edge, which is the zero-fill border of
+a single stage.  A multi-stage program's intermediate stages are not zero
+when evaluated there (grad = sqrt(... + 0.0001f) of zeros, or a tap of a
+cell inside the grid), whereas the whole grid holds every stage at zero
+outside it.  So on one level of exchanges an edge shard's window moves
+inside the grid until its side lies on the grid's edge, as host tiling's
+windows do: the first shard along an axis takes both halos from above it,
+the last from below, and an axis of one shard takes none.  The local
+evaluation's own edge is then the grid's, where the kernels and the plain
+path store zero at every stage and every fused sweep.  Every window keeps
+one shape, so one `build_fn` still serves every shard; a shard sits in
+its window where the window's move puts it (`low`).  Every local evaluation
 goes through `backend/cuda.py::build_fn` at its own shape (`local_backend
 ="cuda"`): on a card kernels 1 to 4 and the fused sweeps, as the planner
 chooses for the shape, on the CPU each group's plain version; or through
@@ -37,10 +48,16 @@ Uneven grids pad to shard: each sharded dim is zero-padded up to a
 multiple of its mesh axis, the pad rows of every output are re-zeroed
 after every chunk (so an exchange carries zeros from them, the zero-fill
 contract), and the result is sliced back.  Correctness contract
-(docs/SEMANTICS.md "Border"): at one sweep an exchange a single-stage
-program equals the whole-grid run bit for bit; deeper cadences, and the
-intermediate stages of a multi-stage program evaluated in a halo past the
-grid's edge, differ only inside `valid_rim()`.
+(docs/SEMANTICS.md "Border"): the whole-grid run, bit for bit on the whole
+grid, for a single-stage program at one sweep an exchange, and for a
+multi-stage program on one level of exchanges at any cadence where the
+mesh divides the grid evenly and each window fits in the grid (both halos
+within the other shards of the axis).  Elsewhere the result differs only
+inside `valid_rim()`: a single stage's deeper cadences, a multi-stage
+program's nested cadences, the far edge of a padded dim (a pad row is
+not the grid's edge to the local evaluation) and windows wider than the
+grid.  A multi-stage program whose windows move runs the synchronous
+chunk, `overlap` or not.
 
 Shards keep the declared storage dtypes between chunks: int64, uint64
 and f64 shard natively (the reference's f32/int32 local cast and 64-bit
@@ -136,17 +153,21 @@ def _halo_rows(n_loc: int, lo: int, hi: int):
     return rows
 
 
-def _exchange(ext: Sequence[torch.Tensor], dim: int, lo: int, hi: int) -> int:
-    """Fill the halo rows of `ext[i]` along `dim` (rows [0, lo) and past
-    lo + n_loc) from the centres of its neighbours along the list, zeros
-    past its ends.  Returns the bytes copied between shards."""
+def _exchange(ext: Sequence[torch.Tensor], dim: int, lo: int, hi: int,
+              lows: Sequence[int] | None = None) -> int:
+    """Fill the halo rows of `ext[i]` along `dim` from the shards of its
+    neighbours along the list, zeros past its ends: the `lows[i]` rows
+    before shard i (by default `lo` for every shard) and the lo + hi -
+    lows[i] rows after it; shard i starts at row `lows[i]` of `ext[i]`.
+    Returns the bytes copied between shards."""
     n_loc = ext[0].shape[dim] - lo - hi
+    lows = lows or [lo] * len(ext)
     moved = 0
     for i, x in enumerate(ext):
-        for hop, cnt, at, src in _halo_rows(n_loc, lo, hi):
+        for hop, cnt, at, src in _halo_rows(n_loc, lows[i], lo + hi - lows[i]):
             dst = bits(x).narrow(dim, at, cnt)
             if 0 <= i + hop < len(ext):
-                dst.copy_(bits(ext[i + hop]).narrow(dim, lo + src, cnt))
+                dst.copy_(bits(ext[i + hop]).narrow(dim, lows[i + hop] + src, cnt))
                 moved += dst.numel() * dst.element_size()
             else:
                 dst.zero_()
@@ -345,7 +366,8 @@ def build_sharded_fn(
     compute stream while the halos are exchanged on a copy stream; then
     only the boundary slabs (2·lo + hi rows a side) run again on the
     extended shard and are stitched in.  Equal to the synchronous chunk
-    bit for bit; halos wider than one shard and nested cadences take the
+    bit for bit; halos wider than one shard, nested cadences and a
+    multi-stage program whose edge windows move inside the grid take the
     synchronous chunk.
 
     `fn.stats` holds the last call's `scatter_bytes` (whole inputs into
@@ -419,9 +441,28 @@ def build_sharded_fn(
         order = sorted(range(len(msize)), key=lambda a: -cad[axis_names[a]])
         levels = [((a,), cad[axis_names[a]]) for a in order]
 
+    # a multi-stage program on one level: the windows move inside the grid
+    multi = len(levels) == 1 and len(program.stage_order()) > 1
+
     def halo(a: int, k: int) -> tuple[int, int]:
+        if multi and msize[a] == 1:
+            return 0, 0         # the axis's one shard: its edges are the grid's
         d = dims[a]
         return -creep[d][0] * k, creep[d][1] * k
+
+    # the axes along which an edge shard's window moves inside the grid:
+    # those whose windows fit in it
+    moves = {a for a in range(len(msize)) if multi and msize[a] > 1
+             and sum(halo(a, nf)) <= (msize[a] - 1) * shard[dims[a]]}
+
+    def low(level: int, a: int, i: int) -> int:
+        """Rows of the window before position i's shard along mesh axis a,
+        at level `level`: the low halo, or where the window moves, none at
+        the first position and both halos at the last."""
+        lo, hi = halo(a, levels[level][1])
+        if a not in moves or 0 < i < msize[a] - 1:
+            return lo
+        return 0 if i == 0 else lo + hi
 
     # the shape each level's arrays take once extended along its axes
     ext_shapes = []
@@ -430,7 +471,7 @@ def build_sharded_fn(
         for a in axes:
             shape[dims[a]] += sum(halo(a, k))
         ext_shapes.append(tuple(shape))
-    overlap_ok = (overlap and cad is None
+    overlap_ok = (overlap and cad is None and not moves
                   and all(max(halo(a, nf)) <= shard[dims[a]] for a in range(len(msize))))
     # the overlap's boundary slabs: (axis, first row in the extended shard =
     # the first of the shard's rows its strip replaces, rows, strip rows)
@@ -475,9 +516,10 @@ def build_sharded_fn(
         return torch.empty(shape, dtype=torch_dtype(program.tensors[name].type),
                            device=device_of[idx])
 
-    def centre(x: torch.Tensor, level: int) -> torch.Tensor:
-        axes, k = levels[level]
-        return narrow(x, {dims[a]: (halo(a, k)[0], shard[dims[a]]) for a in axes})
+    def centre(x: torch.Tensor, level: int, idx) -> torch.Tensor:
+        """Position `idx`'s shard in `x`, its window at level `level`."""
+        return narrow(x, {dims[a]: (low(level, a, idx[a]), shard[dims[a]])
+                          for a in levels[level][0]})
 
     def exchange(level: int, ext: dict, names) -> None:
         """Fill the halos of level `level`'s axes in `ext[idx][name]`
@@ -491,14 +533,18 @@ def build_sharded_fn(
                 lo, hi = halo(a, k)
                 if lo == hi == 0:
                     continue
-                later = {dims[b]: (halo(b, k)[0], shard[dims[b]]) for b in axes[q + 1:]}
+                # where the windows move (passed only then: the benchmark's
+                # fault `no_exchange` replaces `_exchange` with four arguments)
+                kw = {"lows": [low(level, a, i) for i in range(msize[a])]} if a in moves else {}
                 for rest in itertools.product(*(range(m) if b != a else [None]
                                                 for b, m in enumerate(msize))):
                     line = [rest[:a] + (i,) + rest[a + 1:] for i in range(msize[a])]
+                    later = {dims[b]: (low(level, b, rest[b]), shard[dims[b]])
+                             for b in axes[q + 1:]}
                     for name in names:
                         stats["exchange_bytes"] += _exchange(
                             [narrow(ext[idx][name], later) for idx in line],
-                            dims[a], lo, hi)
+                            dims[a], lo, hi, **kw)
 
     def mask_pads(outs: dict, level: int) -> None:
         """Zero the pad rows of level `level`'s dims in every output: only
@@ -513,16 +559,14 @@ def build_sharded_fn(
                     for v in vals.values():
                         bits(v).narrow(d, valid, shard[d] - valid).zero_()
 
-    # where a shard sits in its level-0 extended buffer
     room_strides = torch.empty(ext_shapes[0], device="meta").stride()
-    room_offset = sum(halo(a, levels[0][1])[0] * room_strides[dims[a]]
-                      for a in range(len(msize)))
 
-    def room(t: torch.Tensor):
-        """The level-0 extended buffer around `t` when `t` is its centre, as
-        the shards of a grid this fn returned are (their halo rows are free
-        to refill), else None."""
-        if (t.stride() == room_strides and t.storage_offset() == room_offset
+    def room(t: torch.Tensor, idx):
+        """The level-0 extended buffer around `t` when `t` is position
+        `idx`'s shard in it, as the shards of a grid this fn returned are
+        (their halo rows are free to refill), else None."""
+        offset = sum(low(0, a, idx[a]) * room_strides[dims[a]] for a in range(len(msize)))
+        if (t.stride() == room_strides and t.storage_offset() == offset
                 and t.untyped_storage().nbytes()
                 == math.prod(ext_shapes[0]) * t.element_size()):
             return t.as_strided(ext_shapes[0], room_strides, 0)
@@ -554,10 +598,10 @@ def build_sharded_fn(
                 for idx in positions:
                     for n in program.input_names:
                         x = source(idx, n)
-                        base = room(x) if fresh else None
+                        base = room(x, idx) if fresh else None
                         if base is None:
                             base = ext[idx][n]
-                            copy_padded(centre(base, level), x)
+                            copy_padded(centre(base, level, idx), x)
                         first[idx][n] = base
                 exchange(level, first, program.input_names)
                 ins = first
@@ -568,7 +612,7 @@ def build_sharded_fn(
                 exchange(level, ins, [in0])
             else:
                 for idx in positions:
-                    _copy(centre(ext[idx][in0], level), outs[idx][out0])
+                    _copy(centre(ext[idx][in0], level, idx), outs[idx][out0])
                 exchange(level, ext, [in0])
                 ins = ext
             if inner:
@@ -578,7 +622,7 @@ def build_sharded_fn(
                         for idx in positions}
             else:
                 full = run_level(level + 1, lambda idx, n: ext[idx][n], k, pars)
-            outs = {idx: {n: centre(v, level) for n, v in full[idx].items()}
+            outs = {idx: {n: centre(v, level, idx) for n, v in full[idx].items()}
                     for idx in positions}
             mask_pads(outs, level)
         return outs
@@ -621,7 +665,7 @@ def build_sharded_fn(
             with on_streams(copy_streams.values()):
                 for idx in positions:
                     for n in names:
-                        _copy(centre(ext[idx][n], 0), state[idx][n])
+                        _copy(centre(ext[idx][n], 0, idx), state[idx][n])
                 exchange(0, ext, names)
                 copied = {dev: s.record_event() for dev, s in copy_streams.items()}
             # meanwhile the interiors, from the shards' own rows

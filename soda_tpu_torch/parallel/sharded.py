@@ -18,8 +18,8 @@ device.  `parallel/mesh.py::build_sharded_fn`'s fn takes and returns
 Each sharded dim is padded up to a multiple of its mesh axis, as the
 sharded fn pads it (pad to shard); the pad rows of every shard hold zero,
 which is the zero-fill border the sharded fn keeps (`mask_pads`).  A grid
-the sharded fn returned keeps each shard as the centre of a buffer with
-room for its halos, so the next call refills those rows in place and
+the sharded fn returned keeps each shard inside a buffer with room for its
+halos (its window), so the next call refills those rows in place and
 copies no shard; the rows around a shard belong to the mesh, its own never
 change.
 Integers up to 64 bits, uint64 copied through its int64 view

@@ -4,7 +4,9 @@ while a profiler records.
 These are spans of time, not the stencil spans of `plan/spans.py` (how far
 a stage reaches over the grid).
 
-`span(name)` marks a step of the host: `with trace.span("soda.fn"): ...`.
+`span(name, args)` marks a step of the host: `with trace.span("soda.fn"):
+...`; `args`, a dict made once by the caller, goes with the range as its
+arguments (the profiler keeps them where it records shapes).
 `device_interval(kind, *devices)` marks what each card's current stream
 runs between its entry and its exit, by a pair of CUDA events a card.
 Both are on exactly while `torch.autograd.profiler` records (a
@@ -69,21 +71,22 @@ _pending: list[tuple] = []          # (kind, card, start event, end event)
 _device: dict[tuple[str, str], list] = {}   # (kind, card) -> [intervals, ms]
 
 
-def span(name: str):
-    """A context timing one step of the host while a profiler records."""
+def span(name: str, args: dict | None = None):
+    """A context timing one step of the host while a profiler records,
+    `args` the range's arguments."""
     if not _profiler._is_profiler_enabled:
         return _OFF
-    return _Span(name)
+    return _Span(name, args)
 
 
 class _Span:
-    __slots__ = ("name", "rf", "t0", "child")
+    __slots__ = ("name", "args", "rf", "t0", "child")
 
-    def __init__(self, name: str):
-        self.name = name
+    def __init__(self, name: str, args: dict | None):
+        self.name, self.args = name, args
 
     def __enter__(self):
-        self.rf = _record(self.name)
+        self.rf = _record(self.name, (), self.args) if self.args else _record(self.name)
         self.rf.__enter__()
         self.child = 0.0
         _open.append(self)

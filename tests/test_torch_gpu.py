@@ -481,3 +481,68 @@ def test_mesh_of_shards_on_one_card(cuda_device, name, grid, sizes, kw, overlap)
     cpu = mesh.run_sharded(p, ins, ps, axis_sizes=sizes, devices=["cpu"] * n,
                            overlap=overlap, **kw)
     assert compare_outputs(p, to_numpy(p, got), to_numpy(p, cpu), 0)
+
+
+def _denoise3d_inputs(shape, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {"u": torch.rand(shape, generator=g, device=device),
+            "rhs": torch.rand(shape, generator=g, device=device)}
+
+
+@pytest.mark.gpu
+def test_denoise3d_at_512_is_one_launch_of_three_stages_equal_to_the_reference(cuda_device):
+    """The benchmark's multi-stage configuration on the main path: a call
+    is one TMA-fed launch of kernel 1 computing three stages and moving the
+    plan's bytes, bit for bit against the benchmark's reference computed on
+    the card in blocks of 64 planes."""
+    from portbench import harness
+
+    ref = harness.load_module("reference", "denoise3d")
+    p = parse_file(harness.program_path("denoise3d"))
+    shape, h = (512, 512, 512), ref.HALO
+    x = _denoise3d_inputs(shape, cuda_device, 18)
+    fn = cuda.build_fn(p, grid_shape=shape)
+    fn(x, {})
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    got = fn(x, {})["unew"]
+    torch.cuda.synchronize()
+    (g,) = fn.plan.groups
+    assert (g.stages, g.feed) == (["grad", "w", "unew"], "tma")
+    assert sum(cuda.launch_counts().values()) == cuda.feed_counts()["tma"] == 1
+    assert cuda.stage_count() == 3 and cuda.planned_bytes() == g.hbm_bytes_per_call
+
+    def block(t, a, b):
+        out = torch.zeros((b - a, *shape[1:]), device=cuda_device)
+        out[max(a, 0) - a:min(b, shape[0]) - a] = t[max(a, 0):min(b, shape[0])]
+        return out
+
+    for z in range(0, shape[0], 64):
+        want = ref.sweep_at(block(x["u"], z - h, z + 64 + h), z - h, shape[0],
+                            block(x["rhs"], z - h, z + 64 + h))
+        assert torch.equal(_bits(got[z:z + 64]), _bits(want)), z
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,dims", [([2, 2], [0, 1]), ([4], [0])])
+def test_a_multi_stage_program_on_shards_of_one_card_equals_the_whole_grid(cuda_device,
+                                                                           sizes, dims):
+    """denoise3d kept on four shards of the card for three calls, u fed
+    back and rhs fixed: bit for bit the whole-grid kernel's result on the
+    whole grid, its faces included (an edge shard's window lies inside the
+    grid)."""
+    from soda_tpu_torch.parallel import mesh
+    from soda_tpu_torch.parallel.sharded import gather_grid, shard_grid
+
+    p = _program("denoise3d")
+    grid = (64, 64, 128)
+    x = _denoise3d_inputs(grid, cuda_device, 19)
+    m = mesh.make_mesh(sizes, devices=[cuda_device] * 4)
+    fn = mesh.build_sharded_fn(p, m, grid_shape=grid, dims=dims)
+    whole = cuda.build_fn(p, grid_shape=grid)
+    g = {n: shard_grid(t, m, fn.dims) for n, t in x.items()}
+    u = x["u"]
+    for _ in range(3):
+        g["u"] = fn(g, {})["unew"]
+        u = whole({"u": u, "rhs": x["rhs"]}, {})["unew"]
+        assert torch.equal(_bits(gather_grid(g["u"], cuda_device)), _bits(u))

@@ -11,11 +11,15 @@ seed):
   shard), a grid smaller than the mesh, rank 1, auxiliary inputs,
   multi-output, `half`, int64 (native in the port, plane pairs in the
   reference) and f64.  Tolerance: `compare_outputs` against the reference
-  (integers bit for bit) on the whole grid, rim included (deeper cadences
-  and multi-stage halos past the grid's edge differ from a whole-grid run
-  inside `valid_rim()` in both alike); bit for bit against the port's own
-  whole-grid `cuda.run(device="cpu")` outside the rim, and on the whole
-  grid for single-stage programs at one sweep an exchange;
+  (integers bit for bit) on the whole grid, rim included, for single-stage
+  programs (deeper cadences differ from a whole-grid run inside
+  `valid_rim()` in both alike), outside the rim for multi-stage ones (the
+  reference evaluates their stages in zero halos past the grid's edge);
+  bit for bit against the port's own whole-grid `cuda.run(device="cpu")`
+  outside the rim, and on the whole grid for single-stage programs at one
+  sweep an exchange and for multi-stage programs on one level of exchanges
+  over a grid the mesh divides evenly (their edge shards' windows move
+  inside the grid);
 - the overlap chunk equals the synchronous one bit for bit on every case,
   and the `"eager"` local backend equals `"cuda"` bit for bit;
 - two cases against the reference's Pallas local backend in interpret
@@ -196,6 +200,19 @@ def _cadence_one(p, kw) -> bool:
     return it == 1 or kw.get("sweeps_per_exchange") == 1
 
 
+def _exact(p, grid, kw) -> bool:
+    """The sharded fn equals the whole-grid run on the whole grid, rim
+    included: a single-stage program at one sweep an exchange; a
+    multi-stage program on one level of exchanges (its edge shards' windows
+    move inside the grid) over a grid the mesh divides evenly."""
+    if len(p.stage_order()) == 1:
+        return _cadence_one(p, kw)
+    cad = kw.get("sweeps_per_exchange")
+    one_level = not isinstance(cad, dict) or len(set(cad.values())) == 1
+    dims = kw.get("dims", range(len(kw["axis_sizes"])))
+    return one_level and all(grid[d] % m == 0 for m, d in zip(kw["axis_sizes"], dims))
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_run_sharded_equals_the_reference_and_the_whole_grid(case):
     name, grid, kw = CASES[case]
@@ -204,11 +221,14 @@ def test_run_sharded_equals_the_reference_and_the_whole_grid(case):
     got = _port(name, ins, ps, **kw)
     rim = p.valid_rim(kw.get("iterate"))
     # the reference (its own local compute: f32/int32, int64 plane pairs), on
-    # the whole grid: inside the rim both differ from a whole-grid run alike
-    assert compare_outputs(r, got, _ref(name, ins, ps, **kw), 0)
+    # the whole grid for a single stage: inside the rim both differ from a
+    # whole-grid run alike; outside the rim for several, whose stages the
+    # reference evaluates in zero halos past the grid's edge
+    single = len(p.stage_order()) == 1
+    assert compare_outputs(r, got, _ref(name, ins, ps, **kw), 0 if single else rim)
     # the port's whole-grid run: the same arithmetic cell for cell
     whole = to_numpy(p, cuda.run(p, ins, ps, device="cpu", iterate=kw.get("iterate")))
-    exact = _cadence_one(p, kw) and len(p.stage_order()) == 1
+    exact = _exact(p, grid, kw)
     inner = tuple(slice(0, g) if exact else slice(rim, g - rim) for g in grid)
     for k in whole:
         assert got[k].dtype == whole[k].dtype and got[k].shape == grid
@@ -344,7 +364,9 @@ def test_overlap_slabs_plan_and_run_through_the_kernels():
 def test_exchanged_bytes_equal_the_model(name, grid, sizes, dims):
     """One exchange at the cadence of the whole iterate: the shards' bytes
     in all = the model's bytes of a device in the middle x 2 along each line
-    of an axis (its two ends receive one side each) x the lines."""
+    of an axis (its two ends receive one side each) x the lines; x 3 for a
+    multi-stage program, whose two ends' windows move inside the grid and
+    take both sides from their one neighbour."""
     p = PROGRAMS[name]
     nf = max(p.iterate, 1)
     m = mesh.make_mesh(sizes, devices=["cpu"] * int(np.prod(sizes)))
@@ -352,9 +374,62 @@ def test_exchanged_bytes_equal_the_model(name, grid, sizes, dims):
     ins, ps = _inputs(name, grid, seed=10)
     fn({k: torch.from_numpy(v) for k, v in ins.items()}, {})
     per_dev, shard = host_tile.model_mesh_exchange(p, grid, sizes, dims, nf)
-    # every axis has 3 shards: each of its lines moves 2 x a middle device's
-    lines = 2 * int(np.prod(sizes)) // 3
+    # every axis has 3 shards: each of its lines moves 2 (or 3) x a middle
+    # device's
+    moved = 2 if len(p.stage_order()) == 1 else 3
+    lines = moved * int(np.prod(sizes)) // 3
     assert fn.stats["exchange_bytes"] == per_dev * lines
     creep = p.chain_creep()
     assert shard == tuple(s + (nf * (creep[d][1] - creep[d][0]) if d in dims else 0)
                           for d, s in enumerate(fn.shard_shape))
+
+
+# denoise3d (three stages, the fixed rhs) on CPU shards: grid, mesh, dims
+MULTI_STAGE = [((16, 32, 48), [4], [0]), ((20, 12, 16), [2, 2], [0, 1]),
+               ((20, 12, 16), [2], [1])]
+
+
+def _resident_calls(grid, sizes, dims, calls=3):
+    """denoise3d kept on CPU shards for `calls` calls, u fed back and rhs
+    fixed, beside the whole-grid plain path: (sharded, whole) a call."""
+    from soda_tpu_torch.parallel.sharded import gather_grid, shard_grid
+
+    p = PROGRAMS["denoise3d"]
+    g = torch.Generator().manual_seed(2)
+    x = {"u": torch.rand(grid, generator=g), "rhs": torch.rand(grid, generator=g)}
+    m = mesh.make_mesh(sizes, devices=["cpu"] * int(np.prod(sizes)))
+    fn = mesh.build_sharded_fn(p, m, grid_shape=grid, dims=dims)
+    whole = cuda.build_fn(p, grid_shape=grid)
+    state = {n: shard_grid(t, m, fn.dims) for n, t in x.items()}
+    u, out = x["u"], []
+    for _ in range(calls):
+        state["u"] = fn(state, {})["unew"]
+        u = whole({"u": u, "rhs": x["rhs"]}, {})["unew"]
+        out.append((gather_grid(state["u"], "cpu"), u))
+    return out
+
+
+@pytest.mark.parametrize("grid,sizes,dims", MULTI_STAGE)
+def test_a_multi_stage_program_equals_the_whole_grid_everywhere(grid, sizes, dims):
+    """Bit for bit the whole-grid run on the whole grid, its faces along
+    the sharded dims included: an edge shard's window lies inside the grid,
+    so its intermediate stages are zero outside the grid, as the whole
+    grid's are."""
+    for got, want in _resident_calls(grid, sizes, dims):
+        assert np.array_equal(_bits(got.numpy()), _bits(want.numpy()))
+
+
+def test_no_buffer_is_read_before_it_is_written(monkeypatch):
+    """Every tensor that `torch.empty` or `torch.empty_like` makes while the
+    sharded fn is built and called, its buffers included, is NaN until
+    written: a read of unwritten memory shows on every run."""
+    real_empty, real_like = torch.empty, torch.empty_like
+
+    def poisoned(t):
+        return t.fill_(float("nan")) if t.dtype.is_floating_point else t.fill_(-1)
+
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: poisoned(real_empty(*a, **k)))
+    monkeypatch.setattr(torch, "empty_like", lambda *a, **k: poisoned(real_like(*a, **k)))
+    for got, want in _resident_calls((20, 12, 16), [2, 2], [0, 1]):
+        assert not got.isnan().any()
+        assert np.array_equal(_bits(got.numpy()), _bits(want.numpy()))

@@ -275,10 +275,11 @@ def test_the_stats_of_each_path():
     assert fn.stats["scatter_bytes"] == fn.stats["gather_bytes"] == 0
     assert fn.stats["exchange_bytes"] == whole["exchange_bytes"]
     assert fn.stats["group_calls"] == whole["group_calls"] > 0
-    # one exchange: a middle device's modelled bytes x 2 x the lines (as
-    # tests/test_torch_mesh.py::test_exchanged_bytes_equal_the_model)
+    # one exchange: a middle device's modelled bytes x 3 x the lines, blur
+    # having two stages (as tests/test_torch_mesh.py::
+    # test_exchanged_bytes_equal_the_model)
     per_dev, _ = host_tile.model_mesh_exchange(p, grid, sizes, dims, 1)
-    assert fn.stats["exchange_bytes"] == per_dev * 2 * math.prod(sizes) // 3
+    assert fn.stats["exchange_bytes"] == per_dev * 3 * math.prod(sizes) // 3
     stats = {}
     mesh.run_sharded(p, ins, ps, mesh=_cpu_mesh(sizes), dims=dims, stats=stats)
     assert stats["scatter_from"] == {"cpu": nbytes} and stats["gather_bytes"] == nbytes

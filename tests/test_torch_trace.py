@@ -197,6 +197,8 @@ def test_profile_prints_the_span_table(capsys, tmp_path):
     rows = {line.split()[0]: line.split()[1:] for line in table[1:]}
     assert rows["soda.mesh.call"][0] == "1" and rows["soda.fn"][0] == "4"
     assert rows["soda.mesh.exchange"][0] == "1"
+    # the counters of the run's launches: none on CPU shards
+    assert "z-march stages on chip: 0" in table and "planned device-memory bytes: 0" in table
 
 
 @pytest.fixture
