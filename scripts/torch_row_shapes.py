@@ -6,10 +6,11 @@ For each row (a program, `+tcse` where it is rewritten by
 `optimize/tcse.py` first, a grid and a fused depth) it times the planner's
 own plan and the pinned variants below: the tile ((RB, TX) for rank 2,
 (TY, TX) for rank 3), the order of a step's stages (`sync`: "skew", one
-wait a step, or "barrier", a barrier after each stage; pinned with
-`utils/testing.py::pinned_plan`), the shared-memory budget and, where a
-variant names one, the chunk (BY or BZ; else the planner's for the pinned
-tile).  Programs outside the corpus (u64_3d) are `utils/testing.py`'s.
+wait a step, or "barrier", a barrier after each stage, in the rings) or
+a rank-2 cascade's march ("columns", the column march, or "rings"; pinned
+with `utils/testing.py::pinned_plan`), the shared-memory budget and,
+where a variant names one, the chunk (BY or BZ; else the planner's for
+the pinned tile).  Programs outside the corpus (u64_3d) are `utils/testing.py`'s.
 Each variant's output
 must equal the planner's plan bit for bit.  Per variant it prints the
 device time of one call's kernel alone (`chip_smoke.device_ms`, CUDA events
@@ -30,30 +31,43 @@ import sys
 HERE = pathlib.Path(__file__).resolve().parents[1]
 BIG = 232_448   # the whole 227 KB a CTA may hold: one or two CTAs an SM
 
-# (program, grid, fused depth): [(tile, sync, smem budget[, chunk]), ...]
+# (program, grid, fused depth): [(tile, sync or march, smem budget[, chunk]),
+# ...]; a tile None is the planner's for that march
 VARIANTS = {
     ("jacobi2d", (2048, 2048), 4): [
+        (None, "columns", None), (None, "rings", None),
         ((8, 128), "skew", None), ((8, 128), "barrier", None),
         ((16, 128), "barrier", None), ((8, 256), "barrier", None)],
     ("jacobi2d", (2048, 2048), 8): [
+        (None, "columns", None), (None, "rings", None),
         ((4, 128), "skew", None), ((8, 128), "barrier", None),
         ((4, 256), "barrier", None)],
     ("jacobi2d", (16384, 16384), 4): [
+        (None, "columns", None), (None, "rings", None),
         ((8, 128), "skew", None), ((8, 128), "barrier", None),
         ((16, 128), "barrier", None), ((8, 256), "barrier", None)],
     ("jacobi2d", (16384, 16384), 8): [
+        (None, "columns", None), (None, "rings", None),
         ((4, 128), "skew", None), ((8, 128), "barrier", None),
-        ((4, 256), "barrier", None), ((4, 256), "skew", BIG)],
+        ((4, 256), "barrier", None), ((4, 256), "skew", BIG),
+        ((4, 240), "columns", None), ((2, 240), "columns", None),
+        ((4, 112), "columns", None), ((2, 112), "columns", None),
+        ((4, 176), "columns", None), ((4, 256), "columns", None),
+        ((4, 240), "columns", None, 256), ((4, 240), "columns", None, 1024)],
     ("residual2d", (8192, 8192), 4): [
+        (None, "columns", None), (None, "rings", None),
         ((4, 128), "skew", None), ((8, 128), "barrier", None),
         ((4, 256), "barrier", None)],
     ("denoise2p", (8192, 8192), 4): [
+        (None, "columns", None), (None, "rings", None),
         ((4, 128), "skew", None), ((8, 128), "barrier", None),
         ((4, 256), "barrier", None)],
     ("denoise2p", (8192, 8192), 2): [
+        (None, "columns", None), (None, "rings", None),
         ((8, 128), "skew", None), ((16, 128), "barrier", None),
         ((8, 256), "barrier", None)],
     ("jacobi2d_i64", (2048, 2048), 4): [
+        (None, "columns", None), (None, "rings", None),
         ((4, 128), "skew", None), ((8, 128), "barrier", None)],
     ("blur", (16384, 16384), 1): [
         ((16, 256), "skew", None), ((16, 256), "barrier", None),
@@ -139,8 +153,9 @@ def main(only: str = "") -> int:
             p = tcse.apply(p)
         plans = [("planner", planner.plan(p, shape, sweeps=nf))]
         for tile, sync, budget, *chunk in variants:
-            pin = {"sweeps": nf, "tile": tile, "sync": sync,
-                   "smem_budget": budget or planner.SMEM_BUDGET}
+            pin = {"sweeps": nf, "tile": tile,
+                   "smem_budget": budget or planner.SMEM_BUDGET,
+                   **({"march": sync} if sync in ("columns", "rings") else {"sync": sync})}
             if chunk:
                 pin["bz"] = chunk[0]
             pl = pinned_plan(p, shape, pin)

@@ -18,7 +18,10 @@ per cell it computes; kernel 1's step computes each stage in column runs
 the rows of one run of every stage approximates the same, with the plane
 copies and the step's bookkeeping spread over them.  Where a run is
 printed twice (inside the grid without the per-row checks, and with
-them), both copies count.  The optional third argument keeps the rows of
+them), both copies count.  A rank-2 cascade's row takes the planner's
+march, or the one it names ("rings" or "columns"); the column march's
+step is printed once for each of its NSLOT phases, so its count is
+divided by NSLOT.  The optional third argument keeps the rows of
 the programs it names.  Each disassembly is written to `out_dir`
 (default `build/sass/`).  Needs `nvcc` and `cuobjdump` (the CUDA
 toolkit), no card.
@@ -37,6 +40,7 @@ HERE = pathlib.Path(__file__).resolve().parents[1]
 ROWS = (("blur", (2048, 4096), 1), ("blur", (16384, 16384), 1),
         ("conv5x5", (16384, 16384), 1), ("jacobi2d", (2048, 2048), 4),
         ("jacobi2d", (16384, 16384), 4), ("jacobi2d", (16384, 16384), 8),
+        ("jacobi2d", (16384, 16384), 8, "rings"),
         ("gauss5x5", (16384, 16384), 1), ("gauss5x5+tcse", (16384, 16384), 1),
         ("jacobi3d", (512, 512, 512), 1), ("denoise3d", (256, 256, 256), 1),
         ("heat3d", (512, 512, 512), 2), ("heat3d", (512, 512, 512), 4),
@@ -67,20 +71,22 @@ def main(out_dir: str = "", root: str = "", only: str = "") -> int:
     from soda_tpu_torch.frontend.parser import parse_file
     from soda_tpu_torch.optimize import tcse
     from soda_tpu_torch.plan.planner import plan
+    from soda_tpu_torch.utils.testing import pinned_plan
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not pathlib.Path(tool).exists():
         print("torch_sass_mix: no cuobjdump", file=sys.stderr)
         return 2
     keep = set(only.split(",")) if only else None
-    for n, shape, nf in ROWS:
+    for n, shape, nf, *march in ROWS:
         name, _, rewrite = n.partition("+")
         if keep and name not in keep:
             continue
         p = parse_file(HERE / "tests" / "soda" / f"{name}.soda")
         if rewrite:
             p = tcse.apply(p)
-        g = plan(p, shape, sweeps=nf).groups[0]
+        g = (pinned_plan(p, shape, {"sweeps": nf, "march": march[0]}) if march
+             else plan(p, shape, sweeps=nf)).groups[0]
         k = cuda.group_kernel(p, g)
         built = k.build()
         sass = subprocess.run([tool, "-sass", str(built.path)], capture_output=True,
@@ -98,9 +104,11 @@ def main(out_dir: str = "", root: str = "", only: str = "") -> int:
             cells, per = sum(runs), f"a run of each stage: {runs} rows"
             updates = sum(runs) / len(runs) * g.sweeps
         else:
-            cells = g.tile[0] * len(g.stages)
-            per = f"RB {g.tile[0]} x {len(g.stages)} stage(s)"
-            updates = g.tile[0] * g.sweeps
+            phases = int(re.search(r"NSLOT = (\d+)", k.source).group(1)) if g.march == "columns" else 1
+            cells = g.tile[0] * len(g.stages) * phases
+            per = f"RB {g.tile[0]} x {len(g.stages)} stage(s)" + (
+                f" x {phases} phases" if phases > 1 else "")
+            updates = g.tile[0] * g.sweeps * phases
         mix = ", ".join(f"{c} {ops[c]} ({ops[c] / cells:.2f})"
                         for c, _ in CLASSES + (("other", ""),) if ops[c])
         print(f"sass {n} {shape} nf {g.sweeps}: {total} instructions, "

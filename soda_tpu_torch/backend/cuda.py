@@ -12,8 +12,9 @@ every group runs its plain version (`linebuffer.group_plain`); on CUDA
 tensors every group runs its kernel or raises: kernel 1 (the 3-D z-march,
 `linebuffer.py`) for rank 3, kernel 2 (the 2-D row-march,
 `linebuffer2d.py`) for rank 2, for a plan that fuses nf > 1 sweeps the
-fused cascade (`sweeps.py`, kernel 3's counterpart), `iterate / nf` calls
-of it, and for a windows group (every rank-1 program, a group pinned with
+fused cascade (`sweeps.py`, kernel 3's counterpart: at rank 2 the column
+march, `columns2d.py`, where its registers fit, else the row-march's
+rings), `iterate / nf` calls of it, and for a windows group (every rank-1 program, a group pinned with
 `block=`, a stage whose rings fit no tile) the windows kernel
 (`windows.py`, kernel 4's counterpart).  Every kernel takes integers up
 to 64 bits, full-width uint64 included (`uint64_t` carriers);
@@ -59,6 +60,13 @@ def feed_counts() -> dict[str, int]:
     return dict(linebuffer.FEED_LAUNCHES)
 
 
+def march_counts() -> dict[str, int]:
+    """Rank-2 cascade launches since `reset_launches`, by march: "columns"
+    (the column march, `columns2d.py`) or "rings" (the row-march's rings)
+    (`sweeps.MARCH_LAUNCHES`)."""
+    return dict(sweeps.MARCH_LAUNCHES)
+
+
 def stage_count() -> int:
     """Stages computed on chip by the z-march's launches since
     `reset_launches`, summed over the launches: a launch of one sweep
@@ -76,13 +84,15 @@ def planned_bytes() -> int:
 
 def reset_launches() -> None:
     """Set every kernel wrapper's launch count, the z-march's counts by
-    feed and its stage count, and the planned bytes to 0, and clear the
-    timing spans and device intervals (`utils/trace.py::reset`) with
-    them."""
+    feed and its stage count, the rank-2 cascades' counts by march and the
+    planned bytes to 0, and clear the timing spans and device intervals
+    (`utils/trace.py::reset`) with them."""
     for m in COUNTED.values():
         m.LAUNCHES = 0
     for feed in linebuffer.FEED_LAUNCHES:
         linebuffer.FEED_LAUNCHES[feed] = 0
+    for march in sweeps.MARCH_LAUNCHES:
+        sweeps.MARCH_LAUNCHES[march] = 0
     linebuffer.STAGES = linebuffer.PLANNED_BYTES = 0
     trace.reset()
 

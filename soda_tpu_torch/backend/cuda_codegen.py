@@ -327,7 +327,8 @@ def column_run(gen: RunGen, stages: list[str], rows: int, rowvar: str,
                after: dict[str, list[str]],
                load: Callable[[str, tuple[int, ...]], str],
                uniform: str | None = None,
-               tail: Callable[[bool], list[str]] | None = None) -> list[str]:
+               tail: Callable[[bool], list[str]] | None = None,
+               checks: bool = True) -> list[str]:
     """C lines of one column run of `rows` rows: every tap of `stages`
     loaded into a register once (`load(q, key)` is the ring read, relative
     to the run's first row `pb`), then, for each row r (`rowvar` = pb + r),
@@ -337,7 +338,8 @@ def column_run(gen: RunGen, stages: list[str], rows: int, rowvar: str,
     the run.  With `uniform` (a C condition under which `computes` holds at
     every row of the run) the rows are printed twice: without the per-row
     check where `uniform` holds, and with it elsewhere (`tail(False)` and
-    `tail(True)`)."""
+    `tail(True)`); without `uniform`, `checks` False prints the rows
+    without the check alone (the caller knows that `computes` holds)."""
     program = gen.p
     gen.loads = {}
 
@@ -372,7 +374,7 @@ def column_run(gen: RunGen, stages: list[str], rows: int, rowvar: str,
         return out + (tail(checked) if tail else [])
 
     if uniform is None:
-        main = body(True)
+        main = body(checks)
     else:
         main = [f"if ({uniform}) {{  // every row of the run computes",
                 *("  " + ln for ln in body(False)), "} else {",

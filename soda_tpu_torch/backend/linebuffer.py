@@ -94,8 +94,9 @@ def min_blocks(g: GroupPlan, nthreads: int) -> int:
     registers.  Measured on the H100 against no bound and a bound of 24
     warps an SM (PERF.md, Findings): no slower on any row, and it stops the
     compiler from taking registers that would leave CTAs idle
-    (`planner.ctas_per_sm`, which the row-march's plans count waves by)."""
-    return ctas_per_sm(g.smem_bytes, nthreads)
+    (`planner.ctas_per_sm`, which the row-march's plans count waves by).
+    The column march keeps the registers its plan counts (`GroupPlan.regs`)."""
+    return ctas_per_sm(g.smem_bytes, nthreads, g.regs)
 
 
 def entry_points(kernel: str, decl: str, call: str, block: str, grid: str,

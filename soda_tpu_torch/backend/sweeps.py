@@ -15,7 +15,13 @@ is one more stage of the group and reads sweep k-1 through a shared-memory
 ring sized by its lag, exactly as a multi-stage group's stages read each
 other.  Kernel 1's z-march (`csrc/linebuffer3d.cuh`) runs rank 3 and
 kernel 2's row-march (`csrc/linebuffer2d.cuh`) rank 2; the generated
-`__global__` is `soda_sw3d_kernel` / `soda_sw2d_kernel`.
+`__global__` is `soda_sw3d_kernel` / `soda_sw2d_kernel`.  A rank-2
+cascade runs the column march instead (`columns2d.py` over
+`csrc/columns2d.cuh`, `GroupPlan.march` "columns") where the planner
+gives it one: a thread walks one column down the chunk, each copy's
+in-column taps in its registers, only the x-neighbours exchanged through
+shared memory, one barrier a step; `MARCH_LAUNCHES` counts the rank-2
+cascades' launches by march.
 
 What bounds it on the H100: one call reads every input cell once (plus
 the strip halo and the chunk's warm-up of 2 * nf * radius planes or rows)
@@ -57,10 +63,13 @@ import torch
 
 from ..ir.program import StencilProgram
 from ..plan.planner import GroupPlan, cascade
-from . import linebuffer, linebuffer2d
+from . import columns2d, linebuffer, linebuffer2d
 
 # fused-kernel launches made through GroupKernel (the CPU plain path never counts)
 LAUNCHES = 0
+# rank-2 cascade launches by march (`GroupPlan.march`): the column march
+# (`columns2d.py`) or the row-march's rings
+MARCH_LAUNCHES = {"columns": 0, "rings": 0}
 
 KERNEL_NAMES = {3: "soda_sw3d_kernel", 2: "soda_sw2d_kernel"}
 MARCHES = {3: "z-march", 2: "row-march"}
@@ -81,11 +90,28 @@ NOTE = """\
 // chained calls."""
 
 
+COLUMNS_NOTE = """\
+// Fused iterate sweeps (replaces TPU kernel 3,
+// soda_tpu/backend/pallas.py::_build_strips_group_fn).  The group is a
+// cascade of {nf} sweep copies in the column march: a thread walks one
+// column down the chunk, and copy k computes a step behind the copies it
+// reads, so the {nf} sweeps between the first read and the last write
+// never touch device memory.  Bound on the H100: one read of every input
+// and one write of every output per call of {nf} sweeps over 3.35 TB/s,
+// or {nf} sweeps' operations, weighted by type, over 67 TFLOP/s,
+// whichever is larger; on chip, a copy's in-column taps are registers and
+// each x-neighbour one shared-memory load, one barrier a step.  Cells
+// outside the grid are zero at every sweep, as in the chained calls."""
+
+
 def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
     """CUDA C++ for a fused group of `g.sweeps` sweeps of `program`."""
     if g.sweeps < 2:
         raise ValueError(f"a fused group runs at least 2 sweeps, got {g.sweeps}")
     prog = cascade(program, g.sweeps)
+    if g.march == "columns":
+        return columns2d.kernel_source(prog, g, kernel=KERNEL_NAMES[2],
+                                       note=COLUMNS_NOTE.format(nf=g.sweeps))
     gen = linebuffer.kernel_source if program.rank == 3 else linebuffer2d.kernel_source
     return gen(prog, g, kernel=KERNEL_NAMES[program.rank],
                note=NOTE.format(nf=g.sweeps, march=MARCHES[program.rank]))
@@ -123,6 +149,8 @@ class GroupKernel(linebuffer.GroupKernel):
         self.prefix = f"sw{program.rank}d"
         super().__init__(program, g)
         self.name = f"{self.prefix}_{program.name}_x{g.sweeps}"
+        if self.rank == 2:
+            self._span_args = {**self._span_args, "march": g.march}
 
     def _generate(self) -> str:
         return kernel_source(self.program, self.group)
@@ -133,3 +161,5 @@ class GroupKernel(linebuffer.GroupKernel):
     def _count(self) -> None:
         global LAUNCHES
         LAUNCHES += 1
+        if self.rank == 2:
+            MARCH_LAUNCHES[self.group.march] += 1

@@ -686,8 +686,9 @@ def _trace_table(the_plan) -> list[str]:
     """The program's spans over the profiled run (count, total and self
     ms) and its device intervals by card, as `utils/trace.py` holds them;
     then the z-march's launches by feed (`cuda.feed_counts()`), the stages
-    they computed on chip (`cuda.stage_count()`), the bytes planned for
-    every launch (`cuda.planned_bytes()`) and each z-march group's feed."""
+    they computed on chip (`cuda.stage_count()`), the rank-2 cascades'
+    launches by march (`cuda.march_counts()`), the bytes planned for every
+    launch (`cuda.planned_bytes()`) and each z-march group's feed."""
     from ..backend import cuda
     from ..utils import trace
 
@@ -701,6 +702,7 @@ def _trace_table(the_plan) -> list[str]:
                          f"{ms / n:.4f} ms each")
     lines.append(f"z-march launches by feed: {cuda.feed_counts()}")
     lines.append(f"z-march stages on chip: {cuda.stage_count()}")
+    lines.append(f"rank-2 cascade launches by march: {cuda.march_counts()}")
     lines.append(f"planned device-memory bytes: {cuda.planned_bytes()}")
     for i, g in enumerate(the_plan.groups):
         if g.kernel == "linebuffer3d":

@@ -63,6 +63,22 @@ program's feedback types differ, or its stages already carry the copies'
 names (a program unrolled before), each call runs one sweep and the
 stage DAG may split into chained groups as for any program.
 
+A rank-2 cascade of at least `COLUMN_MEMBERS_MIN` members runs the column
+march (`backend/columns2d.py`, `GroupPlan.march` "columns") wherever its
+register window fits, else the row-march's rings ("rings"; `march=` pins
+either, for checks).  A thread owns one column of the strip for
+the whole chunk; member m computes the rows s * RB + lead_m .. + RB - 1
+at step s (`column_leads`), the highest that leaves every tap in time: an
+in-column tap is the thread's own value, computed earlier in the step
+and carried in registers (`column_windows`: the rows each tensor carries
+to the next step), an off-column tap comes through the member's exchange
+buffer in shared memory, written a step before at the latest
+(`column_slots`: slots of RB rows used in turn), an input's rows through
+its ring, copied a step ahead as in the row-march.  One barrier ends a
+step.  The window fits where the registers a thread needs
+(`COLUMN_REG_BASE`, the carried rows and three rows of values a row of
+the step, in 32-bit words) stay within `COLUMN_REGS_MAX`.
+
 The windows kernel (TPU kernel 4, `backend/windows.py`): a CTA owns one
 block of the grid (BX cells, BY x BX or BZ x BY x BX; the last axis is
 tiled too) and marches nothing.  Each external input whose (block + span)
@@ -161,6 +177,27 @@ AUTO_SWEEPS_MAX = {2: 8, 3: 2}
 TMA_AHEAD_MAX = 4
 TMA_BOX_MAX = 256
 TMA_ALIGN = 128
+# the column march (rank-2 cascades): its tiles, RB rows a step and TX
+# columns a strip, TX a power of two or the widest that leaves the group's
+# widest member whole warps of COLUMN_THREADS; among the plans within
+# MODEL_SLACK of the least modeled time it prefers RB = COLUMN_RB_BEST,
+# then lanes that own a column of the widest member (at least
+# COLUMN_LANES_MIN of the CTA's), then SMs of ROW_WARPS_MIN warps, then the
+# larger tile and chunk (jacobi2d 16384^2 x 8 on the H100: (4, 240) 1.52
+# ms, (4, 112) 1.56, (2, 240) 1.59, (4, 256) 1.75, (8, 112) 1.81; PERF.md)
+COLUMN_RB = (8, 4, 2, 1)
+COLUMN_RB_BEST = 4
+COLUMN_TX = (256, 128, 64, 32)
+COLUMN_THREADS = (256, 128, 64)
+COLUMN_LANES_MIN = 0.95
+# its registers: a thread's fixed share (grid bounds, pointers, the step)
+# and the most a thread may take before a cascade runs the rings instead
+COLUMN_REG_BASE = 32
+COLUMN_REGS_MAX = 96
+# a cascade of fewer members saves too few barriers a step to pay for the
+# column march's drain: jacobi2d x 2 ran 4.5% (2048^2) and 9.9% (16384^2)
+# slower in it than in the rings on the H100 (PERF.md); below it, the rings
+COLUMN_MEMBERS_MIN = 3
 
 KERNELS = {3: "linebuffer3d", 2: "linebuffer2d"}
 # windows kernel blocks per rank, in cells per axis (the last axis last);
@@ -262,6 +299,12 @@ class GroupPlan:
     levels: dict[str, int] = dataclasses.field(default_factory=dict)
     slots_per_sm: int = 0
     ahead: int = 0
+    # the rank-2 march ("rings": the row-march; "columns": the column
+    # march of a cascade), the column march's leads (each member's first
+    # row at step 0) and the registers a thread may take (the CTAs an SM)
+    march: str = ""
+    leads: dict[str, int] = dataclasses.field(default_factory=dict)
+    regs: int = 64
 
     @property
     def feed(self) -> str:
@@ -274,7 +317,7 @@ class GroupPlan:
     @property
     def ctas_per_sm(self) -> int:
         """CTAs one SM runs at once (`ctas_per_sm`)."""
-        return ctas_per_sm(self.smem_bytes, self.threads)
+        return ctas_per_sm(self.smem_bytes, self.threads, self.regs)
 
     @property
     def warps_per_sm(self) -> int:
@@ -311,8 +354,8 @@ class GroupPlan:
                      f"sync={self.sync}, threads={self.threads}, "
                      f"ctas/SM={self.ctas_per_sm}")
         else:
-            shape = (f"tile={self.tile}, by={self.bz}, load={self.load}, "
-                     f"sync={self.sync}, threads={self.threads}, "
+            shape = (f"tile={self.tile}, by={self.bz}, march={self.march}, "
+                     f"load={self.load}, sync={self.sync}, threads={self.threads}, "
                      f"ctas/SM={self.slots_per_sm}, waves={self.waves:.2f}")
         return (
             f"group(stages={self.stages}, {self.kernel}, sweeps={self.sweeps}, "
@@ -365,6 +408,9 @@ class Plan:
                 "ahead": g.ahead,
                 "sync": g.sync,
                 "levels": g.levels,
+                "march": g.march,
+                "leads": g.leads,
+                "regs": g.regs,
                 "slots_per_sm": g.slots_per_sm,
                 "waves": g.waves,
                 "block": list(g.block),
@@ -441,12 +487,13 @@ def _pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def ctas_per_sm(smem_bytes: int, threads: int) -> int:
+def ctas_per_sm(smem_bytes: int, threads: int, regs: int = 64) -> int:
     """CTAs one SM runs at once: its shared memory (with the 1 KiB the
-    runtime reserves a CTA), 2048 threads, and 64 registers a thread (the
-    kernels' `__launch_bounds__`, `linebuffer.min_blocks`)."""
+    runtime reserves a CTA), 2048 threads, and `regs` registers a thread
+    (64 for the marches' rings; the kernels' `__launch_bounds__`,
+    `linebuffer.min_blocks`)."""
     return max(1, min(SMEM_PER_SM // (smem_bytes + 1024), 2048 // threads,
-                      65536 // (threads * 64), 32))
+                      65536 // (threads * regs), 32))
 
 
 def _shapes3(grid_shape, tile, bz, warm: int, tiles=TILE_CANDIDATES):
@@ -542,14 +589,119 @@ def _ring_layout(program: StencilProgram, ring_names: list[str],
     return out, off
 
 
+def column_leads(program: StencilProgram, members: list[str],
+                 spans: dict[str, Span], rb: int) -> dict[str, int]:
+    """The column march's lead of each member (topological order): at step
+    s it computes the chunk-local rows s * rb + lead .. + rb - 1.  The
+    highest lead that leaves every tap in time: an input's rows s * rb +
+    hi .. are in its ring at step s (hi its span's, copied a step ahead),
+    a member's in-column taps (dx 0) are the thread's own values of the
+    same step, its off-column taps those of the step before."""
+    leads: dict[str, int] = {}
+    for c in members:
+        at = []
+        for q, offs in program.tensors[c].window().items():
+            for dy, dx in offs:
+                at.append(leads[q] - dy - (rb if dx else 0) if q in leads
+                          else spans[q][0][1] - dy)
+        leads[c] = min(at, default=spans[c][0][1])
+    return leads
+
+
+def column_windows(program: StencilProgram, members: list[str],
+                   spans: dict[str, Span], leads: dict[str, int]) -> dict[str, int]:
+    """Rows of each tensor tapped in-column that a thread carries from one
+    step to the next: from the lowest row such a tap reads at a step up
+    to the tensor's first row of the step (a member's lead, an input's
+    span hi), below which the step's own rows come."""
+    low: dict[str, int] = {}
+    for c in members:
+        for q, offs in program.tensors[c].window().items():
+            for dy, dx in offs:
+                if dx == 0:
+                    low[q] = min(low.get(q, leads[c] + dy), leads[c] + dy)
+    return {q: max(0, (leads[q] if q in leads else spans[q][0][1]) - lo)
+            for q, lo in low.items()}
+
+
+def column_slots(program: StencilProgram, members: list[str],
+                 leads: dict[str, int], rb: int) -> dict[str, int]:
+    """Slots of rb rows each member tapped off-column keeps in its exchange
+    buffer: the step's own, which it writes, and those back to the lowest
+    row a consumer reads of it."""
+    slots: dict[str, int] = {}
+    for c in members:
+        for q, offs in program.tensors[c].window().items():
+            for dy, dx in offs:
+                if dx and q in leads:
+                    need = 1 - (leads[c] + dy - leads[q]) // rb
+                    slots[q] = max(slots.get(q, 1), need)
+    return slots
+
+
+def column_first_step(members: list[str], ext_inputs: list[str], spans: dict[str, Span],
+                      leads: dict[str, int], rb: int) -> int:
+    """The column march's first step of a chunk: the least at which every
+    member's first row (its span lo) and every input's are reached."""
+    return min([(spans[m][0][0] - leads[m]) // rb for m in members]
+               + [(spans[q][0][0] - spans[q][0][1]) // rb for q in ext_inputs])
+
+
+def _column_lanes(g: GroupPlan) -> float:
+    """The share of a column-march CTA's lanes that own a column of its
+    widest member."""
+    xs = [g.spans[m][1] for m in g.stages]
+    return (g.tile[1] + max(x[1] for x in xs) - min(x[0] for x in xs)) / g.threads
+
+
+def _column_layout(program: StencilProgram, members: list[str], ext_inputs: list[str],
+                   spans: dict[str, Span], rb: int, tx: int, vector: bool):
+    """The column march's shared memory at tile (rb, tx): (rings, bytes,
+    leads, threads, registers a thread).  An input's ring holds the rows
+    of the step before its leading ones that an off-column tap still
+    reads, the step's own and the next step's, in flight (a power of
+    two); a member's exchange buffer NSLOT slots of rb rows (the most any
+    member needs), its row the member's columns.  Threads: one a column
+    of the widest member, in whole warps."""
+    leads = column_leads(program, members, spans, rb)
+    carried = column_windows(program, members, spans, leads)
+    slots = column_slots(program, members, leads, rb)
+    nslot = max(slots.values(), default=1)
+    out, off = [], 0
+    for n in ext_inputs + [m for m in members if m in slots]:
+        elem = _elem_bytes(program, n)
+        (ylo, yhi), (xlo, xhi) = spans[n]
+        if n in ext_inputs:
+            low = [leads[c] + dy for c in members
+                   for dy, dx in program.tensors[c].window().get(n, []) if dx]
+            depth = _pow2(2 * rb + max(0, yhi - min(low, default=yhi)))
+            v = 16 // elem if vector else 1
+        else:
+            depth, v = nslot * rb, 1
+        col0 = xlo // v * v
+        cols = -(-(tx + xhi - col0) // v) * v
+        out.append(Ring(n, spans[n], elem, depth, 1, cols, off, col0))
+        off += -(-out[-1].nbytes // 16) * 16
+    xmin = min(spans[m][1][0] for m in members)
+    xmax = max(tx + spans[m][1][1] for m in members)
+    threads = -(-(xmax - xmin) // 32) * 32
+    words = {n: -(-_elem_bytes(program, n) // 4) for n in spans}
+    regs = (COLUMN_REG_BASE + sum(k * words[q] for q, k in carried.items())
+            + 3 * rb * max(words[m] for m in members))
+    return out, off, leads, threads, -(-regs // 8) * 8
+
+
 def _plan_group(program: StencilProgram, members: list[str],
                 grid_shape: tuple[int, ...], smem_budget: int,
                 tile: tuple[int, int] | None = None,
                 bz: int | None = None, sweeps: int = 1,
-                sync: str | None = None) -> GroupPlan | None:
+                sync: str | None = None, march: str | None = None) -> GroupPlan | None:
     """The line buffer's plan of `members`, or None when no tile fits the
     budget; `sync` ("skew" or "barrier") keeps one order of a step's
-    stages (a group of one level has only "skew")."""
+    stages of the rings (a group of one level has only "skew"); `march`
+    ("columns" or "rings") keeps one march of a rank-2 cascade, which
+    otherwise runs the column march where it has `COLUMN_MEMBERS_MIN`
+    members and its window fits."""
     rank = program.rank
     ext_inputs, outputs = _group_io(program, members)
     spans = group_spans(program, members, outputs)
@@ -604,10 +756,59 @@ def _plan_group(program: StencilProgram, members: list[str],
     if sync in modes:
         modes = {sync: modes[sync]}
 
-    best = None
+    def row_plans(rb: int, tx: int, rings: list[Ring], off: int, nt: int, slots: int,
+                  **kw) -> list[GroupPlan]:
+        # a rank-2 march's plans at tile (rb, tx), one a chunk length
+        out = []
+        for chunk in _row_chunks(grid_shape, rb, tx, bz, warm, slots):
+            grid = (-(-grid_shape[1] // tx), -(-grid_shape[0] // chunk), 1)
+            if grid[1] > MAX_GRID_YZ:
+                continue
+            extents = (chunk, tx)
+            reads = sum(r.elem_bytes * covered(
+                r.name, extents, (r.col0, r.col0 + r.cols - tx))
+                for r in rings if r.name in ext_inputs)
+            cell_ops = sum(ops[m] * covered(m, extents) for m in members)
+            out.append(GroupPlan(tile=(rb, tx), bz=chunk, grid=grid, rings=rings,
+                                 smem_bytes=off, hbm_bytes_per_call=reads + writes,
+                                 cell_ops_per_call=cell_ops, threads=nt, load=load,
+                                 slots_per_sm=slots, **kw, **common))
+        return out
+
+    def pick(cands: list[GroupPlan], prefer) -> GroupPlan | None:
+        # fill the card first; then, among the plans within MODEL_SLACK of
+        # the least modeled time, the most preferred
+        fill = [c for c in cands if math.prod(c.grid) >= 2 * NUM_SMS] or cands
+        if not fill:
+            return None
+        least = min(c.modeled_seconds for c in fill)
+        return max((c for c in fill if c.modeled_seconds <= least * (1 + MODEL_SLACK)),
+                   key=lambda c: (*prefer(c), -c.modeled_seconds))
+
+    if (rank == 2 and sweeps > 1 and sync is None and march != "rings"
+            and (march == "columns" or len(members) >= COLUMN_MEMBERS_MIN)):
+        halo = (max(spans[m][1][1] for m in members)
+                - min(spans[m][1][0] for m in members))
+        v = max((16 // _elem_bytes(program, n) for n in ext_inputs), default=1) if vector else 1
+        txs = set(COLUMN_TX) | {(nt - halo) // v * v for nt in COLUMN_THREADS if nt - halo >= v}
+        cols = []
+        for rb, tx in [tile] if tile else [(rb, tx) for tx in sorted(txs, reverse=True)
+                                           for rb in COLUMN_RB]:
+            rings, off, leads, nt, regs = _column_layout(
+                program, members, ext_inputs, spans, rb, tx, vector)
+            if off <= budget and regs <= COLUMN_REGS_MAX and nt <= 1024:
+                cols += row_plans(rb, tx, rings, off, nt, ctas_per_sm(off, nt, regs),
+                                  levels=levels, sync="skew", march="columns",
+                                  leads=leads, regs=regs)
+        best = pick(cols, lambda c: (
+            c.tile[0] == COLUMN_RB_BEST, _column_lanes(c) >= COLUMN_LANES_MIN,
+            c.warps_per_sm >= ROW_WARPS_MIN, c.tile[0] * c.tile[1], c.bz))
+        if best is not None:
+            return best
+    if march == "columns":
+        return None
     if rank == 2:
         cands = []
-        H, W = grid_shape
         for (rb, tx), (order, lv) in itertools.product(
                 [tile] if tile else ROW_TILE_CANDIDATES, modes.items()):
             rings, off = _ring_layout(program, ring_names, ext_inputs, spans, pairs,
@@ -617,34 +818,15 @@ def _plan_group(program: StencilProgram, members: list[str],
             widest = max([r.cols for r in rings if r.name in members] + [tx])
             widest = -(-widest // 32) * 32
             nt = min(1024, widest * -(-ROW_THREADS_MIN // widest))
-            slots = ctas_per_sm(off, nt)
-            for chunk in _row_chunks(grid_shape, rb, tx, bz, warm, slots):
-                grid = (-(-W // tx), -(-H // chunk), 1)
-                if grid[1] > MAX_GRID_YZ:
-                    continue
-                extents = (chunk, tx)
-                reads = sum(r.elem_bytes * covered(
-                    r.name, extents, (r.col0, r.col0 + r.cols - tx))
-                    for r in rings if r.name in ext_inputs)
-                cell_ops = sum(ops[m] * covered(m, extents) for m in members)
-                gp = GroupPlan(tile=(rb, tx), bz=chunk, grid=grid, rings=rings,
-                               smem_bytes=off, hbm_bytes_per_call=reads + writes,
-                               cell_ops_per_call=cell_ops, threads=nt, load=load,
-                               levels=lv, sync=order, slots_per_sm=slots, **common)
-                cands.append(gp)
-        # fill the card first; then, among the plans within MODEL_SLACK of
-        # the least modeled time, those whose SMs hold ROW_WARPS_MIN warps
-        # (if any), the larger tile (fewer steps, and waits,
-        # per row), the longer chunk, and one wait a step over a barrier
-        # per stage (2.5% on blur 16384^2 at an equal tile, PERF.md)
-        fill = [c for c in cands if math.prod(c.grid) >= 2 * NUM_SMS] or cands
-        if not fill:
-            return None
-        least = min(c.modeled_seconds for c in fill)
-        near = [c for c in fill if c.modeled_seconds <= least * (1 + MODEL_SLACK)]
-        return max(near, key=lambda c: (
+            cands += row_plans(rb, tx, rings, off, nt, ctas_per_sm(off, nt),
+                               levels=lv, sync=order, march="rings")
+        # those whose SMs hold ROW_WARPS_MIN warps (if any), the larger tile
+        # (fewer steps, and waits, per row), the longer chunk, and one wait
+        # a step over a barrier per stage (2.5% on blur 16384^2 at an equal
+        # tile, PERF.md)
+        return pick(cands, lambda c: (
             c.tile[0] >= ROW_RUN_MIN, c.warps_per_sm >= ROW_WARPS_MIN,
-            c.tile[0] * c.tile[1], c.bz, c.sync == "skew", -c.modeled_seconds))
+            c.tile[0] * c.tile[1], c.bz, c.sync == "skew"))
 
     def rings3(tl: tuple[int, int], lv: dict[str, int]):
         # (rings, shared memory, planes in flight) of one tile, or None:
@@ -674,6 +856,7 @@ def _plan_group(program: StencilProgram, members: list[str],
                 break
         return rings, off, ahead
 
+    best = None
     layouts = {}
     tiles = TMA_TILE_CANDIDATES if vector else TILE_CANDIDATES
     for (tl, chunk, grid), (order, lv) in itertools.product(

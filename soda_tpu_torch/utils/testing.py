@@ -108,21 +108,27 @@ STAR3D_R8 = _star3d(8)
 
 def pinned_plan(p, shape, pin: dict):
     """`plan(p, shape, **pin)`, where a pin's "sync" ("skew" or "barrier")
-    re-plans the plan's one group with a step's stages in that order at
-    the same tile and chunk: `plan()` leaves the order to the planner, and
-    the checks reach the other one through the planner's `_plan_group`."""
+    re-plans the plan's one group with the row-march's rings and a step's
+    stages in that order, and its "march" ("columns" or "rings") a rank-2
+    cascade with that march, at the same tile and chunk (a march pinned
+    alone: the tile and chunk that march plans, unless `pin` names them):
+    `plan()` leaves both to the planner, and the checks reach the others
+    through the planner's `_plan_group`."""
     from ..plan import planner
 
-    kw = {k: v for k, v in pin.items() if k != "sync"}
+    kw = {k: v for k, v in pin.items() if k not in ("sync", "march")}
     pl = planner.plan(p, shape, **kw)
-    if "sync" not in pin:
+    if "sync" not in pin and "march" not in pin:
         return pl
     (g,) = pl.groups
     prog = planner.cascade(p, g.sweeps)
+    same = "sync" in pin or g.march == pin["march"]
+    tile, bz = (g.tile, g.bz) if same else (kw.get("tile"), kw.get("bz"))
     return dataclasses.replace(pl, groups=[planner._plan_group(
         prog, prog.stage_order(), tuple(shape),
-        kw.get("smem_budget", planner.SMEM_BUDGET), g.tile, g.bz,
-        sweeps=g.sweeps, sync=pin["sync"])])
+        kw.get("smem_budget", planner.SMEM_BUDGET), tile, bz,
+        sweeps=g.sweeps, sync=pin.get("sync"),
+        march="rings" if "sync" in pin else pin["march"])])
 
 
 def build_emulated(kernels, *, hazard: bool = False, workers: int = 4) -> None:

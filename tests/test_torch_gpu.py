@@ -1,5 +1,6 @@
 """The line-buffer kernels (1: 3-D z-march, 2: 2-D row-march), the fused
-`iterate` cascades (`backend/sweeps.py`) and the windows kernel
+`iterate` cascades (`backend/sweeps.py`; rank 2 in the column march,
+`backend/columns2d.py`, where it fits) and the windows kernel
 (`backend/windows.py`, kernel 4) on the card against their plain version,
 and the cascades and the windows kernel against the line-buffer kernels;
 host tiling and the mesh (`parallel/mesh.py`, shards on one card), apart
@@ -34,7 +35,7 @@ from soda_tpu_torch.frontend.parser import parse, parse_file
 from soda_tpu_torch.plan.planner import fused_depths, plan
 from soda_tpu_torch.utils.testing import (CORPUS, INT3D_SOURCES, RANK3_CORPUS,
                                           STAR3D_R8, compare_outputs, oracle,
-                                          rand_inputs)
+                                          pinned_plan, rand_inputs)
 
 torch.set_num_threads(1)
 
@@ -213,6 +214,29 @@ def test_fused_cascade_on_many_tiles_and_chunks(cuda_device):
     chained = cuda.run(p, ins, ps, device=cuda_device, sweeps=1)
     assert torch.equal(got["heat_out"], chained["heat_out"])
     assert compare_outputs(p, to_numpy(p, got), oracle(p, ins, ps), 0)
+
+
+@pytest.mark.gpu
+def test_column_march_at_the_benchmark_size(cuda_device):
+    """jacobi2d 16384^2 x 8, a call of the cell `jacobi2d-16384.loop`: one
+    launch of the column march (`cuda.march_counts()`), bit for bit against
+    the rings' cascade at the same depth and against 8 chained one-sweep
+    calls."""
+    p = _program("jacobi2d")
+    shape = (16384, 16384)
+    fn = cuda.build_fn(p, grid_shape=shape)
+    assert [(g.sweeps, g.march) for g in fn.plan.groups] == [(8, "columns")]
+    rings = cuda.build_fn(p, pinned_plan(p, shape, {"sweeps": 8, "march": "rings"}))
+    assert rings.plan.groups[0].march == "rings"
+    chained = cuda.build_fn(p, grid_shape=shape, sweeps=1)
+    gen = torch.Generator(device=cuda_device).manual_seed(19)
+    x = torch.randn(shape, generator=gen, device=cuda_device)
+    cuda.reset_launches()
+    got = fn({"t0": x}, {})["t1"]
+    torch.cuda.synchronize()
+    assert cuda.march_counts() == {"columns": 1, "rings": 0}
+    assert torch.equal(_bits(got), _bits(rings({"t0": x}, {})["t1"]))
+    assert torch.equal(_bits(got), _bits(chained({"t0": x}, {})["t1"]))
 
 
 @pytest.mark.gpu

@@ -382,3 +382,40 @@ def test_rank3_rings_keep_their_own_depth_where_powers_of_two_do_not_fit():
     assert (g.feed, g.ahead, g.ctas_per_sm) == ("tma", 1, 1)
     assert g.tile == (16, 32) and g.smem_bytes == 18 * 32 * 48 * 8 + 18 * 8
     assert planner.plan(p, (512, 512, 512)).groups[0].kernel == "windows"
+
+
+def test_rank2_cascades_take_the_column_march_where_its_window_fits():
+    """A rank-2 cascade runs the column march (`GroupPlan.march`
+    "columns") where the registers its window needs stay within
+    `COLUMN_REGS_MAX`, else the rings; kernel 2 keeps the rings.  jacobi2d
+    16384^2 x 8: copy 0 reads the input one row past its own (the input's
+    span reaches 8), each later copy its producer's x-neighbours of the
+    step before, so it leads RB rows lower; seven exchange buffers of two
+    slots of RB rows; a copy carries RB + 1 rows of the copy before it."""
+    j = parse_file(SODA / "jacobi2d.soda")
+    pl = planner.plan(j, (16384, 16384))
+    (g,) = pl.groups
+    rb = g.tile[0]
+    assert (g.sweeps, g.march, g.load) == (8, "columns", "vector")
+    assert g.leads == {s: 7 - rb * k for k, s in enumerate(g.stages)}
+    assert [r.name for r in g.rings] == ["t0"] + g.stages[:-1]
+    assert {r.depth for r in g.rings[1:]} == {2 * rb}
+    prog = planner.cascade(j, 8)
+    assert planner.column_windows(prog, g.stages, g.spans, g.leads) == {
+        "t0": 2, **{s: rb + 1 for s in g.stages[:-1]}}
+    assert g.regs <= planner.COLUMN_REGS_MAX and g.threads % 32 == 0
+    assert "march=columns" in g.describe()
+    js = pl.to_json()["groups"][0]
+    assert (js["march"], js["leads"]) == ("columns", g.leads)
+    # pinned the other way: the rings, at the same depth
+    assert _pinned("jacobi2d", (16384, 16384), {"march": "rings"}).march == "rings"
+    # jacobi2d_i64 x 20: nineteen int64 windows pass COLUMN_REGS_MAX at every
+    # tile, so the cascade runs the rings
+    q = parse_file(SODA / "jacobi2d_i64.soda")
+    g20 = planner.plan(q, (2048, 2048), sweeps=20).groups[0]
+    assert (g20.sweeps, g20.march) == (20, "rings")
+    q20 = planner.cascade(q, 20)
+    assert planner._plan_group(q20, q20.stage_order(), (2048, 2048), planner.SMEM_BUDGET,
+                               sweeps=20, march="columns") is None
+    # one sweep a call (kernel 2): the rings
+    assert planner.plan(j, (16384, 16384), sweeps=1).groups[0].march == "rings"

@@ -17,6 +17,14 @@ by the line-buffer marches.  No card here, so:
   grid (16-byte row copies) and an odd one, with a chunk shorter than the
   warm-up, bit for bit against the oracle; heat3d x 4 and x 2 under the
   z-march's, likewise;
+- the column march (`backend/columns2d.py`) of jacobi2d x 8, residual2d x
+  4, denoise2p x 4 and seidel2d x 4 under its hazard emulation (a CTA's
+  threads take turns up to each step barrier, in reverse, copies landing
+  at issue) on the same two grids, bit for bit against the oracle and
+  the rings' cascade; with its step barrier deleted, or its exchange
+  buffers cut to one slot, the emulation must give a wrong result;
+- every one-sweep rank-2 source the corpus plans (kernel 2) and the
+  benchmark cells' rank-3 sources, held to their recorded hashes;
 - the same emulated kernel is held against the JAX package's kernel 3
   (`pallas.run(..., interpret=True)`, whose plan must be "strips") on the
   same numpy inputs, outside `valid_rim()` with `compare_outputs`: inside
@@ -27,12 +35,17 @@ by the line-buffer marches.  No card here, so:
 The fused kernel on the card: `tests/test_torch_gpu.py` and `chip_smoke.py`.
 """
 
+import contextlib
+import hashlib
 import pathlib
+import re
 import shutil
+import types
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from soda_tpu.backend import pallas as pallas_backend
 from soda_tpu.frontend import parser as lark_parser
@@ -46,7 +59,7 @@ from soda_tpu_torch.frontend.parser import parse
 from soda_tpu_torch.optimize.unroll import FeedbackTypeError, unroll_iterate
 from soda_tpu_torch.plan import planner
 from soda_tpu_torch.utils import report
-from soda_tpu_torch.utils.testing import build_emulated, emulate, pinned_plan
+from soda_tpu_torch.utils.testing import RANK2_CORPUS, build_emulated, emulate, pinned_plan
 
 torch.set_num_threads(1)
 
@@ -91,7 +104,10 @@ def built():
                             for sync in ("skew", "barrier")]
                            + [("heat3d", shape, dict(kw, sweeps=nf, sync=sync))
                               for shape, kw in HAZARD_SHAPES_3D for nf in (2, 4)
-                              for sync in ("skew", "barrier")]), hazard=True)
+                              for sync in ("skew", "barrier")]
+                           + [(n, shape, dict(kw, sweeps=PROGRAMS[n].iterate, march=m))
+                              for n in COLUMN_CASCADES for shape, kw in HAZARD_SHAPES
+                              for m in ("columns", "rings")]), hazard=True)
 
 
 def _bits(a: np.ndarray) -> np.ndarray:
@@ -164,6 +180,138 @@ def test_hazard_emulated_rank2_cascade_equals_oracle(built, name, shape, kw, syn
         assert np.array_equal(_bits(got[k]), _bits(gold[k])), k
 
 
+COLUMN_CASCADES = ("jacobi2d", "residual2d", "denoise2p", "seidel2d")
+
+
+@pytest.mark.parametrize("name", COLUMN_CASCADES)
+@pytest.mark.parametrize("shape,kw", HAZARD_SHAPES)
+def test_hazard_emulated_column_march_equals_oracle_and_rings(built, name, shape, kw):
+    """The whole `iterate` in one call of the column march (pinned through
+    `pinned_plan`), each chunk shorter than the warm-up, its threads taking
+    turns in reverse and its copies landing at issue: bit for bit the
+    oracle and the row-march's rings at the same tile and chunk."""
+    p = PROGRAMS[name]
+    ins, ps = rand_inputs(p, shape, np.random.default_rng(39))
+    kw = dict(kw, sweeps=p.iterate)
+    got, pl = _emulate(p, shape, ins, ps, hazard=True, march="columns", **kw)
+    (g,) = pl.groups
+    assert g.march == "columns" and g.sweeps == p.iterate and g.bz < g.warm
+    assert g.load == ("vector" if shape[1] == 256 else "scalar")
+    rings, rpl = _emulate(p, shape, ins, ps, hazard=True, march="rings", **kw)
+    assert rpl.groups[0].march == "rings" and rpl.groups[0].tile == g.tile
+    gold = numpy_interp.run(REF[name], ins, ps)
+    for k in gold:
+        assert np.array_equal(_bits(got[k]), _bits(gold[k])), k
+        assert np.array_equal(_bits(got[k]), _bits(rings[k])), k
+
+
+def _faulty(source: str, fault: str) -> str:
+    """The column march's source with its step barrier deleted, or its
+    exchange buffers cut to one slot."""
+    if fault == "no step barrier":
+        assert "SODA_STEP_END();" in source
+        return source.replace("SODA_STEP_END();", "")
+    nslot = re.search(r"constexpr int NSLOT = (\d+);", source)
+    assert nslot and int(nslot.group(1)) > 1
+    return source.replace(nslot.group(0), "constexpr int NSLOT = 1;")
+
+
+@pytest.mark.parametrize("name", ["jacobi2d", "seidel2d"])
+@pytest.mark.parametrize("fault", ["no step barrier", "one exchange slot"])
+def test_column_march_emulation_exposes_a_race(gxx, name, fault):
+    """The emulation runs a CTA's threads in turns, each up to its next
+    step barrier: without the barrier a thread runs its whole march in one
+    turn and reads its neighbours' exchange rows before they are written;
+    with one slot a thread's neighbour has already overwritten the rows of
+    the step before.  Either way the result must be wrong, and right as
+    generated."""
+    p = PROGRAMS[name]
+    shape = (64, 256)
+    ins, ps = rand_inputs(p, shape, np.random.default_rng(40))
+    pl = pinned_plan(p, shape, {"tile": (4, 64), "bz": 16, "sweeps": p.iterate,
+                                "march": "columns"})
+    (g,) = pl.groups
+    gold = numpy_interp.run(REF[name], ins, ps)[p.output_names[0]]
+    k = cuda.group_kernel(p, g)
+    tins, tps = to_torch(p, ins, ps, "cpu")
+    for source, right in ((k.source, True), (_faulty(k.source, fault), False)):
+        k._source = source
+        out = {o: torch.empty(shape, dtype=torch.float32) for o in g.outputs}
+        k.launch(k.build(emulate=True).lib.soda_launch, tins, tps, out, 0)
+        assert np.array_equal(out[p.output_names[0]].numpy(), gold) == right, source == k.source
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it is on cuda:0, so the kernel wrapper takes
+    its card branch (checks, counts, span, launch) and launches the host
+    emulation on its memory."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("march", ["columns", "rings"])
+def test_a_cascade_launch_counts_its_march(gxx, monkeypatch, march):
+    """`cuda.march_counts()` counts the rank-2 cascades' launches by march
+    since `reset_launches`, and the span `soda.kernel` carries the march:
+    one call of jacobi2d x 8 through the wrapper's card branch over the
+    host emulation, equal to the oracle."""
+    p = PROGRAMS["jacobi2d"]
+    shape = (64, 256)
+    (g,) = pinned_plan(p, shape, {"sweeps": 8, "march": march}).groups
+    assert (g.sweeps, g.march) == (8, march)
+    k = cuda.group_kernel(p, g)
+    k._entry = k.build(emulate=True).lib.soda_launch
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    x = np.random.default_rng(41).standard_normal(shape).astype(np.float32)
+    out = torch.empty(shape).as_subclass(_OnCard)
+    cuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        k({"t0": torch.from_numpy(x).as_subclass(_OnCard)}, {}, out={"t1": out})
+    assert cuda.march_counts() == {"columns": int(march == "columns"),
+                                   "rings": int(march == "rings")}
+    (span,) = [e for e in prof.events() if e.name == "soda.kernel"]
+    assert span.kwinputs["march"] == march
+    gold = numpy_interp.run(REF["jacobi2d"], {"t0": x})["t1"]
+    assert np.array_equal(out.as_subclass(torch.Tensor).numpy(), gold)
+    cuda.reset_launches()
+    assert cuda.march_counts() == {"columns": 0, "rings": 0}
+
+
+# kernel 2's one-sweep sources that every rank-2 corpus program plans on
+# these grids, and the rank-3 sources of the benchmark cells' grids (kernel
+# 1; heat3d's cascade), as generated before the column march came: how many
+# and their sha256
+UNCHANGED = {
+    "rank-2 one-sweep": (
+        [(n, shape, {"sweeps": 1}) for n in RANK2_CORPUS
+         for shape in ((7, 13), (37, 45), (64, 256), (2048, 4096), (16384, 16384))],
+        110, "b5a7b4fe8ce66c759411c486cff90156ea356005a30a96ea87bca4acd2d5bb5b"),
+    "rank-3 cells": (
+        [("jacobi3d", (512, 512, 512), {}), ("jacobi3d", (1026, 1026, 2048), {}),
+         ("denoise3d", (512, 512, 512), {}), ("heat3d", (512, 512, 512), {})],
+        4, "a8ab1bdfff125561d82add33c25f400ace3747cefb79aff04438a24a48ce9e10"),
+}
+
+
+@pytest.mark.parametrize("which", list(UNCHANGED))
+def test_sources_outside_the_column_march_are_unchanged(which):
+    """The column march is a path of the rank-2 cascades alone: kernel 2
+    and the z-march generate what they did, byte for byte."""
+    cases, count, digest = UNCHANGED[which]
+    h, n = hashlib.sha256(), 0
+    for name, shape, kw in cases:
+        p = parse((SODA / f"{name}.soda").read_text())
+        for g in planner.plan(p, shape, **kw).groups:
+            if g.kernel in ("linebuffer2d", "linebuffer3d"):
+                h.update(cuda.group_kernel(p, g).source.encode())
+                n += 1
+    assert (n, h.hexdigest()) == (count, digest)
+
+
 # a grid whose planes are copied 16 bytes at a time and an odd one, each
 # cut into several tiles, in chunks of 4 planes (the warm-up of 2 x nf
 # planes is 4 at nf 2 and 8 at nf 4)
@@ -215,13 +363,14 @@ def test_fused_kernel_matches_jax_strips_kernel_outside_the_rim(built, name, sha
 
 
 def test_jacobi2d_x8_cascade_matches_jax_strips_kernel_outside_the_rim(gxx):
-    """The whole iterate 8 in one call of the one-wait row-march (eight
-    copies, each a step behind the one before) against the JAX package's
-    kernel 3 on the same numpy inputs."""
+    """The whole iterate 8 in one call of the column march (eight copies,
+    each a step behind the one before, one barrier a step) against the JAX
+    package's kernel 3 on the same numpy inputs."""
     p, ref, shape = PROGRAMS["jacobi2d"], REF["jacobi2d"], (200, 384)
     ins, ps = rand_inputs(p, shape, np.random.default_rng(37))
     got, pl = _emulate(p, shape, ins, ps, sweeps=8)
     assert pl.groups[0].sweeps == 8 and max(pl.groups[0].levels.values()) == 8
+    assert pl.groups[0].march == "columns"
     jax_out = pallas_backend.run(ref, ins, ps, interpret=True)
     assert compare_outputs(p, got, jax_out, p.valid_rim())
     assert np.array_equal(got["t1"], numpy_interp.run(ref, ins, ps)["t1"])
@@ -298,7 +447,8 @@ def test_rings_are_sized_by_lag():
     # (w = 1 - its level) are read by the next copy, 2 rows below their
     # leading one: 2 + 2 * 4 = 10 -> 16
     q = PROGRAMS["jacobi2d"]
-    g2 = planner.plan(q, (64, 256), sweeps=8, tile=(4, 128), bz=32).groups[0]
+    g2 = pinned_plan(q, (64, 256), {"sweeps": 8, "tile": (4, 128), "bz": 32,
+                                    "march": "rings"}).groups[0]
     assert {r.depth for r in g2.rings} == {16} and len(g2.rings) == 8
     assert g2.sync == "skew"
     assert g2.levels == {s: k + 1 for k, s in enumerate(g2.stages)}
@@ -357,9 +507,11 @@ def test_requested_depth_is_honoured_adjusted_or_reduced():
     assert any("requested sweeps 3 adjusted to divisor 2" in n for n in pl.notes)
     one = planner.plan(p, (64, 256), sweeps=1)
     assert one.groups[0].sweeps == 1 and one.groups[0].stages == ["t1"]
-    # a cascade too deep for the budget is cut to the deepest that fits
-    small = planner.plan(p, (64, 256), sweeps=8, smem_budget=4 * 1024)
-    assert small.groups[0].sweeps == 4 and small.groups[0].smem_bytes <= 4 * 1024
+    # a cascade too deep for the budget is cut to the deepest that fits (the
+    # column march's exchange buffers of one row a slot: 3,008 B at 8
+    # sweeps, 1,504 at 4)
+    small = planner.plan(p, (64, 256), sweeps=8, smem_budget=2 * 1024)
+    assert small.groups[0].sweeps == 4 and small.groups[0].smem_bytes <= 2 * 1024
     assert any("reduced fused sweeps 8 to 4" in n for n in small.notes)
     assert "sweeps=" in small.describe()
     # no fused depth fits: one sweep per call, split into chained groups
