@@ -410,7 +410,7 @@ def _footprint_warning(program, grid_shape, args) -> None:
     """A whole grid that cannot fit the card should point at --host-tile."""
     import torch
 
-    from ..parallel import host_tile
+    from ..ir.dtypes import storage_bytes
 
     if args.hbm_budget is not None:
         budget = args.hbm_budget
@@ -418,7 +418,7 @@ def _footprint_warning(program, grid_shape, args) -> None:
         budget, _ = torch.cuda.mem_get_info(torch.device(args.device))
     else:
         return
-    foot = 2 * math.prod(grid_shape) * host_tile.storage_bytes(
+    foot = 2 * math.prod(grid_shape) * storage_bytes(
         program, program.input_names + program.output_names)
     if foot > budget:
         logger.warning(
@@ -431,12 +431,13 @@ def _footprint_warning(program, grid_shape, args) -> None:
 def _mesh_report_line(program, shape, tiling, mesh) -> str:
     """The modeled halo exchange of a shard (of a tile, with --host-tile)
     over a pass, beside the bytes of the shard's state with its halos."""
+    from ..ir.dtypes import storage_bytes
     from ..parallel import host_tile
 
     sizes, _, links = mesh
     ext, nf = (tiling[2], tiling[4]) if tiling else (shape, max(program.iterate, 1))
     xbytes, shard = host_tile.model_mesh_exchange(program, ext, sizes, None, nf)
-    state = math.prod(shard) * host_tile.storage_bytes(program, program.input_names)
+    state = math.prod(shard) * storage_bytes(program, program.input_names)
     xh = (f"{xbytes / 2**20:.1f} MiB" if xbytes >= 2**20
           else f"{xbytes / 2**10:.1f} KiB")
     return (f"  mesh{' per tile' if tiling else ''}: shards of "
@@ -582,7 +583,7 @@ def main(argv=None) -> int:
     print(program.describe())
     shape = _grid_shape(program, args)
     if args.mesh is not None:
-        from ..parallel.host_tile import check_mesh_dims
+        from ..parallel.sharded import check_mesh_dims
         try:
             check_mesh_dims(program.rank, args.mesh[0])
         except ValueError as e:
@@ -621,12 +622,12 @@ def main(argv=None) -> int:
         for line in _inert_lines(program):
             print(f"  accepted-inert: {line}")
         if tiling is not None:
-            from ..parallel import host_tile
+            from ..ir.dtypes import storage_bytes
             tiles, _, ext, nt, nf, passes, ov = tiling
             link = (math.prod(nt) * math.prod(ext)
-                    * host_tile.storage_bytes(program, program.input_names)
+                    * storage_bytes(program, program.input_names)
                     + math.prod(shape)
-                    * host_tile.storage_bytes(program, program.output_names))
+                    * storage_bytes(program, program.output_names))
             print(f"  host tiling: {'x'.join(map(str, nt))} tiles of "
                   f"{'x'.join(map(str, tiles))} (+halo -> "
                   f"{'x'.join(map(str, ext))}), {passes} pass(es) x {nf} "

@@ -65,6 +65,12 @@ def torch_dtype(t: ScalarType) -> torch.dtype:
     return from_numpy_dtype(t.np_dtype())
 
 
+def storage_bytes(program, names) -> int:
+    """Bytes a cell of the tensors `names` takes in the port's storage
+    dtypes (`half` 2, 64-bit values 8)."""
+    return sum(program.tensors[n].type.np_dtype().itemsize for n in names)
+
+
 def bits(t: torch.Tensor) -> torch.Tensor:
     """`t` with its uint64 storage seen as int64 (the same bits, a view);
     any other tensor as it is."""

@@ -76,9 +76,11 @@ import torch
 
 from ..backend.cuda import build_fn
 from ..backend.io import check_io, params_to_torch
-from ..ir.dtypes import bits, check_kernel_types, torch_dtype
+from ..ir.dtypes import bits, check_kernel_types, storage_bytes, torch_dtype
 from ..ir.program import StencilProgram
 from ..utils.device import resolve
+from .mesh import build_sharded_fn
+from .sharded import check_mesh_dims, gather_grid, on_streams, shard_grid
 
 logger = logging.getLogger(__name__)
 
@@ -121,33 +123,6 @@ def plan_host_tiling(program: StencilProgram, grid_shape, tiles,
     n_tiles = tuple(-(-n // t) for n, t in zip(grid_shape, tiles))
     overhead = math.prod(ext_shape) / math.prod(tiles)
     return tiles, halos, ext_shape, n_tiles, nf, it // nf, overhead
-
-
-def storage_bytes(program: StencilProgram, names) -> int:
-    """Bytes a cell of the tensors `names` takes in the port's storage
-    dtypes (`half` 2, 64-bit values 8)."""
-    return sum(program.tensors[n].type.np_dtype().itemsize for n in names)
-
-
-def check_mesh_dims(rank: int, mesh_shape, mesh_dims=None) -> tuple[int, ...]:
-    """The grid dims that the axes of a mesh of `mesh_shape` shard (default:
-    the leading ones), one distinct dim of the grid per axis; a ValueError
-    names the mesh and the grid's rank otherwise."""
-    mesh_shape = tuple(mesh_shape)
-    if mesh_dims is None:
-        if len(mesh_shape) > rank:
-            raise ValueError(
-                f"a mesh of {len(mesh_shape)} axes {mesh_shape} cannot shard a "
-                f"grid of rank {rank}: one tensor dim per mesh axis")
-        return tuple(range(len(mesh_shape)))
-    dims = tuple(int(d) for d in mesh_dims)
-    if len(dims) != len(mesh_shape):
-        raise ValueError(f"mesh dims {dims} for a mesh of {len(mesh_shape)} axes "
-                         f"{mesh_shape}: one tensor dim per mesh axis")
-    if any(not 0 <= d < rank for d in dims) or len(set(dims)) != len(dims):
-        raise ValueError(f"mesh dims {dims} of the mesh {mesh_shape} must be "
-                         f"distinct dims of a grid of rank {rank}")
-    return dims
 
 
 def _shard_ext_shape(program: StencilProgram, ext_shape, mesh_shape,
@@ -383,8 +358,6 @@ def _mesh_tiles(program: StencilProgram, fn, mesh, params, win, slots: int, reco
     the outputs back by runs into the slot's pinned windows on the copy
     streams once each card has computed them.  No byte passes through
     another card.  On CPU shards each tile runs at once."""
-    from .sharded import gather_grid, on_streams, shard_grid
-
     cards = sorted({d for d in mesh.devices.flat if d.type == "cuda"}, key=str)
     copy_streams = {d: torch.cuda.Stream(d) for d in cards}
     compute_streams = {d: torch.cuda.Stream(d) for d in cards}
@@ -509,7 +482,6 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
                          f"every shard is planned for its own shape")
     if mesh is not None:
         # the sharded fn plans its shards' kernels itself
-        from .mesh import build_sharded_fn
         fn = build_sharded_fn(
             program, mesh, grid_shape=win, dims=mesh_dims, iterate=nf,
             sweeps_per_exchange=sweeps_per_exchange, local_backend=local_backend,

@@ -34,9 +34,13 @@ goes through `backend/cuda.py::build_fn` at its own shape (`local_backend
 ="cuda"`): on a card kernels 1 to 4 and the fused sweeps, as the planner
 chooses for the shape, on the CPU each group's plain version; or through
 the plain PyTorch sweeps (`"eager"`), the counterpart of the reference's
-`"xla"`.  One `build_fn` serves every shard of a shape; its buffers, and
-the extended shards, are allocated at the first call and reused by every
-later call.
+`"xla"`.  One `build_fn` serves every shard of a shape.  A buffer belongs
+to the schedule that reads it: it is made where the schedule first uses
+it, and kept only where every later call uses it again.  A resident call
+of one level keeps none: it exchanges a returned grid in place (its halo
+room), extends any other input into a copy for that call alone, and
+returns buffers the kernels made.  The fn's closures refer to no closure
+of their own, so dropping the fn frees its buffers without the collector.
 
 A sharded fn takes and returns `ShardedGrid`s (`parallel/sharded.py`),
 the reference's arrays laid out by its tensor spec: a loop of calls keeps
@@ -80,14 +84,13 @@ import torch
 
 from ..backend import cuda, eager
 from ..backend.io import check_io, finalize_outputs, params_to_torch, to_torch
-from ..ir.dtypes import bits, check_kernel_types, torch_dtype
+from ..ir.dtypes import bits, check_kernel_types, storage_bytes, torch_dtype
 from ..ir.program import StencilProgram
 from ..utils import trace
 from ..utils.device import resolve
 from ..utils.opcount import H100_SXM_PEAK_TFLOPS, ops_per_cell
-from .host_tile import check_mesh_dims, storage_bytes
-from .sharded import (ShardedGrid, copy_padded, describe_layout, gather_grid,
-                      narrow, padded_shard_shape, positions as mesh_positions,
+from .sharded import (ShardedGrid, check_mesh_dims, copy_padded, describe_layout,
+                      gather_grid, narrow, padded_shard_shape, positions as mesh_positions,
                       on_streams, region, same_mesh, shard_grid)
 
 
@@ -572,25 +575,29 @@ def build_sharded_fn(
             return t.as_strided(ext_shapes[0], room_strides, 0)
         return None
 
-    def run_level(level: int, source, sweeps: int, pars: dict, fresh: bool = False) -> dict:
+    def kept(key, make):
+        """The buffers cached under `key`, made by `make()` at their first use."""
+        if key not in buffers:
+            buffers[key] = make()
+        return buffers[key]
+
+    def run_level(level: int, source, sweeps: int, pars: dict, deeper,
+                  fresh: bool = False) -> dict:
         """`sweeps` sweeps of every shard at this level: every `k` of them
-        an exchange along the level's axes, then the next level (or the
-        local evaluation) on the extended arrays, whose centres are kept.
+        an exchange along the level's axes, then the next level (`deeper`,
+        this function: passed in, so that no closure refers to itself) or
+        the local evaluation on the extended arrays, whose centres are kept.
         `source(idx, name)` gives the level's input arrays.  `fresh` (one
         level only): an input that is the centre of an extended buffer
-        (`room`) is exchanged in place, and the last chunk's outputs go to
-        buffers of their own, whose centres are returned."""
+        (`room`) is exchanged in place, any other is extended into a copy
+        for this call alone, and the last chunk's outputs go to buffers of
+        their own, whose centres are returned; the fn keeps none of them."""
         axes, k = levels[level]
         shape = ext_shapes[level]
         inner = level + 1 == len(levels)
         f = local[(shape, k)] if inner else None
-        if level not in buffers:
-            buffers[level] = (
-                {idx: {n: empty(shape, n, idx) for n in program.input_names}
-                 for idx in positions},
-                [{idx: alloc(f, idx) for idx in positions} for _ in range(2)]
-                if inner else None)
-        ext, out_bufs = buffers[level]
+        ext = None if fresh else kept((level, "ext"), lambda: {
+            idx: {n: empty(shape, n, idx) for n in program.input_names} for idx in positions})
         outs, full, first = None, None, None
         for j in range(sweeps // k):
             if j == 0:
@@ -600,7 +607,7 @@ def build_sharded_fn(
                         x = source(idx, n)
                         base = room(x, idx) if fresh else None
                         if base is None:
-                            base = ext[idx][n]
+                            base = ext[idx][n] if ext else empty(shape, n, idx)
                             copy_padded(centre(base, level, idx), x)
                         first[idx][n] = base
                 exchange(level, first, program.input_names)
@@ -617,11 +624,13 @@ def build_sharded_fn(
                 ins = ext
             if inner:
                 own = fresh and j + 1 == sweeps // k
+                bufs = None if own else kept((level, j % 2), lambda: {
+                    idx: alloc(f, idx) for idx in positions})
                 full = {idx: call(f, k, idx, ins[idx], pars[device_of[idx]],
-                                  None if own else out_bufs[j % 2][idx])
+                                  bufs[idx] if bufs else None)
                         for idx in positions}
             else:
-                full = run_level(level + 1, lambda idx, n: ext[idx][n], k, pars)
+                full = deeper(level + 1, lambda idx, n: ext[idx][n], k, pars, deeper)
             outs = {idx: {n: centre(v, level, idx) for n, v in full[idx].items()}
                     for idx in positions}
             mask_pads(outs, level)
@@ -645,9 +654,8 @@ def build_sharded_fn(
                  for idx in positions},
                 {idx: {n: empty(shape, n, idx) for n in program.input_names}
                  for idx in positions},
-                [{idx: alloc(f_in, idx) for idx in positions} for _ in range(2)],
                 slab_bufs, {d: torch.cuda.Stream(d) for d in cards})
-        first_state, ext, out_bufs, slab_bufs, copy_streams = buffers["overlap"]
+        first_state, ext, slab_bufs, copy_streams = buffers["overlap"]
         state = {idx: dict(first_state[idx]) for idx in positions}
         outs = None
         for j in range(it // k):
@@ -669,8 +677,9 @@ def build_sharded_fn(
                 exchange(0, ext, names)
                 copied = {dev: s.record_event() for dev, s in copy_streams.items()}
             # meanwhile the interiors, from the shards' own rows
-            outs = {idx: call(f_in, k, idx, state[idx], pars[device_of[idx]],
-                              out_bufs[j % 2][idx]) for idx in positions}
+            bufs = kept(("overlap", j % 2), lambda: {idx: alloc(f_in, idx) for idx in positions})
+            outs = {idx: call(f_in, k, idx, state[idx], pars[device_of[idx]], bufs[idx])
+                    for idx in positions}
             for dev, ev in copied.items():
                 torch.cuda.current_stream(dev).wait_event(ev)
             # then the boundary slabs from the extended shards: a slab keeps
@@ -732,7 +741,7 @@ def build_sharded_fn(
         # their own; the others' outputs view buffers the next call rewrites
         own = bool(resident) and not overlap_ok and len(levels) == 1
         outs = (run_overlap(source, pars) if overlap_ok
-                else run_level(0, source, it, pars, fresh=own))
+                else run_level(0, source, it, pars, run_level, fresh=own))
         grids = {n: ShardedGrid(mesh, dims, grid_shape, shard,
                                 torch_dtype(program.tensors[n].type),
                                 {idx: outs[idx][n] for idx in positions})

@@ -39,7 +39,6 @@ import torch
 
 from ..ir.dtypes import bits
 from ..utils.device import resolve
-from .host_tile import check_mesh_dims
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +56,27 @@ class ShardedGrid:
 
     def layout(self) -> str:
         return describe_layout(self.mesh, self.dims, self.grid_shape, self.shard_shape)
+
+
+def check_mesh_dims(rank: int, mesh_shape, mesh_dims=None) -> tuple[int, ...]:
+    """The grid dims that the axes of a mesh of `mesh_shape` shard (default:
+    the leading ones), one distinct dim of the grid per axis; a ValueError
+    names the mesh and the grid's rank otherwise."""
+    mesh_shape = tuple(mesh_shape)
+    if mesh_dims is None:
+        if len(mesh_shape) > rank:
+            raise ValueError(
+                f"a mesh of {len(mesh_shape)} axes {mesh_shape} cannot shard a "
+                f"grid of rank {rank}: one tensor dim per mesh axis")
+        return tuple(range(len(mesh_shape)))
+    dims = tuple(int(d) for d in mesh_dims)
+    if len(dims) != len(mesh_shape):
+        raise ValueError(f"mesh dims {dims} for a mesh of {len(mesh_shape)} axes "
+                         f"{mesh_shape}: one tensor dim per mesh axis")
+    if any(not 0 <= d < rank for d in dims) or len(set(dims)) != len(dims):
+        raise ValueError(f"mesh dims {dims} of the mesh {mesh_shape} must be "
+                         f"distinct dims of a grid of rank {rank}")
+    return dims
 
 
 def padded_shard_shape(grid_shape, mesh_shape, dims) -> tuple[int, ...]:

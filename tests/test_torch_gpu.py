@@ -419,6 +419,37 @@ def test_resident_grids_on_one_card(cuda_device, overlap):
 
 
 @pytest.mark.gpu
+def test_resident_calls_keep_no_buffer_on_the_cards(cuda_device):
+    """jacobi3d on a [2, 2] mesh over every visible card (repeated where
+    there are fewer than four), two resident calls: each card then holds no
+    more than the input, the grid laid out from it and the grid returned
+    (each storage rounded up to the allocator's 512 B): the sharded fn
+    keeps no buffer of its own between calls."""
+    from soda_tpu_torch.parallel import mesh
+    from soda_tpu_torch.parallel.sharded import shard_grid
+
+    p = _program("jacobi3d")
+    grid = (64, 72, 128)
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    before = {d: torch.cuda.memory_allocated(d) for d in cards}
+    x = torch.rand(grid, device=cuda_device)
+    m = mesh.make_mesh([2, 2], devices=(cards * 4)[:4])
+    fn = mesh.build_sharded_fn(p, m, grid_shape=grid)
+    start = shard_grid(x, m, fn.dims)
+    out = start
+    for _ in range(2):
+        out = fn({"t0": out}, {})["t1"]
+    held = {}
+    for t in [x, *start.shards.values(), *out.shards.values()]:
+        st = t.untyped_storage()
+        held[(t.device, st.data_ptr())] = -(-st.nbytes() // 512) * 512
+    for d in cards:
+        torch.cuda.synchronize(d)
+        own = sum(n for (dev, _), n in held.items() if dev == d)
+        assert torch.cuda.memory_allocated(d) - before[d] <= own, d
+
+
+@pytest.mark.gpu
 def test_entry_points_on_the_card(cuda_device):
     """`entry()` runs its sweep through kernel 1 on the card, within 1e-4
     of the plain version; `dryrun_multichip(4)` passes its own checks with

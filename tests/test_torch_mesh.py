@@ -31,10 +31,19 @@ seed):
 - the overlap's short boundary slabs (3 rows at one sweep) plan to kernels
   1 and 2, and the fused cascade, whose host emulation equals the plain
   version bit for bit;
-- the bytes exchanged equal `host_tile.model_mesh_exchange`.
+- the bytes exchanged equal `host_tile.model_mesh_exchange`;
+- the sharded fn's buffers: none read before it is written, none kept
+  between resident calls of one level and one chunk beyond the grids it
+  returned, and every one freed with the fn without the collector;
+- the parallel layer's imports point down: `sharded.py` imports neither
+  `mesh` nor `host_tile`, `mesh.py` not `host_tile`, and no function
+  imports a sibling module.
 """
 
+import ast
+import gc
 import pathlib
+import weakref
 
 import jax
 import numpy as np
@@ -419,17 +428,114 @@ def test_a_multi_stage_program_equals_the_whole_grid_everywhere(grid, sizes, dim
         assert np.array_equal(_bits(got.numpy()), _bits(want.numpy()))
 
 
+def _through_empty(monkeypatch, hook) -> None:
+    """Pass every tensor that `torch.empty` or `torch.empty_like` makes from
+    now on through `hook`."""
+    real_empty, real_like = torch.empty, torch.empty_like
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: hook(real_empty(*a, **k)))
+    monkeypatch.setattr(torch, "empty_like", lambda *a, **k: hook(real_like(*a, **k)))
+
+
 def test_no_buffer_is_read_before_it_is_written(monkeypatch):
     """Every tensor that `torch.empty` or `torch.empty_like` makes while the
     sharded fn is built and called, its buffers included, is NaN until
     written: a read of unwritten memory shows on every run."""
-    real_empty, real_like = torch.empty, torch.empty_like
-
     def poisoned(t):
         return t.fill_(float("nan")) if t.dtype.is_floating_point else t.fill_(-1)
 
-    monkeypatch.setattr(torch, "empty", lambda *a, **k: poisoned(real_empty(*a, **k)))
-    monkeypatch.setattr(torch, "empty_like", lambda *a, **k: poisoned(real_like(*a, **k)))
+    _through_empty(monkeypatch, poisoned)
     for got, want in _resident_calls((20, 12, 16), [2, 2], [0, 1]):
         assert not got.isnan().any()
         assert np.array_equal(_bits(got.numpy()), _bits(want.numpy()))
+
+
+def _made_by_empty(monkeypatch) -> list:
+    """Weak references to every tensor `torch.empty` or `torch.empty_like`
+    makes from now on."""
+    made = []
+
+    def record(t):
+        made.append(weakref.ref(t))
+        return t
+
+    _through_empty(monkeypatch, record)
+    return made
+
+
+def _denoise3d_on_2x2(calls: int):
+    """denoise3d on a [2, 2] mesh of CPU shards after `calls` resident
+    calls, u fed back and rhs fixed: (fn, the grids the caller holds)."""
+    from soda_tpu_torch.parallel.sharded import shard_grid
+
+    grid = (20, 12, 16)
+    g = torch.Generator().manual_seed(3)
+    m = mesh.make_mesh([2, 2], devices=["cpu"] * 4)
+    fn = mesh.build_sharded_fn(PROGRAMS["denoise3d"], m, grid_shape=grid)
+    state = {n: shard_grid(torch.rand(grid, generator=g), m, fn.dims) for n in ("u", "rhs")}
+    for _ in range(calls):
+        state["u"] = fn(state, {})["unew"]
+    return fn, state
+
+
+def test_dropping_the_fn_frees_every_buffer_without_the_collector(monkeypatch):
+    """With the collector off, every tensor made while a sharded fn is built
+    and called twice on resident grids is freed once the fn, its inputs and
+    its outputs are dropped: no reference cycle holds a buffer."""
+    made = _made_by_empty(monkeypatch)
+    gc.disable()
+    try:
+        _denoise3d_on_2x2(2)
+        alive = sum(r() is not None for r in made)
+    finally:
+        gc.enable()
+    assert made and alive == 0, f"{alive} of {len(made)} tensors outlive the fn"
+
+
+def test_between_resident_calls_the_fn_keeps_only_the_grids_it_returned(monkeypatch):
+    """Between resident calls of one level and one chunk, every live tensor
+    made since the fn was built is storage of the grids the caller holds
+    (u as the fn returned it, rhs as laid out): the fn keeps no extended
+    input and no output set of its own."""
+    made = _made_by_empty(monkeypatch)
+    gc.disable()
+    try:
+        fn, state = _denoise3d_on_2x2(2)
+        assert fn.sweeps_per_exchange == 1 and fn.stats["group_calls"] > 0
+        held = {t.untyped_storage().data_ptr()
+                for grid in state.values() for t in grid.shards.values()}
+        alive = [t for t in (r() for r in made) if t is not None]
+        kept = [tuple(t.shape) for t in alive if t.untyped_storage().data_ptr() not in held]
+    finally:
+        gc.enable()
+    assert alive
+    assert not kept, f"the fn keeps tensors of {kept}"
+
+
+def test_the_parallel_layer_imports_point_down():
+    """`sharded.py` (the shard layout) imports neither the mesh nor host
+    tiling, `mesh.py` does not import host tiling, and no function body in
+    `parallel/` imports a sibling module (a cycle dodged at call time)."""
+    parallel = pathlib.Path(mesh.__file__).parent
+    siblings = {p.stem for p in parallel.glob("*.py")} - {"__init__"}
+
+    def named(node) -> set:
+        if isinstance(node, ast.ImportFrom) and node.level == 1:
+            mods = [node.module] if node.module else [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module.removeprefix("soda_tpu_torch.parallel.")]
+        elif isinstance(node, ast.Import):
+            mods = [a.name.removeprefix("soda_tpu_torch.parallel.") for a in node.names]
+        else:
+            return set()
+        return {m.split(".")[0] for m in mods} & siblings
+
+    imports, inside = {}, {}
+    for path in sorted(parallel.glob("*.py")):
+        tree = ast.parse(path.read_text())
+        imports[path.stem] = set().union(*map(named, ast.walk(tree)))
+        inside[path.stem] = {
+            m for f in ast.walk(tree) if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+            for node in ast.walk(f) for m in named(node)}
+    assert imports["mesh"] == {"sharded"} and imports["host_tile"] == {"mesh", "sharded"}
+    assert not imports["sharded"] & {"mesh", "host_tile"}
+    assert not any(inside.values()), inside
