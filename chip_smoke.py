@@ -25,6 +25,12 @@ Phases (any failure exits nonzero):
    with CUDA events (plain, kernel, kernel, plain) beside the bound (ideal
    bytes over 3.35 TB/s) and `F.conv3d` (TF32 off); denoise3d, heat3d and
    poisson3d_f64 at 256^3, and jacobi3d 1024^3 when the card has room;
+   then kernel 1's column z-march at the benchmark's size (`ZMARCH`:
+   denoise3d 512^3 f32 through `cuda.build_fn`, the counters reset just
+   before: 1 launch, 1 "columns3d" in `cuda.march_counts()`, 3 stages),
+   bit for bit against the plain version on the whole grid and timed
+   beside it (plain, kernel, kernel, plain) and its bound, the kernels
+   line's "columns3d" row;
    then jacobi3d on grids no tile divides (`AT_SIZE_ODD`: 500^3, rows of
    whole 16-byte chunks, and 511^3, the scalar load path), each through
    `cuda.build_fn` with the counters reset just before (kernel 1, 1
@@ -220,6 +226,9 @@ SMALL_SHAPES = ((32, 64, 128), (13, 37, 45), (7, 11, 13))
 AT_SIZE = (("jacobi3d", (512, 512, 512)), ("denoise3d", (256, 256, 256)),
            ("heat3d", (256, 256, 256)), ("poisson3d_f64", (256, 256, 256)))
 BIG = ("jacobi3d", (1024, 1024, 1024))
+# kernel 1's column z-march at the size of the benchmark's cell
+# `denoise3d-512.loop` (phase 4)
+ZMARCH = ("denoise3d", (512, 512, 512))
 # phase 4's rank-3 grids that no tile divides (`scripts/tpu_check.py:40`'s
 # "core + rim"): 500^3 has rows of 2000 B, whole 16-byte chunks (the vector
 # load path); 511^3 rows of 2044 B (the scalar load path)
@@ -759,6 +768,7 @@ def fuzz_phase(dev, card, cases: list[dict], build_seconds: dict) -> dict | None
     from soda_tpu_torch.utils.testing import compare_outputs, kernel_names, oracle, tolerance
 
     totals = collections.Counter()
+    marches = collections.Counter()
     failed = []
     t19 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(max_workers=4) as oracles:
@@ -774,6 +784,7 @@ def fuzz_phase(dev, card, cases: list[dict], build_seconds: dict) -> dict | None
             torch.cuda.synchronize()
             counts = {k: v for k, v in cuda.launch_counts().items() if v}
             totals.update(counts)
+            marches.update(cuda.march_counts())
             if c["mesh"]:
                 case, fn = c["mesh"]
                 names = sorted({k for lp in fn.local_plans().values() for k in kernel_names(lp)})
@@ -840,8 +851,9 @@ def fuzz_phase(dev, card, cases: list[dict], build_seconds: dict) -> dict | None
                 failed.append(c["label"])
             del ins, got, plain, whole
     log(f"fuzz: phase 19 ran {len(cases)} programs in {time.perf_counter() - t19:.1f} s, "
-        f"{len(failed)} failed {failed}; launches {dict(totals)}; card {card}")
-    return None if failed else dict(totals)
+        f"{len(failed)} failed {failed}; launches {dict(totals)}; marches "
+        f"{dict(marches)}; card {card}")
+    return None if failed else {**totals, "columns3d": marches["columns3d"]}
 
 
 def main() -> int:
@@ -921,7 +933,7 @@ def main() -> int:
         for shape in SMALL_SHAPES[:2]:
             for kw in PINNED_3D:
                 add_plan(programs[n], pinned_plan(programs[n], shape, kw))
-    for n, shape in AT_SIZE + (BIG,) + AT_SIZE_ODD:
+    for n, shape in AT_SIZE + (BIG, ZMARCH) + AT_SIZE_ODD:
         add_jobs(programs[n], shape, sweeps=1)
     for n, p in programs2.items():
         for shape in SMALL_SHAPES_2D:
@@ -1244,6 +1256,53 @@ def main() -> int:
                           library_ms=lib_ms)
         del ins, pars, fn
         torch.cuda.empty_cache()
+
+    # the column z-march at the benchmark's size: one launch of it through
+    # build_fn with the counters just reset, the whole grid bit for bit
+    # against the plain version, then both timed in turns
+    n, shape = ZMARCH
+    p = programs[n]
+    ins = {i: torch.rand(shape, generator=gen, device=dev) for i in p.input_names}
+    fn = cuda.build_fn(p, grid_shape=shape, sweeps=1)
+    cuda.reset_launches()
+    got = fn(ins, {})
+    torch.cuda.synchronize()
+    launched, marches, stages = cuda.launch_counts(), cuda.march_counts(), cuda.stage_count()
+    plain = eager.run(p, ins, {}, device=dev)
+    err, exact = max_abs_err(got, plain), bitwise_equal(got, plain)
+    ok = (exact and stages == 3 and marches["columns3d"] == sum(marches.values()) == 1
+          and launched["linebuffer3d"] == sum(launched.values()) == 1)
+    del got, plain
+    torch.cuda.empty_cache()
+
+    def run_kernel():
+        fn(ins, {})
+
+    def run_plain():
+        eager.run(p, ins, {}, device=dev)
+
+    run_kernel(), run_plain()
+    torch.cuda.synchronize()
+    t = [events_ms(run_plain, 5), events_ms(run_kernel, 10),
+         events_ms(run_kernel, 10), events_ms(run_plain, 5)]
+    k_ms, p_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    rep = report.analyze(fn.plan)
+    g = fn.plan.groups[0]
+    log(f"at-size {n} {shape} column z-march: launches {launched}, marches {marches}, "
+        f"stages {stages}; max|kernel-plain| {err:.3g} on the whole grid "
+        f"({'bit for bit' if exact else 'not bit for bit'}; {'ok' if ok else 'MISMATCH'}); "
+        f"ms kernel {k_ms:.4f} [{t[1]:.4f}, {t[2]:.4f}] plain {p_ms:.4f} "
+        f"[{t[0]:.4f}, {t[3]:.4f}]; bound {rep.bound_ms:.4f} ({rep.bound_by}), "
+        f"{100 * rep.bound_ms / k_ms:.1f}% of it; plan {rep.plan_bytes_per_cell:.3f} "
+        f"B/cell; {g.describe()}; {ptxas_registers(cuda.group_kernel(p, g).build().log)}; "
+        f"card {card}")
+    if not ok:
+        log(f"FAILED at-size check: {n} {shape} column z-march")
+        return 1
+    zmarch = dict(err=err, ms=k_ms, plain_ms=p_ms, launches=marches["columns3d"],
+                  bound_ms=rep.bound_ms, bound_by=rep.bound_by)
+    del ins, fn
+    torch.cuda.empty_cache()
 
     # grids no tile divides: kernel 1 once with its counter just reset, the
     # whole grid against the plain version, then alone beside 512^3
@@ -2199,7 +2258,8 @@ def main() -> int:
 
     # ---- 19. random programs on the card -------------------------------------------
     fuzzed = fuzz_phase(dev, card, fuzz, build_seconds)
-    if fuzzed is None or set(fuzzed) != {"linebuffer3d", "linebuffer2d", "sweeps", "windows"}:
+    if fuzzed is None or set(fuzzed) - {"columns3d"} != {"linebuffer3d", "linebuffer2d",
+                                                          "sweeps", "windows"}:
         log(f"FAILED fuzz check: phase 19 launched {fuzzed}, not every kernel")
         return 1
     del fuzz
@@ -2233,7 +2293,7 @@ def main() -> int:
     mark(20)
     j, b, f = summary["jacobi3d"], summary2[MAIN_2D], summary3[MAIN_SWEEPS]
     for row, name in ((j, "linebuffer3d"), (b, "linebuffer2d"), (f, "sweeps"),
-                      (summary4, "windows")):
+                      (summary4, "windows"), (zmarch, "columns3d")):
         row["fuzz_launches"] = fuzzed[name]
     log(card)
     log(json.dumps({"kernels": [{
@@ -2260,6 +2320,15 @@ def main() -> int:
         "ms": f["ms"], "plain_ms": f["plain_ms"], "chained_ms": f["chained_ms"],
         "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
         "library_ms": f["library_ms"]}, {
+        # kernel 1's column z-march, denoise3d 512^3 (phase 4); its
+        # fuzz_launches count the "columns3d" launches of phase 19
+        "name": "columns3d", "route": "cuda",
+        "source": "soda_tpu_torch/csrc/columns3d.cuh",
+        "replaces": "soda_tpu/backend/_linebuffer.py:309",
+        "launches": zmarch["launches"],
+        "fuzz_launches": zmarch["fuzz_launches"], "max_abs_err": zmarch["err"],
+        "ms": zmarch["ms"], "plain_ms": zmarch["plain_ms"], "bound_ms": zmarch["bound_ms"],
+        "bound_by": zmarch["bound_by"], "library_ms": None}, {
         # smooth1d 2^28 f32 (phase 12)
         "name": "windows", "route": "cuda",
         "source": "soda_tpu_torch/csrc/windows.cuh",

@@ -7,8 +7,9 @@ For each row (a program, `+tcse` where it is rewritten by
 own plan and the pinned variants below: the tile ((RB, TX) for rank 2,
 (TY, TX) for rank 3), the order of a step's stages (`sync`: "skew", one
 wait a step, or "barrier", a barrier after each stage, in the rings) or
-a rank-2 cascade's march ("columns", the column march, or "rings"; pinned
-with `utils/testing.py::pinned_plan`), the shared-memory budget and,
+the march (rank 2's cascades "columns", the column march, or "rings";
+rank 3's multi-level groups "columns3d", the column z-march, or "rings3d";
+pinned with `utils/testing.py::pinned_plan`), the shared-memory budget and,
 where a variant names one, the chunk (BY or BZ; else the planner's for
 the pinned tile).  Programs outside the corpus (u64_3d) are `utils/testing.py`'s.
 Each variant's output
@@ -30,6 +31,7 @@ import sys
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
 BIG = 232_448   # the whole 227 KB a CTA may hold: one or two CTAs an SM
+MARCHES = ("columns", "rings", "columns3d", "rings3d")
 
 # (program, grid, fused depth): [(tile, sync or march, smem budget[, chunk]),
 # ...]; a tile None is the planner's for that march
@@ -98,13 +100,29 @@ VARIANTS = {
     ("denoise3d", (256, 256, 256), 1): [
         ((16, 64), "barrier", None), ((16, 32), "skew", None),
         ((32, 64), "skew", BIG), ((8, 64), "skew", None)],
+    # kernel 1's multi-level groups: the column z-march and the rings (each
+    # at its planner's tile), and the column z-march at pinned tiles
+    ("denoise3d", (512, 512, 512), 1): [
+        (None, "columns3d", None), (None, "rings3d", None),
+        ((16, 64), "columns3d", None), ((32, 32), "columns3d", None),
+        ((8, 32), "columns3d", None)],
+    ("orient3d", (512, 512, 512), 1): [
+        (None, "columns3d", None), (None, "rings3d", None)],
     ("heat3d", (256, 256, 256), 2): [
+        (None, "columns3d", None), (None, "rings3d", None),
         ((32, 64), "barrier", None), ((16, 64), "skew", None),
         ((32, 32), "skew", None)],
     ("heat3d", (512, 512, 512), 2): [
+        (None, "columns3d", None), (None, "rings3d", None),
+        ((16, 32), "columns3d", None), ((32, 32), "columns3d", None),
         ((32, 64), "barrier", None), ((16, 64), "skew", None),
         ((32, 32), "skew", None)],
+    # jacobi3d x 2: two sweeps (iterate 2) fused a call
+    ("jacobi3d", (512, 512, 512), 2): [
+        (None, "columns3d", None), (None, "rings3d", None),
+        ((16, 32), "columns3d", None)],
     ("heat3d", (512, 512, 512), 4): [
+        (None, "columns3d", None), (None, "rings3d", None), ((16, 32), "columns3d", None),
         ((32, 32), "barrier", None), ((16, 64), "skew", None),
         ((16, 32), "skew", None), ((32, 64), "skew", BIG)],
     # 64-bit rings: three CTAs an SM at (32, 64), four at (16, 64)
@@ -151,11 +169,13 @@ def main(only: str = "") -> int:
              else parse_file(HERE / "tests" / "soda" / f"{name}.soda"))
         if rewrite:
             p = tcse.apply(p)
-        plans = [("planner", planner.plan(p, shape, sweeps=nf))]
+        # a program of fewer sweeps than the depth runs the depth's sweeps
+        it = {"iterate": nf} if nf > max(p.iterate, 1) else {}
+        plans = [("planner", planner.plan(p, shape, sweeps=nf, **it))]
         for tile, sync, budget, *chunk in variants:
-            pin = {"sweeps": nf, "tile": tile,
+            pin = {"sweeps": nf, "tile": tile, **it,
                    "smem_budget": budget or planner.SMEM_BUDGET,
-                   **({"march": sync} if sync in ("columns", "rings") else {"sync": sync})}
+                   **({"march": sync} if sync in MARCHES else {"sync": sync})}
             if chunk:
                 pin["bz"] = chunk[0]
             pl = pinned_plan(p, shape, pin)

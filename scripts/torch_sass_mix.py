@@ -16,8 +16,11 @@ rows x the stage copies) approximates the instructions one thread issues
 per cell it computes; kernel 1's step computes each stage in column runs
 (a run's rows, from the source's "runs of N row(s)"), so the count over
 the rows of one run of every stage approximates the same, with the plane
-copies and the step's bookkeeping spread over them.  Where a run is
-printed twice (inside the grid without the per-row checks, and with
+copies and the step's bookkeeping spread over them; the column z-march's
+(`columns3d.py`) step computes every member at the thread's tile
+columns and its share of the halo, so the count over its tile columns
+approximates the same.  Where a run or a step's members are
+printed twice (inside the grid without the per-cell checks, and with
 them), both copies count.  A rank-2 cascade's row takes the planner's
 march, or the one it names ("rings" or "columns"); the column march's
 step is printed once for each of its NSLOT phases, so its count is
@@ -43,6 +46,7 @@ ROWS = (("blur", (2048, 4096), 1), ("blur", (16384, 16384), 1),
         ("jacobi2d", (16384, 16384), 8, "rings"),
         ("gauss5x5", (16384, 16384), 1), ("gauss5x5+tcse", (16384, 16384), 1),
         ("jacobi3d", (512, 512, 512), 1), ("denoise3d", (256, 256, 256), 1),
+        ("denoise3d", (512, 512, 512), 1),
         ("heat3d", (512, 512, 512), 2), ("heat3d", (512, 512, 512), 4),
         ("poisson3d_f64", (256, 256, 256), 1))
 CLASSES = (
@@ -96,7 +100,13 @@ def main(out_dir: str = "", root: str = "", only: str = "") -> int:
         (out / f"{built.path.stem}.sass").write_text(sass)
         ops = collections.Counter(classify(m.group(1)) for m in OP.finditer(sass))
         total = sum(ops.values())
-        if len(shape) == 3:
+        if g.march == "columns3d":
+            # a step of the column z-march: each of a thread's tile columns
+            # (every member there, and its halo columns' share)
+            cells = g.tile[0] * g.tile[1] // g.threads
+            per = f"a step of the thread's {cells} tile columns"
+            updates = cells * g.sweeps
+        elif len(shape) == 3:
             # one run of every stage (the rows each prints; a block printed
             # twice, for the hazard emulation's order, counts once)
             runs = [int(r) for r in dict(re.findall(

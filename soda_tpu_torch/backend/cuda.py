@@ -11,10 +11,12 @@ The entry point runs on the card unless the caller asks for the CPU
 every group runs its plain version (`linebuffer.group_plain`); on CUDA
 tensors every group runs its kernel or raises: kernel 1 (the 3-D z-march,
 `linebuffer.py`) for rank 3, kernel 2 (the 2-D row-march,
-`linebuffer2d.py`) for rank 2, for a plan that fuses nf > 1 sweeps the
-fused cascade (`sweeps.py`, kernel 3's counterpart: at rank 2 the column
-march, `columns2d.py`, where its registers fit, else the row-march's
-rings), `iterate / nf` calls of it, and for a windows group (every rank-1 program, a group pinned with
+`linebuffer2d.py`) for rank 2 (a rank-3 group with a stage at level 2
+or deeper as the column z-march, `columns3d.py`, where its registers
+fit), for a plan that fuses nf > 1 sweeps the
+fused cascade (`sweeps.py`, kernel 3's counterpart: the column marches,
+`columns2d.py` and `columns3d.py`, where their registers fit, else the
+marches' rings), `iterate / nf` calls of it, and for a windows group (every rank-1 program, a group pinned with
 `block=`, a stage whose rings fit no tile) the windows kernel
 (`windows.py`, kernel 4's counterpart).  Every kernel takes integers up
 to 64 bits, full-width uint64 included (`uint64_t` carriers);
@@ -35,7 +37,7 @@ from ..plan.planner import GroupPlan, Plan
 from ..plan.planner import plan as make_plan
 from ..utils import trace
 from ..utils.device import resolve
-from . import linebuffer, linebuffer2d, sweeps, windows
+from . import columns3d, linebuffer, linebuffer2d, sweeps, windows
 from .io import finalize_outputs, to_torch
 
 WRAPPERS = {3: linebuffer.GroupKernel, 2: linebuffer2d.GroupKernel}
@@ -61,10 +63,12 @@ def feed_counts() -> dict[str, int]:
 
 
 def march_counts() -> dict[str, int]:
-    """Rank-2 cascade launches since `reset_launches`, by march: "columns"
-    (the column march, `columns2d.py`) or "rings" (the row-march's rings)
-    (`sweeps.MARCH_LAUNCHES`)."""
-    return dict(sweeps.MARCH_LAUNCHES)
+    """Launches since `reset_launches` by march
+    (`linebuffer.MARCH_LAUNCHES`): the rank-2 cascades' "columns" (the
+    column march, `columns2d.py`) or "rings" (the row-march's rings), and
+    the z-march's (kernel 1, and the rank-3 cascade it runs) "columns3d"
+    (the column z-march, `columns3d.py`) or "rings3d" (its rings)."""
+    return dict(linebuffer.MARCH_LAUNCHES)
 
 
 def stage_count() -> int:
@@ -84,27 +88,29 @@ def planned_bytes() -> int:
 
 def reset_launches() -> None:
     """Set every kernel wrapper's launch count, the z-march's counts by
-    feed and its stage count, the rank-2 cascades' counts by march and the
-    planned bytes to 0, and clear the timing spans and device intervals
-    (`utils/trace.py::reset`) with them."""
+    feed and by march and its stage count, the rank-2 cascades' counts by
+    march and the planned bytes to 0, and clear the timing spans and
+    device intervals (`utils/trace.py::reset`) with them."""
     for m in COUNTED.values():
         m.LAUNCHES = 0
-    for feed in linebuffer.FEED_LAUNCHES:
-        linebuffer.FEED_LAUNCHES[feed] = 0
-    for march in sweeps.MARCH_LAUNCHES:
-        sweeps.MARCH_LAUNCHES[march] = 0
+    for counts in (linebuffer.FEED_LAUNCHES, linebuffer.MARCH_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
     linebuffer.STAGES = linebuffer.PLANNED_BYTES = 0
     trace.reset()
 
 
 def group_kernel(program: StencilProgram, g: GroupPlan) -> linebuffer.GroupKernel:
     """The wrapper of one planned group: the fused cascade when the group
-    fuses sweeps, the windows kernel for a windows group, else the
-    line-buffer kernel of the program's rank."""
+    fuses sweeps, the windows kernel for a windows group, the column
+    z-march where the plan gives it, else the line-buffer kernel of the
+    program's rank."""
     if g.sweeps > 1:
         return sweeps.GroupKernel(program, g)
     if g.kernel == "windows":
         return windows.GroupKernel(program, g)
+    if g.march == "columns3d":
+        return columns3d.GroupKernel(program, g)
     return WRAPPERS[program.rank](program, g)
 
 

@@ -8,7 +8,12 @@ march in `csrc/linebuffer3d.cuh` (see the note there for the design and
 what bounds it: device-memory bytes, of which the y/x halo's sectors are
 a tenth to a quarter, and copies in flight that cost the computing
 threads nothing); `group_plain` is the same group evaluated over full
-grids by the plain PyTorch path; `GroupKernel` is the wrapper.
+grids by the plain PyTorch path; `GroupKernel` is the wrapper.  A group
+the planner gives the column z-march (`GroupPlan.march` "columns3d": a
+stage at level 2 or deeper) runs `columns3d.GroupKernel`, this wrapper
+with that march's source over the same feeds and entry points
+(`cuda.group_kernel` picks it); `MARCH_LAUNCHES` counts launches by
+march.
 
 A CTA owns a (TY, TX) column tile and a chunk of BZ planes, and marches
 its planes one a step.  How its input rings are fed is the plan's
@@ -62,6 +67,11 @@ LAUNCHES = 0
 # z-march launches (kernel 1, and the rank-3 cascade it runs) by the feed
 # of their input rings (`GroupPlan.feed`): "tma" or "scalar"
 FEED_LAUNCHES = {"tma": 0, "scalar": 0}
+# launches by march (`GroupPlan.march`): the rank-2 cascades' column
+# march (`columns2d.py`) or the row-march's rings, counted by
+# `sweeps.GroupKernel`; and the z-march's (kernel 1, and the rank-3
+# cascade it runs) column z-march (`columns3d.py`) or rings
+MARCH_LAUNCHES = {"columns": 0, "rings": 0, "columns3d": 0, "rings3d": 0}
 # stages computed on chip by the z-march's launches, each launch its
 # group's (a cascade's once a sweep: `GroupPlan.stages` lists them so)
 STAGES = 0
@@ -188,11 +198,59 @@ def tma_entry_points(kernel: str, decl: str, call: str, block: str, grid: str,
             "#endif", ""]
 
 
+# an input ring's plane copies, in both z-marches (`columns3d.py`): `step`
+# is a step's expression (its leading plane `n_ZHI` past it, copied once
+# inside the ring's span), `slot(plane)` a plane's slot, `at` what
+# prefixes the CTA's origin, bounds and thread (a context struct's "c.")
+def tma_feed(n: str, step: str, tmap: str, at: str = "") -> list[str]:
+    """Issue the TMA copy of step `step`'s plane of input `n` (tensor map
+    `tmap`) into its slot, signalling the slot's mbarrier."""
+    pl = f"{step} + {n}_ZHI"
+    return [f"if ({pl} >= {n}_ZLO) {{",
+            f"  const int f = ({pl} - {n}_ZLO) % {n}_D;",
+            f"  soda_tma_plane({ring_var(n)} + f * {n}_PS, {tmap}, {n}_b + f, "
+            f"(int)({at}x0 + {n}_XA), (int)({at}y0 + {n}_YLO), (int)({at}z0 + {pl}), "
+            f"{n}_BYTES);",
+            "}"]
+
+
+def tma_wait(n: str, step: str) -> list[str]:
+    """Wait until step `step`'s plane of input `n` has landed."""
+    pl = f"{step} + {n}_ZHI"
+    return [f"if ({pl} >= {n}_ZLO) {{",
+            f"  const int f = {pl} - {n}_ZLO;",
+            f"  soda_bar_wait({n}_b + f % {n}_D, (unsigned)(f / {n}_D) & 1u);",
+            "}"]
+
+
+def plane_pre(program: StencilProgram, n: str) -> str:
+    """A thread's elements of one plane of input `n` on the scalar path."""
+    return f"{_ctype_store(program, n)} {n}_pre[soda_per<{n}_R, {n}_C, NT>()];"
+
+
+def fetch_plane(n: str, step: str, slot, at: str = "") -> list[str]:
+    """Load a thread's elements of step `step`'s plane of input `n`."""
+    pl = f"{step} + {n}_ZHI"
+    return [f"if ({pl} >= {n}_ZLO) soda_fetch_plane_s<{n}_R, {n}_C, NT>({n}_pre, "
+            f"{slot(pl)}, {n}_g, {at}z0 + {pl}, {at}y0 + {n}_YLO, {at}x0 + {n}_XA, "
+            f"{at}d0, {at}d1, {at}d2, {at}tid);"]
+
+
+def store_plane(n: str, step: str, slot, at: str = "") -> list[str]:
+    """Store a thread's loaded elements of step `step`'s plane of input
+    `n` into its slot."""
+    pl = f"{step} + {n}_ZHI"
+    return [f"if ({pl} >= {n}_ZLO) soda_store_plane_s<{n}_R, {n}_C, NT>("
+            f"{slot(pl)}, {n}_pre, {at}tid);"]
+
+
 def kernel_source(program: StencilProgram, g: GroupPlan,
                   kernel: str = "soda_lb3d_kernel", note: str = "") -> str:
     """CUDA C++ for one group under one plan (tile, chunk, rings, levels,
     feed); the `__global__` is named `kernel`, and `note` (comment lines)
     heads the source."""
+    if g.march == "columns3d":
+        raise ValueError("a column z-march plan takes columns3d.kernel_source")
     ty, tx = g.tile
     ring_names = [r.name for r in g.rings]
     gen = RunGen(program, set(ring_names))
@@ -271,39 +329,19 @@ def kernel_source(program: StencilProgram, g: GroupPlan,
     def slot(n: str, plane: str) -> str:
         return f"{ring_var(n)} + ({wrap(n, plane)}) * {n}_PS"
 
-    def where(n: str, plane: str) -> str:
-        return f"z0 + {plane}, y0 + {n}_YLO, x0 + {n}_XA, d0, d1, d2, tid"
-
     def fetch(n: str, step: str) -> list[str]:
-        pl = f"{step} + {n}_ZHI"
-        call = (f"soda_fetch_plane_s<{n}_R, {n}_C, NT>({n}_pre, {slot(n, pl)}, "
-                f"{n}_g, {where(n, pl)});")
-        return [f"if ({pl} >= {n}_ZLO) {call}"]
+        return fetch_plane(n, step, lambda pl: slot(n, pl))
 
     def store(n: str, step: str) -> list[str]:
-        pl = f"{step} + {n}_ZHI"
-        return [f"if ({pl} >= {n}_ZLO) soda_store_plane_s<{n}_R, {n}_C, NT>("
-                f"{slot(n, pl)}, {n}_pre, tid);"]
+        return store_plane(n, step, lambda pl: slot(n, pl))
 
     def pre(n: str) -> list[str]:
-        return [f"{_ctype_store(program, n)} {n}_pre[soda_per<{n}_R, {n}_C, NT>()];"]
+        return [plane_pre(program, n)]
 
     ins = g.external_inputs
     if tma:
         def feed(n: str, step: str) -> list[str]:
-            pl = f"{step} + {n}_ZHI"
-            return [f"if ({pl} >= {n}_ZLO) {{",
-                    f"  const int f = ({pl} - {n}_ZLO) % {n}_D;",
-                    f"  soda_tma_plane({ring_var(n)} + f * {n}_PS, {n}_m, {n}_b + f, "
-                    f"(int)(x0 + {n}_XA), (int)(y0 + {n}_YLO), (int)(z0 + {pl}), {n}_BYTES);",
-                    "}"]
-
-        def wait(n: str) -> list[str]:
-            pl = f"zs + {n}_ZHI"
-            return [f"if ({pl} >= {n}_ZLO) {{",
-                    f"  const int f = {pl} - {n}_ZLO;",
-                    f"  soda_bar_wait({n}_b + f % {n}_D, (unsigned)(f / {n}_D) & 1u);",
-                    "}"]
+            return tma_feed(n, step, f"{n}_m")
 
         L += [*(f"  uint64_t* {n}_b = reinterpret_cast<uint64_t*>(smem + {n}_BAR);"
                 for n in fed),
@@ -324,7 +362,7 @@ def kernel_source(program: StencilProgram, g: GroupPlan,
               "      if (tid == 0 && zs + AHEAD < zlen) {",
               *("        " + ln for n in fed for ln in feed(n, "zs + AHEAD")),
               "      }",
-              *("      " + ln for n in fed for ln in wait(n)),
+              *("      " + ln for n in fed for ln in tma_wait(n, "zs")),
               "    }"]
     else:
         L += ["  soda_cta_begin();",
@@ -464,15 +502,17 @@ class GroupKernel:
     builds the kernel (once), checks every tensor, allocates the outputs
     (unless `out` provides them) and launches on the current stream; it
     never falls back.  `LAUNCHES` counts the launches, `PLANNED_BYTES` adds
-    their planned bytes and, for the z-march, `FEED_LAUNCHES` and `STAGES`
-    their feed and stages.  On CUDA tensors the call is the span
-    `soda.kernel` (`utils/trace.py`), with the group's stage count as its
-    argument `stages`.
+    their planned bytes and, for the z-march, `FEED_LAUNCHES`,
+    `MARCH_LAUNCHES` and `STAGES` their feed, march and stages.  On CUDA
+    tensors the call is the span `soda.kernel` (`utils/trace.py`), with the
+    group's stage count as its argument `stages` and, for the z-march, its
+    `march`.
 
     `linebuffer2d.GroupKernel` (kernel 2, rank 2), `sweeps.GroupKernel`
-    (fused sweeps, ranks 2 and 3) and `windows.GroupKernel` (kernel 4,
-    ranks 1 to 3) are this wrapper with their own source, rank, plain
-    version and count."""
+    (fused sweeps, ranks 2 and 3), `columns3d.GroupKernel` (kernel 1's
+    column z-march) and `windows.GroupKernel` (kernel 4, ranks 1 to 3)
+    are this wrapper with their own source, rank, plain version and
+    count."""
 
     rank = 3
     prefix = "lb3d"
@@ -484,6 +524,8 @@ class GroupKernel:
         self._source: str | None = None
         self._entry = None          # the loaded C entry, after the first build
         self._span_args = {"stages": len(g.stages)}
+        if g.kernel == "linebuffer3d":
+            self._span_args["march"] = g.march
 
     def _generate(self) -> str:
         return kernel_source(self.program, self.group)
@@ -602,5 +644,6 @@ class GroupKernel:
             PLANNED_BYTES += g.hbm_bytes_per_call
             if g.kernel == "linebuffer3d":
                 FEED_LAUNCHES[g.feed] += 1
+                MARCH_LAUNCHES[g.march] += 1
                 STAGES += len(g.stages)
             return outs

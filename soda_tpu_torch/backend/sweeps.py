@@ -20,8 +20,10 @@ cascade runs the column march instead (`columns2d.py` over
 `csrc/columns2d.cuh`, `GroupPlan.march` "columns") where the planner
 gives it one: a thread walks one column down the chunk, each copy's
 in-column taps in its registers, only the x-neighbours exchanged through
-shared memory, one barrier a step; `MARCH_LAUNCHES` counts the rank-2
-cascades' launches by march.
+shared memory, one barrier a step.  A rank-3 cascade runs the column
+z-march (`columns3d.py` over `csrc/columns3d.cuh`, "columns3d") on the
+same plan where the planner gives it one.  `linebuffer.MARCH_LAUNCHES`
+counts both ranks' launches by march.
 
 What bounds it on the H100: one call reads every input cell once (plus
 the strip halo and the chunk's warm-up of 2 * nf * radius planes or rows)
@@ -63,13 +65,10 @@ import torch
 
 from ..ir.program import StencilProgram
 from ..plan.planner import GroupPlan, cascade
-from . import columns2d, linebuffer, linebuffer2d
+from . import columns2d, columns3d, linebuffer, linebuffer2d
 
 # fused-kernel launches made through GroupKernel (the CPU plain path never counts)
 LAUNCHES = 0
-# rank-2 cascade launches by march (`GroupPlan.march`): the column march
-# (`columns2d.py`) or the row-march's rings
-MARCH_LAUNCHES = {"columns": 0, "rings": 0}
 
 KERNEL_NAMES = {3: "soda_sw3d_kernel", 2: "soda_sw2d_kernel"}
 MARCHES = {3: "z-march", 2: "row-march"}
@@ -104,6 +103,21 @@ COLUMNS_NOTE = """\
 // outside the grid are zero at every sweep, as in the chained calls."""
 
 
+COLUMNS3D_NOTE = """\
+// Fused iterate sweeps (replaces TPU kernel 3,
+// soda_tpu/backend/pallas.py::_build_strips_group_fn).  The group is a
+// cascade of {nf} sweep copies in the column z-march: a thread owns fixed
+// columns of the tile and its halo for the whole chunk, and copy k computes
+// the planes the copies after it read, so the {nf} sweeps between the first
+// read and the last write never touch device memory.  Bound on the H100:
+// one read of every input and one write of every output per call of {nf}
+// sweeps over 3.35 TB/s, or {nf} sweeps' operations, weighted by type,
+// over 67 TFLOP/s, whichever is larger; on chip, a copy's taps at the
+// thread's own column are registers and each in-plane neighbour one
+// shared-memory load, one barrier a step.  Cells outside the grid are
+// zero at every sweep, as in the chained calls."""
+
+
 def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
     """CUDA C++ for a fused group of `g.sweeps` sweeps of `program`."""
     if g.sweeps < 2:
@@ -112,6 +126,9 @@ def kernel_source(program: StencilProgram, g: GroupPlan) -> str:
     if g.march == "columns":
         return columns2d.kernel_source(prog, g, kernel=KERNEL_NAMES[2],
                                        note=COLUMNS_NOTE.format(nf=g.sweeps))
+    if g.march == "columns3d":
+        return columns3d.kernel_source(prog, g, kernel=KERNEL_NAMES[3],
+                                       note=COLUMNS3D_NOTE.format(nf=g.sweeps))
     gen = linebuffer.kernel_source if program.rank == 3 else linebuffer2d.kernel_source
     return gen(prog, g, kernel=KERNEL_NAMES[program.rank],
                note=NOTE.format(nf=g.sweeps, march=MARCHES[program.rank]))
@@ -162,4 +179,4 @@ class GroupKernel(linebuffer.GroupKernel):
         global LAUNCHES
         LAUNCHES += 1
         if self.rank == 2:
-            MARCH_LAUNCHES[self.group.march] += 1
+            linebuffer.MARCH_LAUNCHES[self.group.march] += 1

@@ -703,13 +703,13 @@ def _trace_table(the_plan) -> list[str]:
                          f"{ms / n:.4f} ms each")
     lines.append(f"z-march launches by feed: {cuda.feed_counts()}")
     lines.append(f"z-march stages on chip: {cuda.stage_count()}")
-    lines.append(f"rank-2 cascade launches by march: {cuda.march_counts()}")
+    lines.append(f"march launches (rank-2 cascades, z-march): {cuda.march_counts()}")
     lines.append(f"planned device-memory bytes: {cuda.planned_bytes()}")
     for i, g in enumerate(the_plan.groups):
         if g.kernel == "linebuffer3d":
             ahead = f", {g.ahead} step(s) ahead" if g.ahead else ""
-            lines.append(f"group {i}: feed {g.feed}{ahead}, {g.ctas_per_sm} CTAs an SM, "
-                         f"grid {g.grid}")
+            lines.append(f"group {i}: march {g.march}, feed {g.feed}{ahead}, "
+                         f"{g.ctas_per_sm} CTAs an SM, grid {g.grid}")
     return lines
 
 

@@ -90,3 +90,18 @@ SODA_BODY void soda_step_wait() {
   __syncthreads();
 #endif
 }
+
+// The column marches (columns2d.cuh, columns3d.cuh) end a step with it.
+// Under SODA_HOST_EMULATION the NT threads of a CTA take turns, each
+// running its march up to its next step's end (the march returns its step
+// `s`), in reverse order under SODA_HAZARD (SODA_TURN).
+#ifdef SODA_HOST_EMULATION
+#define SODA_STEP_END() return s
+#ifdef SODA_HAZARD
+#define SODA_TURN(k, n) ((n) - 1 - (k))
+#else
+#define SODA_TURN(k, n) (k)
+#endif
+#else
+#define SODA_STEP_END() soda_step_wait()
+#endif

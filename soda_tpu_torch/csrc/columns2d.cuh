@@ -2,8 +2,8 @@
 //
 // backend/columns2d.py generates one kernel per (program, cascade, plan)
 // around this header; the input rows are copied by the row-march's helpers
-// (linebuffer2d.cuh), the 16-byte copy and the step's wait are
-// async_copy.cuh's.
+// (linebuffer2d.cuh), the 16-byte copy, the step's wait and its end
+// (SODA_STEP_END) are async_copy.cuh's.
 //
 // What computes what.  A CTA owns a strip of TX columns (and the cascade's
 // x halo) and a chunk of BY rows, as in the row-march; each thread owns one
@@ -54,16 +54,3 @@
 // floor(a / b) for b > 0
 SODA_HD int soda_floor_div(int a, int b) { return a >= 0 ? a / b : -((b - 1 - a) / b); }
 
-#ifdef SODA_HOST_EMULATION
-// the end of a step: the thread's turn ends (soda_march returns its step)
-#define SODA_STEP_END() return s
-#ifdef SODA_HAZARD
-#define SODA_TURN(k, n) ((n) - 1 - (k))
-#else
-#define SODA_TURN(k, n) (k)
-#endif
-#else
-// the end of a step: every copy this thread issued has landed, then the
-// CTA's one barrier of the step
-#define SODA_STEP_END() soda_step_wait()
-#endif

@@ -79,6 +79,28 @@ step.  The window fits where the registers a thread needs
 (`COLUMN_REG_BASE`, the carried rows and three rows of values a row of
 the step, in 32-bit words) stay within `COLUMN_REGS_MAX`.
 
+A rank-3 group with a stage at level 2 or deeper runs the column z-march
+(`backend/columns3d.py`, `GroupPlan.march` "columns3d") wherever its
+registers fit, else the rings of the z-march above ("rings3d", the march
+of every single-stage group; `march=` pins either, for checks).  A CTA
+owns a tile and a chunk as in the rings, and each of its
+threads fixed (y, x) columns for the whole chunk: tile
+columns dealt in turn, then the halo columns that some member's span
+adds around the tile.  Member m computes the plane s + lead_m at step s
+(`zcolumn_leads`): a tap at the thread's own column (dy = dx = 0) reads
+the thread's own value, computed earlier in the step or carried in
+registers from an earlier one (`zcolumn_windows`), an in-plane tap the
+member's exchange planes in shared memory, written a step before at the
+latest (`zcolumn_slots`), and an input's taps its ring (the TMA feed or
+the scalar path as above; the input's plane at the thread's column is
+read once, at the step that leads it, and carried).  A member read only
+at its own column never leaves the registers (denoise3d's grad), and one
+barrier ends a step.  The registers fit where a thread's estimate
+(`COLUMN_REG_BASE`, its columns' positions, the carried planes and a
+step's values, in 32-bit words) stays within `COLUMN_REGS_MAX`; a tile
+whose halo columns pass `ZCOLUMN_HALO_MAX` of its own is not taken (a
+deep cascade's: heat3d x 4 runs the rings).
+
 The windows kernel (TPU kernel 4, `backend/windows.py`): a CTA owns one
 block of the grid (BX cells, BY x BX or BZ x BY x BX; the last axis is
 tiled too) and marches nothing.  Each external input whose (block + span)
@@ -198,6 +220,23 @@ COLUMN_REGS_MAX = 96
 # column march's drain: jacobi2d x 2 ran 4.5% (2048^2) and 9.9% (16384^2)
 # slower in it than in the rings on the H100 (PERF.md); below it, the rings
 COLUMN_MEMBERS_MIN = 3
+# the column z-march (rank-3 groups with a stage at level 2 or deeper):
+# NTHREADS threads a CTA, each owning TY * TX / NTHREADS tile columns, its
+# registers counted as the column march's (COLUMN_REG_BASE, at most
+# COLUMN_REGS_MAX).  Among its plans of at least ZCOLUMN_CTAS_MIN CTAs an
+# SM it takes the least modeled time (on the H100, denoise3d 512^3 ran
+# 1.027 ms at (16, 32), 4 CTAs an SM, and 1.056 at (16, 64), 2; heat3d x 2
+# 0.512 ms a call at (16, 64), 3 CTAs, and 0.619 at (16, 32), 4; CTAs of
+# 512 or 1024 threads owning as many columns a thread were no faster;
+# PERF.md), and no tile whose halo columns pass ZCOLUMN_HALO_MAX of its
+# own: a thread's halo columns lengthen the step every thread waits for at
+# its barrier (heat3d x 4, its halo 0.63 of the tile at (16, 32) and more
+# at every other tile whose registers fit, ran 0.41-0.50 ms a sweep against
+# the rings' 0.367; denoise3d at (8, 32), 0.33, 1.35 ms against 1.03 at
+# (16, 32), 0.20).  No benchmark cell runs a rank-3 cascade yet, so only
+# the kernel-alone times hold the halo rule (ROADMAP.md)
+ZCOLUMN_CTAS_MIN = 3
+ZCOLUMN_HALO_MAX = 0.25
 
 KERNELS = {3: "linebuffer3d", 2: "linebuffer2d"}
 # windows kernel blocks per rank, in cells per axis (the last axis last);
@@ -299,9 +338,11 @@ class GroupPlan:
     levels: dict[str, int] = dataclasses.field(default_factory=dict)
     slots_per_sm: int = 0
     ahead: int = 0
-    # the rank-2 march ("rings": the row-march; "columns": the column
-    # march of a cascade), the column march's leads (each member's first
-    # row at step 0) and the registers a thread may take (the CTAs an SM)
+    # the march: rank 2 "rings" (the row-march) or "columns" (the column
+    # march of a cascade), rank 3 "rings3d" (the z-march's rings) or
+    # "columns3d" (the column z-march); the column marches' leads (each
+    # member's first row, or its plane, at step 0) and the registers a
+    # thread may take (the CTAs an SM)
     march: str = ""
     leads: dict[str, int] = dataclasses.field(default_factory=dict)
     regs: int = 64
@@ -350,8 +391,8 @@ class GroupPlan:
                      f"direct={self.direct}")
         elif self.kernel == "linebuffer3d":
             feed = f"feed=tma, ahead={self.ahead}" if self.ahead else "feed=scalar"
-            shape = (f"tile={self.tile}, bz={self.bz}, {feed}, load={self.load}, "
-                     f"sync={self.sync}, threads={self.threads}, "
+            shape = (f"tile={self.tile}, bz={self.bz}, march={self.march}, {feed}, "
+                     f"load={self.load}, sync={self.sync}, threads={self.threads}, "
                      f"ctas/SM={self.ctas_per_sm}")
         else:
             shape = (f"tile={self.tile}, by={self.bz}, march={self.march}, "
@@ -647,6 +688,158 @@ def column_first_step(members: list[str], ext_inputs: list[str], spans: dict[str
                + [(spans[q][0][0] - spans[q][0][1]) // rb for q in ext_inputs])
 
 
+def _in_column(off: tuple[int, ...]) -> bool:
+    """A rank-3 tap at the reader's own (y, x) column."""
+    return not any(off[1:])
+
+
+def zcolumn_leads(program: StencilProgram, members: list[str],
+                  spans: dict[str, Span]) -> dict[str, int]:
+    """The column z-march's lead of each member: at step s it computes the
+    chunk-local plane s + lead.  First the highest lead that leaves every
+    tap in time (topological order): an input's planes up to s + hi are
+    in its ring at step s (hi its span's), a member's tap at the reader's
+    own column is the thread's own value of the same step, an in-plane
+    tap the exchange plane of the step before.  Then, in reverse, each
+    member read by others only as high as its readers need, so that no
+    value waits in the registers longer than it must."""
+    leads: dict[str, int] = {}
+    for c in members:
+        at = []
+        for q, offs in program.tensors[c].window().items():
+            for off in offs:
+                at.append(leads[q] - off[0] - (0 if _in_column(off) else 1)
+                          if q in leads else spans[q][0][1] - off[0])
+        leads[c] = min(at, default=spans[c][0][1])
+    for q in reversed(members):
+        need = [leads[c] + off[0] + (0 if _in_column(off) else 1)
+                for c in members for off in program.tensors[c].window().get(q, [])]
+        if need:
+            leads[q] = min(leads[q], max(need))
+    return leads
+
+
+def zcolumn_windows(program: StencilProgram, readers: list[str],
+                    spans: dict[str, Span], leads: dict[str, int]) -> dict[str, int]:
+    """Planes of each tensor that `readers` tap at their own column which a
+    thread carries from one step to the next: from the lowest such plane a
+    step reads up to the tensor's plane of the step (a member's lead, an
+    input's span hi; that one is the step's own value).  Every tensor so
+    tapped has an entry, 0 where the step's own value is all it needs."""
+    low: dict[str, int] = {}
+    for c in readers:
+        for q, offs in program.tensors[c].window().items():
+            for off in offs:
+                if _in_column(off):
+                    low[q] = min(low.get(q, leads[c] + off[0]), leads[c] + off[0])
+    return {q: (leads[q] if q in leads else spans[q][0][1]) - lo for q, lo in low.items()}
+
+
+def zcolumn_slots(program: StencilProgram, members: list[str],
+                  leads: dict[str, int]) -> dict[str, int]:
+    """Exchange planes each member tapped in-plane keeps: the step's own,
+    which it writes, and those back to the lowest plane a reader taps."""
+    slots: dict[str, int] = {}
+    for c in members:
+        for q, offs in program.tensors[c].window().items():
+            for off in offs:
+                if q in leads and not _in_column(off):
+                    slots[q] = max(slots.get(q, 1), 1 + leads[q] - leads[c] - off[0])
+    return slots
+
+
+def zcolumn_halo_members(members: list[str], spans: dict[str, Span]) -> list[str]:
+    """The members whose span reaches past the tile in y or x: the only ones
+    computed at the halo columns."""
+    return [m for m in members if any(spans[m][1] + spans[m][2])]
+
+
+def zcolumn_steps(members: list[str], ext_inputs: list[str], spans: dict[str, Span],
+                  leads: dict[str, int]) -> tuple[int, int]:
+    """The column z-march's first step of a chunk (the least at which every
+    member's first plane and every input's is reached) and the planes its
+    last step reaches past the chunk's last."""
+    first = min([spans[m][0][0] - leads[m] for m in members]
+                + [spans[q][0][0] - spans[q][0][1] for q in ext_inputs])
+    return first, max(spans[m][0][1] - leads[m] for m in members)
+
+
+def _zcolumn_layout(program: StencilProgram, members: list[str], ext_inputs: list[str],
+                    spans: dict[str, Span], tile: tuple[int, int], ahead: int):
+    """The column z-march's shared memory at `tile`: (rings, bytes, leads).
+    An input's ring holds the planes from the lowest an in-plane tap reads
+    at a step to the step's leading one, and those in flight (`ahead`
+    steps of the TMA feed, rows of whole 16-byte chunks from an aligned
+    first column, 128-byte-aligned slots and an mbarrier each; one step
+    on the scalar path); a member's exchange buffer `zcolumn_slots`
+    planes of its span around the tile."""
+    ty, tx = tile
+    leads = zcolumn_leads(program, members, spans)
+    slots = zcolumn_slots(program, members, leads)
+    out, off = [], 0
+    for n in ext_inputs:
+        elem = _elem_bytes(program, n)
+        (_, zhi), (ylo, yhi), (xlo, xhi) = spans[n]
+        low = min([zhi] + [leads[c] + o[0] for c in members
+                           for o in program.tensors[c].window().get(n, [])
+                           if not _in_column(o)])
+        depth = max(ahead, 1) + zhi - low + 1
+        v = 16 // elem if ahead else 1
+        col0 = xlo // v * v
+        cols = -(-(tx + xhi - col0) // v) * v
+        rows = ty + yhi - ylo
+        pitch = 0
+        if ahead:
+            pitch = -(-rows * cols * elem // TMA_ALIGN) * TMA_ALIGN // elem
+            off = -(-off // TMA_ALIGN) * TMA_ALIGN
+        out.append(Ring(n, spans[n], elem, depth, rows, cols, off, col0, pitch))
+        off += -(-out[-1].nbytes // 16) * 16
+    for m in members:
+        if m in slots:
+            _, (ylo, yhi), (xlo, xhi) = spans[m]
+            out.append(Ring(m, spans[m], _elem_bytes(program, m), slots[m], ty + yhi - ylo,
+                            tx + xhi - xlo, off, xlo))
+            off += -(-out[-1].nbytes // 16) * 16
+    for i, r in enumerate(out):
+        if r.pitch:
+            out[i] = dataclasses.replace(r, bar=off)
+            off += 8 * r.depth
+    return out, off, leads
+
+
+def zcolumn_halo(tile: tuple[int, int], members: list[str], spans: dict[str, Span]):
+    """The halo around the tile that the column z-march deals to its
+    threads: (y lo, y hi, x lo, x hi) of the rectangle every member's span
+    makes around the tile, and its columns outside the tile."""
+    ty, tx = tile
+    ylo = min(spans[m][1][0] for m in members)
+    yhi = max(spans[m][1][1] for m in members)
+    xlo = min(spans[m][2][0] for m in members)
+    xhi = max(spans[m][2][1] for m in members)
+    return (ylo, yhi, xlo, xhi), (ty + yhi - ylo) * (tx + xhi - xlo) - ty * tx
+
+
+def _zcolumn_regs(program: StencilProgram, members: list[str], ext_inputs: list[str],
+                  spans: dict[str, Span], leads: dict[str, int], tile: tuple[int, int],
+                  rings: list[Ring], ahead: int) -> int:
+    """A column z-march thread's registers (an estimate, in multiples of 8):
+    COLUMN_REG_BASE, two a column for its position, and at each of its
+    tile and halo columns the planes carried and the step's value of every
+    tensor tapped there at the column; on the scalar path, the next plane's
+    elements in flight."""
+    kt = tile[0] * tile[1] // NTHREADS
+    kh = -(-zcolumn_halo(tile, members, spans)[1] // NTHREADS)
+    words = {n: -(-_elem_bytes(program, n) // 4) for n in spans}
+    regs = COLUMN_REG_BASE + 2 * (kt + kh)
+    for k, readers in ((kt, members), (kh, zcolumn_halo_members(members, spans))):
+        carried = zcolumn_windows(program, readers, spans, leads)
+        regs += k * sum((n + 1) * words[q] for q, n in carried.items())
+    if not ahead:
+        regs += sum(-(-r.rows * r.cols // NTHREADS) * words[r.name]
+                    for r in rings if r.name in ext_inputs)
+    return -(-regs // 8) * 8
+
+
 def _column_lanes(g: GroupPlan) -> float:
     """The share of a column-march CTA's lanes that own a column of its
     widest member."""
@@ -699,9 +892,12 @@ def _plan_group(program: StencilProgram, members: list[str],
     """The line buffer's plan of `members`, or None when no tile fits the
     budget; `sync` ("skew" or "barrier") keeps one order of a step's
     stages of the rings (a group of one level has only "skew"); `march`
-    ("columns" or "rings") keeps one march of a rank-2 cascade, which
+    keeps one march: "columns" or "rings" of a rank-2 cascade, which
     otherwise runs the column march where it has `COLUMN_MEMBERS_MIN`
-    members and its window fits."""
+    members and its window fits, and "columns3d" or "rings3d" of a
+    rank-3 group, which otherwise runs the column z-march where a stage
+    is at level 2 or deeper and its registers fit ("rings" and a pinned
+    `sync` keep the rings of either rank)."""
     rank = program.rank
     ext_inputs, outputs = _group_io(program, members)
     spans = group_spans(program, members, outputs)
@@ -828,6 +1024,59 @@ def _plan_group(program: StencilProgram, members: list[str],
             c.tile[0] >= ROW_RUN_MIN, c.warps_per_sm >= ROW_WARPS_MIN,
             c.tile[0] * c.tile[1], c.bz, c.sync == "skew"))
 
+    if (sync is None and march not in ("rings", "rings3d")
+            and (march == "columns3d" or max(levels.values()) >= 2)):
+        nt = NTHREADS
+
+        def zlayout(tl: tuple[int, int]):
+            # (rings, shared memory, leads, registers, planes in flight) of
+            # one tile, or None: the TMA feed `ahead` steps ahead, the
+            # deepest (up to TMA_AHEAD_MAX) that keeps the CTAs an SM
+            halo = zcolumn_halo(tl, members, spans)[1] / (tl[0] * tl[1])
+            if tl[0] * tl[1] % nt or (march != "columns3d" and halo > ZCOLUMN_HALO_MAX):
+                return None
+            ahead = 1 if vector else 0
+            rings, off, leads = _zcolumn_layout(program, members, ext_inputs, spans, tl,
+                                                ahead)
+            regs = _zcolumn_regs(program, members, ext_inputs, spans, leads, tl, rings, ahead)
+            if (off > budget or regs > COLUMN_REGS_MAX
+                    or any(max(r.rows, r.cols) > TMA_BOX_MAX for r in rings if r.pitch)):
+                return None
+            ctas = ctas_per_sm(off, nt, regs)
+            for k in range(TMA_AHEAD_MAX, 1, -1) if vector else ():
+                deeper, end, _ = _zcolumn_layout(program, members, ext_inputs, spans, tl, k)
+                if end <= budget and ctas_per_sm(end, nt, regs) == ctas:
+                    rings, off, ahead = deeper, end, k
+                    break
+            return rings, off, leads, regs, ahead
+
+        zbest, zlayouts = None, {}
+        for tl, chunk, grid in _shapes3(grid_shape, tile, bz, warm,
+                                        TMA_TILE_CANDIDATES if vector else TILE_CANDIDATES):
+            if tl not in zlayouts:
+                zlayouts[tl] = zlayout(tl)
+            if zlayouts[tl] is None or grid[1] > MAX_GRID_YZ or grid[2] > MAX_GRID_YZ:
+                continue
+            rings, off, leads, regs, ahead = zlayouts[tl]
+            extents = (chunk,) + tuple(tl)
+            reads = sum(r.elem_bytes * covered(r.name, extents, (r.col0, r.col0 + r.cols - tl[1]))
+                        for r in rings if r.name in ext_inputs)
+            gp = GroupPlan(tile=tl, bz=chunk, grid=grid, rings=rings, smem_bytes=off,
+                           hbm_bytes_per_call=reads + writes,
+                           cell_ops_per_call=sum(ops[m] * covered(m, extents) for m in members),
+                           threads=nt, load=load, levels=levels, sync="skew",
+                           ahead=ahead, march="columns3d", leads=leads, regs=regs, **common)
+            # fill the card first, and where the grid does, with
+            # ZCOLUMN_CTAS_MIN CTAs an SM; then the modeled time, the fewest
+            # operations (the halo columns), the larger tile and chunk
+            small = math.prod(grid) < 2 * NUM_SMS
+            key = (small, not small and gp.ctas_per_sm < ZCOLUMN_CTAS_MIN,
+                   gp.modeled_seconds, gp.cell_ops_per_call, -tl[0] * tl[1], -chunk)
+            if zbest is None or key < zbest[0]:
+                zbest = (key, gp)
+        if zbest is not None or march == "columns3d":
+            return None if zbest is None else zbest[1]
+
     def rings3(tl: tuple[int, int], lv: dict[str, int]):
         # (rings, shared memory, planes in flight) of one tile, or None:
         # power-of-two depths (a plane's slot is a mask) where they fit,
@@ -879,7 +1128,7 @@ def _plan_group(program: StencilProgram, members: list[str],
         gp = GroupPlan(tile=tl, bz=chunk, grid=grid, rings=rings, smem_bytes=off,
                        hbm_bytes_per_call=reads + writes,
                        cell_ops_per_call=cell_ops, load=load, levels=lv, sync=order,
-                       ahead=ahead, **common)
+                       ahead=ahead, march="rings3d", **common)
         best = consider(best, gp, ty * tx)
     return None if best is None else best[1]
 

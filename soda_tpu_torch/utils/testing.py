@@ -108,12 +108,13 @@ STAR3D_R8 = _star3d(8)
 
 def pinned_plan(p, shape, pin: dict):
     """`plan(p, shape, **pin)`, where a pin's "sync" ("skew" or "barrier")
-    re-plans the plan's one group with the row-march's rings and a step's
-    stages in that order, and its "march" ("columns" or "rings") a rank-2
-    cascade with that march, at the same tile and chunk (a march pinned
-    alone: the tile and chunk that march plans, unless `pin` names them):
-    `plan()` leaves both to the planner, and the checks reach the others
-    through the planner's `_plan_group`."""
+    re-plans the plan's one group with the marches' rings and a step's
+    stages in that order, and its "march" ("columns" or "rings" of rank
+    2, "columns3d" or "rings3d" of rank 3) the group with that march, at
+    the same tile and chunk (a march pinned alone: the tile and chunk that
+    march plans, unless `pin` names them): `plan()` leaves both to the
+    planner, and the checks reach the others through the planner's
+    `_plan_group`."""
     from ..plan import planner
 
     kw = {k: v for k, v in pin.items() if k not in ("sync", "march")}
@@ -128,7 +129,7 @@ def pinned_plan(p, shape, pin: dict):
         prog, prog.stage_order(), tuple(shape),
         kw.get("smem_budget", planner.SMEM_BUDGET), tile, bz,
         sweeps=g.sweeps, sync=pin.get("sync"),
-        march="rings" if "sync" in pin else pin["march"])])
+        march={2: "rings", 3: "rings3d"}[p.rank] if "sync" in pin else pin["march"])])
 
 
 def build_emulated(kernels, *, hazard: bool = False, workers: int = 4) -> None:

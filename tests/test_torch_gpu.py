@@ -234,9 +234,31 @@ def test_column_march_at_the_benchmark_size(cuda_device):
     cuda.reset_launches()
     got = fn({"t0": x}, {})["t1"]
     torch.cuda.synchronize()
-    assert cuda.march_counts() == {"columns": 1, "rings": 0}
+    assert cuda.march_counts() == {"columns": 1, "rings": 0, "columns3d": 0, "rings3d": 0}
     assert torch.equal(_bits(got), _bits(rings({"t0": x}, {})["t1"]))
     assert torch.equal(_bits(got), _bits(chained({"t0": x}, {})["t1"]))
+
+
+@pytest.mark.gpu
+def test_column_z_march_at_the_benchmark_size(cuda_device):
+    """denoise3d 512^3, a call of the cell `denoise3d-512.loop`: one launch
+    of the column z-march (`cuda.march_counts()`), bit for bit against the
+    z-march's rings and the plain version on the card."""
+    p = _program("denoise3d")
+    shape = (512, 512, 512)
+    fn = cuda.build_fn(p, grid_shape=shape)
+    assert [g.march for g in fn.plan.groups] == ["columns3d"]
+    rings = cuda.build_fn(p, pinned_plan(p, shape, {"march": "rings3d"}))
+    assert rings.plan.groups[0].march == "rings3d"
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    ins = {n: torch.rand(shape, generator=gen, device=cuda_device) for n in p.input_names}
+    cuda.reset_launches()
+    got = fn(ins, {})["unew"]
+    torch.cuda.synchronize()
+    assert cuda.march_counts() == {"columns": 0, "rings": 0, "columns3d": 1, "rings3d": 0}
+    assert cuda.stage_count() == 3
+    assert torch.equal(_bits(got), _bits(rings(ins, {})["unew"]))
+    assert torch.equal(_bits(got), _bits(eager.run(p, ins, {}, device=cuda_device)["unew"]))
 
 
 @pytest.mark.gpu

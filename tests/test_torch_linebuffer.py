@@ -27,6 +27,7 @@ The kernel itself is held against its plain version on the card by
 `tests/test_torch_gpu.py` and `chip_smoke.py`.
 """
 
+import ast
 import pathlib
 import re
 import shutil
@@ -40,11 +41,12 @@ from soda_tpu.frontend import parser as lark_parser
 from soda_tpu.interp import numpy_interp
 from soda_tpu.plan import planner as jax_planner
 from soda_tpu.utils.testing import compare_outputs, rand_inputs
-from soda_tpu_torch.backend import linebuffer
+from soda_tpu_torch.backend import columns3d, cuda, linebuffer
 from soda_tpu_torch.backend.cuda_codegen import DeviceGen
 from soda_tpu_torch.backend.io import to_numpy, to_torch
 from soda_tpu_torch.frontend.parser import parse
 from soda_tpu_torch.ir.dtypes import torch_dtype
+from soda_tpu_torch.plan import planner
 from soda_tpu_torch.plan.planner import plan
 from soda_tpu_torch.utils.testing import (INT3D_SOURCES, RANK3_CORPUS, U64_SOURCES,
                                           build_emulated, pinned_plan, u64_inputs)
@@ -85,6 +87,8 @@ def _multi_level(name: str) -> bool:
 MULTI_LEVEL = [n for n in HAZARD_PROGRAMS if _multi_level(n)]
 HAZARD_CASES = [(n, grid, "skew") for n in HAZARD_PROGRAMS for grid in HAZARD_GRIDS]
 HAZARD_CASES += [(n, grid, "barrier") for n in MULTI_LEVEL for grid in HAZARD_GRIDS]
+# the column z-march (`columns3d.py`) of the same programs on the same grids
+COLUMN_CASES = [(n, grid) for n in MULTI_LEVEL for grid in HAZARD_GRIDS]
 
 
 def _hazard_kw(grid: str, sync: str, exact: bool = False) -> tuple[tuple, dict]:
@@ -109,14 +113,17 @@ def built():
         pytest.skip("host emulation needs g++")
 
     def kernels(cases):
-        return [linebuffer.GroupKernel(PROGRAMS[n], g) for n, shape, kw in cases
+        return [cuda.group_kernel(PROGRAMS[n], g) for n, shape, kw in cases
                 for g in pinned_plan(PROGRAMS[n], shape, dict(kw, iterate=1)).groups]
 
     build_emulated(kernels([(n, shape, kw) for n in SOURCES_ONLY
                             for shape, kw in CORPUS_GRIDS]))
     build_emulated(kernels([(n, *_hazard_kw(grid, sync)) for n, grid, sync in HAZARD_CASES]
                            + [("denoise3d", *_hazard_kw(grid, sync, True))
-                              for grid in ("vector", "scalar") for sync in EXACT]),
+                              for grid in ("vector", "scalar") for sync in EXACT]
+                           + [(n, HAZARD_GRIDS[grid][0],
+                               dict(HAZARD_GRIDS[grid][1], march="columns3d"))
+                              for n, grid in COLUMN_CASES]),
                    hazard=True)
 
 
@@ -154,8 +161,10 @@ def test_jacobi3d_source_taps_the_input_ring():
 
 
 def test_denoise3d_source_rings_every_tapped_stage():
+    # the z-march's rings, pinned (the planner's column z-march is
+    # `test_column_z_march_source_carries_the_column_taps`)
     p = PROGRAMS["denoise3d"]
-    src = linebuffer.kernel_source(p, plan(p, (64, 64, 64)).groups[0])
+    src = linebuffer.kernel_source(p, pinned_plan(p, (64, 64, 64), {"march": "rings3d"}).groups[0])
     for ring in ("u", "rhs", "grad", "w"):
         assert f"constexpr size_t {ring}_OFF" in src
     assert "// stage grad (ring, level 1)" in src and "// stage w (ring, level 2)" in src
@@ -164,6 +173,57 @@ def test_denoise3d_source_rings_every_tapped_stage():
     assert "dm::sqrt(" in body and "std::" not in body
     assert "__s_w_m1 = (pl + (-1) - w_ZLO) & (w_D - 1)" in src
     assert "w_r[__s_w_m1 * w_PS" in src
+
+
+def test_the_column_z_march_has_its_own_wrapper():
+    """`cuda.group_kernel` gives a column z-march plan `columns3d.GroupKernel`
+    (kernel 1's wrapper, name and counts, with that march's source) and a
+    rings plan kernel 1's own wrapper; the rings' generator refuses a
+    column plan, and `linebuffer.py` imports nothing of `columns3d.py`."""
+    p = PROGRAMS["denoise3d"]
+    (g,) = plan(p, (32, 64, 128)).groups
+    (r,) = pinned_plan(p, (32, 64, 128), {"march": "rings3d"}).groups
+    k, kr = cuda.group_kernel(p, g), cuda.group_kernel(p, r)
+    assert type(k) is columns3d.GroupKernel and k.name == kr.name == "lb3d_denoise3d"
+    assert type(kr) is linebuffer.GroupKernel
+    assert '#include "columns3d.cuh"' in k.source
+    assert '#include "linebuffer3d.cuh"' in kr.source
+    with pytest.raises(ValueError, match="column z-march"):
+        linebuffer.kernel_source(p, g)
+    tree = ast.parse(pathlib.Path(linebuffer.__file__).read_text())
+    assert not any(isinstance(n, ast.ImportFrom) and "columns3d" in (
+        [n.module or ""] + [a.name for a in n.names]) for n in ast.walk(tree))
+
+
+def test_column_z_march_source_carries_the_column_taps():
+    """denoise3d in the column z-march (`columns3d.py`): grad has no ring
+    and no exchange buffer (w reads it at its own column), w one exchange
+    of two planes (unew reads its in-plane neighbours), u and w at the
+    thread's own column come from registers carried a step (u at z - 1 ..
+    z + 1 below the leading z + 2, w at z - 1, z), u's and w's in-plane
+    taps from the ring and the exchange; one sqrt a column of w's span, one
+    barrier a step, the inputs fed by TMA."""
+    p = PROGRAMS["denoise3d"]
+    (g,) = plan(p, (512, 512, 512)).groups
+    assert (g.march, g.tile, g.threads) == ("columns3d", (16, 32), 256)
+    src = cuda.group_kernel(p, g).source
+    assert '#include "columns3d.cuh"' in src and "soda_lb3d_kernel" in src
+    assert "grad_OFF" not in src and "grad_x" not in src and "grad_NSLOT" not in src
+    assert "constexpr int w_NSLOT = 2, w_C = 34, w_XPS = 612;" in src
+    assert "constexpr int KT = 2, KH = 1;" in src and "S_LO = -4" in src
+    regs = src.split("struct soda_regs {")[1].split("};")[0]
+    assert ("float u_t0_0, u_t0_1, u_t0_2;" in regs and "float w_t1_0, w_t1_1;" in regs
+            and "float u_h0_0, u_h0_1;" in regs and "grad" not in regs)
+    body = src.split("// a CTA on the host")[0]
+    # unew at a tile column: u at z - 1 carried, w's x-neighbour of the step
+    # before from the exchange; u's in-plane tap from the ring's plane s
+    assert "const float __u_m1_0_0 = r.u_t0_0;" in body
+    assert "const float __w_0_0_1 = w_x[__x_w_1 * w_XPS + (ly + (0) - w_YLO) * w_C" in body
+    assert "const float __u_0_1_0 = u_r[__s_u_0 * u_PS + (ly + (1) - u_YLO) * u_C" in body
+    assert "dm::sqrt(" in body and "std::" not in body
+    march = body.split("SODA_BODY int soda_march(")[1].split("SODA_BODY void soda_body(")[0]
+    assert march.count("SODA_STEP_END();") == 1 and "soda_feed(s + AHEAD, c)" in march
+    assert body.count("soda_bar_wait(") == 2 and "soda_fetch_plane_s" not in body
 
 
 def test_half_is_refused_on_the_device_path():
@@ -192,7 +252,7 @@ def _emulate(name, shape, seed, hazard=False, edit=None, draw=rand_inputs, **pla
     # one sweep: the iterate programs' fused cascades are tests/test_torch_sweeps.py's
     pl = pinned_plan(p, shape, dict(plan_kw, iterate=1))
     for g in pl.groups:
-        k = linebuffer.GroupKernel(p, g)
+        k = cuda.group_kernel(p, g)
         if edit is not None:
             k._source = edit(k.source)
         entry = k.build(emulate=True, hazard=hazard).lib.soda_launch
@@ -265,6 +325,58 @@ def test_hazard_emulated_rings_of_exact_depth_match_oracle(built, grid, sync):
     _check(PROGRAMS["denoise3d"], got, gold)
 
 
+@pytest.mark.parametrize("name,grid", COLUMN_CASES)
+def test_hazard_emulated_column_z_march_matches_oracle_on_whole_grid(built, name, grid):
+    """The column z-march under the hazard emulation: plane copies landing
+    at issue, a CTA's threads taking their turns up to each step's end in
+    reverse order; on the TMA feed, the scalar path and chunks of one
+    plane, shorter than the warm-up."""
+    shape, kw = HAZARD_GRIDS[grid]
+    got, gold, pl = _emulate(name, shape, seed=9, hazard=True, draw=u64_inputs,
+                             march="columns3d", **kw)
+    (g,) = pl.groups
+    assert (g.march, g.tile, g.bz) == ("columns3d", kw["tile"], kw["bz"])
+    assert g.feed == ("scalar" if grid == "scalar" else "tma")
+    assert g.bz < -planner.zcolumn_steps(g.stages, g.external_inputs, g.spans, g.leads)[0] \
+        or grid != "short"
+    _check(PROGRAMS[name], got, gold)
+
+
+def _one_exchange_plane(src: str) -> str:
+    """Every exchange buffer of one plane: a step's stores overwrite the
+    plane the neighbours still read."""
+    return re.sub(r"(\w+)_NSLOT = \d+,", r"\1_NSLOT = 1,", src)
+
+
+def _no_step_end(src: str) -> str:
+    """The march without the barrier that ends a step."""
+    assert src.count("    SODA_STEP_END();\n") == 1
+    return src.replace("    SODA_STEP_END();\n", "")
+
+
+def _shallower_inputs(src: str) -> str:
+    """Every input ring one plane shallower than the planner's."""
+    for n, d in re.findall(r"constexpr int (\w+)_D = (\d+),", src):
+        src = src.replace(f"constexpr int {n}_D = {d},", f"constexpr int {n}_D = {int(d) - 1},")
+    return src
+
+
+@pytest.mark.parametrize("mutation,grid,hazard", [
+    (_one_exchange_plane, "vector", False), (_no_step_end, "vector", False),
+    (_shallower_inputs, "vector", True), (_shallower_inputs, "scalar", True)],
+    ids=["one-exchange-plane", "no-step-end", "shallower-tma-rings", "shallower-rings"])
+def test_column_z_march_mutations_break_the_emulation(gxx, mutation, grid, hazard):
+    """An exchange buffer of one plane, a step without its barrier, or an
+    input ring one plane shallower shows in denoise3d's column z-march as
+    a wrong result (or a wait that would hang on the card); the march as
+    planned equals the oracle."""
+    shape, kw = HAZARD_GRIDS[grid]
+    kw = dict(kw, march="columns3d", hazard=hazard)
+    got, gold, _ = _emulate("denoise3d", shape, 25, **kw)
+    _check(PROGRAMS["denoise3d"], got, gold)
+    assert _breaks("denoise3d", shape, 25, mutation, **kw)
+
+
 def _without_step_wait(src: str) -> str:
     """The source without the step's wait: the scalar path's
     `soda_step_wait()`, or every wait of the TMA feed on a slot's
@@ -318,8 +430,9 @@ def test_kernel_matches_the_jax_z_march_outside_its_rim(gxx, name):
 
 
 def test_host_emulated_split_groups_match_oracle(gxx):
+    # grad and w in the column z-march, unew alone in the windows kernel
     p = PROGRAMS["denoise3d"]
-    got, gold, pl = _emulate("denoise3d", (9, 20, 40), seed=6, smem_budget=16 * 1024,
+    got, gold, pl = _emulate("denoise3d", (9, 20, 40), seed=6, smem_budget=12000,
                              tile=(8, 32), bz=8)
     assert len(pl.groups) > 1
     assert compare_outputs(p, got, gold, 0)
@@ -381,11 +494,10 @@ CASCADE = ("heat3d", (19, 20, 80), {"sweeps": 2, "tile": (8, 32), "bz": 8})
 
 
 def _tma_kernels(hazard: bool) -> list:
-    ks = [linebuffer.GroupKernel(PROGRAMS[n], g) for n in TMA_PROGRAMS
+    ks = [cuda.group_kernel(PROGRAMS[n], g) for n in TMA_PROGRAMS
           for shape, kw in TMA_GRIDS.values()
           for g in pinned_plan(PROGRAMS[n], shape, dict(kw, iterate=1)).groups]
     name, shape, kw = CASCADE
-    from soda_tpu_torch.backend import cuda
     ks += [cuda.group_kernel(PROGRAMS[name], g)
            for g in plan(PROGRAMS[name], shape, **kw).groups]
     return ks

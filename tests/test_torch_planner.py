@@ -49,8 +49,10 @@ def test_grouping_equals_jax_planner(name, shape):
 
 
 def test_denoise3d_rings_follow_the_group_spans():
-    p = parse_file(SODA / "denoise3d.soda")
-    g = planner.plan(p, (64, 64, 64), tile=(16, 32), bz=8).groups[0]
+    # the z-march's rings, pinned (the planner gives denoise3d the column
+    # z-march: `test_rank3_groups_take_the_column_z_march_by_the_measured_rule`)
+    g = _pinned("denoise3d", (64, 64, 64), {"tile": (16, 32), "bz": 8, "march": "rings3d"})
+    assert g.march == "rings3d"
     rings = {r.name: (r.depth, r.rows, r.cols) for r in g.rings}
     # u spans +-2 (tapped at +-1 by grad, which w and then unew tap at
     # +-1).  One wait a step: grad, w and unew at levels 1, 2, 3, each a
@@ -419,3 +421,72 @@ def test_rank2_cascades_take_the_column_march_where_its_window_fits():
                                sweeps=20, march="columns") is None
     # one sweep a call (kernel 2): the rings
     assert planner.plan(j, (16384, 16384), sweeps=1).groups[0].march == "rings"
+
+
+# the plans the kernel-alone times on the H100 chose for (PERF.md, section 6):
+# (program, grid, plan arguments, march, tile, fused sweeps); jacobi3d's one
+# stage keeps the rings, and so does heat3d's cascade of four copies
+ZCOLUMN_PLANS = [("denoise3d", (512, 512, 512), {}, "columns3d", (16, 32), 1),
+                 ("jacobi3d", (512, 512, 512), {}, "rings3d", (32, 128), 1),
+                 ("jacobi3d", (1026, 1026, 2048), {}, "rings3d", (32, 128), 1),
+                 ("heat3d", (512, 512, 512), {}, "columns3d", (16, 64), 2),
+                 ("jacobi3d", (512, 512, 512), {"iterate": 2}, "columns3d", (16, 64), 2),
+                 ("heat3d", (512, 512, 512), {"sweeps": 4}, "rings3d", (32, 32), 4)]
+
+
+@pytest.mark.parametrize("name,shape,kw,march,tile,nf", ZCOLUMN_PLANS)
+def test_rank3_groups_take_the_column_z_march_by_the_measured_rule(name, shape, kw, march,
+                                                                   tile, nf):
+    """A rank-3 group with a stage at level 2 or deeper runs the column
+    z-march ("columns3d") where its registers fit and its halo columns
+    stay within ZCOLUMN_HALO_MAX of the tile's, with at least
+    ZCOLUMN_CTAS_MIN CTAs an SM where the grid fills the card; else, and
+    for a group of one stage, the rings ("rings3d"): denoise3d 512^3 at
+    (16, 32), 4 CTAs an SM; jacobi3d 512^3 and the mesh cell's shard on
+    the rings; heat3d x 4 and jacobi3d x 2 as cascades of two copies at
+    (16, 64); heat3d's cascade of four copies on the rings."""
+    p = parse_file(SODA / f"{name}.soda")
+    pl = planner.plan(p, shape, **kw)
+    (g,) = pl.groups
+    assert (g.march, g.tile, g.sweeps) == (march, tile, nf)
+    assert f"march={march}" in g.describe() and pl.to_json()["groups"][0]["march"] == march
+    halo = planner.zcolumn_halo(g.tile, g.stages, g.spans)[1] / (tile[0] * tile[1])
+    if march == "columns3d":
+        assert g.ctas_per_sm >= planner.ZCOLUMN_CTAS_MIN and g.sync == "skew"
+        assert g.regs <= planner.COLUMN_REGS_MAX and g.threads == planner.NTHREADS
+        assert halo <= planner.ZCOLUMN_HALO_MAX
+    else:
+        assert g.leads == {} and (len(g.stages) == 1 or nf == 4)
+    # pinned the other way where the group has a stage at level 2
+    if max(g.levels.values()) > 1:
+        other = {"columns3d": "rings3d", "rings3d": "columns3d"}[march]
+        assert _pinned(name, shape, {"march": other, "sweeps": nf, **kw}).march == other
+
+
+def test_column_z_march_leads_windows_and_exchange_follow_the_taps():
+    """denoise3d in the column z-march: u's planes up to s + 2 are in its
+    ring at step s; grad taps u at z +- 1 at its own column (lead 2 - 1),
+    w taps grad there (lead 1, grad never leaves the registers), unew taps
+    w's in-plane neighbours of the step before (lead 0).  The tile's
+    columns carry u at z - 1 .. z + 1 below the step's own (3) and w at z -
+    1, z (2); the halo's (grad and w alone) u at z, z + 1 (2).  w keeps two
+    exchange planes; u's ring the planes s .. s + 2 and 4 in flight
+    (7), rhs 1 + 4 (5).  A chunk starts 4 steps early (u's first plane, -2,
+    leads step -4) and ends at its last plane."""
+    p = parse_file(SODA / "denoise3d.soda")
+    (g,) = planner.plan(p, (512, 512, 512)).groups
+    members, spans, leads = g.stages, g.spans, g.leads
+    assert leads == {"grad": 1, "w": 1, "unew": 0}
+    halo = planner.zcolumn_halo_members(members, spans)
+    assert halo == ["grad", "w"]
+    assert planner.zcolumn_windows(p, members, spans, leads) == {
+        "u": 3, "grad": 0, "w": 2, "rhs": 0}
+    assert planner.zcolumn_windows(p, halo, spans, leads) == {"u": 2, "grad": 0}
+    assert planner.zcolumn_slots(p, members, leads) == {"w": 2}
+    assert planner.zcolumn_steps(members, g.external_inputs, spans, leads) == (-4, 0)
+    assert planner.zcolumn_halo(g.tile, members, spans) == ((-1, 1, -1, 1), 18 * 34 - 16 * 32)
+    assert [(r.name, r.depth, r.rows, r.cols, r.col0) for r in g.rings] == [
+        ("u", 7, 20, 40, -4), ("rhs", 5, 16, 32, 0), ("w", 2, 18, 34, -1)]
+    assert (g.feed, g.ahead, g.ctas_per_sm, g.threads) == ("tma", 4, 4, 256)
+    # the planned bytes: u's box and rhs's tile, with the chunk's warm-up
+    assert g.hbm_bytes_per_call / g.useful_cells_per_call == pytest.approx(14.469, abs=1e-3)

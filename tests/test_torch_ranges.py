@@ -28,7 +28,7 @@ import torch
 
 from soda_tpu.frontend import parser as lark_parser
 from soda_tpu.interp import numpy_interp
-from soda_tpu_torch.backend import linebuffer, linebuffer2d, sweeps, windows
+from soda_tpu_torch.backend import cuda, linebuffer2d, sweeps
 from soda_tpu_torch.backend.cuda_codegen import int32_exact, int_range
 from soda_tpu_torch.backend.io import to_numpy, to_torch
 from soda_tpu_torch.frontend.parser import parse
@@ -231,13 +231,12 @@ def test_emulated_rank1_and_rank3_integer_programs_at_dtype_extremes(
     dtype extremes, bit for bit against the oracle."""
     src = INT3D_SOURCES.get(name, OPS1D)
     p, ref = parse(src), lark_parser.parse(src)
-    wrapper = linebuffer.GroupKernel if p.rank == 3 else windows.GroupKernel
     pl = plan(p, shape, **plan_kw)
     assert {g.kernel for g in pl.groups} == {
         "linebuffer3d" if p.rank == 3 else "windows"}
     kernels = []
     for g in pl.groups:
-        k = wrapper(p, g)
+        k = cuda.group_kernel(p, g)
         kernels.append((k, g, k.build(emulate=True).lib.soda_launch))
     for pattern, ins in _extremes(p, shape):
         values, tps = to_torch(p, ins, {}, "cpu")

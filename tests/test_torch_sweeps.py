@@ -105,6 +105,8 @@ def built():
                            + [("heat3d", shape, dict(kw, sweeps=nf, sync=sync))
                               for shape, kw in HAZARD_SHAPES_3D for nf in (2, 4)
                               for sync in ("skew", "barrier")]
+                           + [("heat3d", shape, dict(kw, sweeps=nf, march="columns3d"))
+                              for shape, kw in HAZARD_SHAPES_3D for nf in (2, 4)]
                            + [(n, shape, dict(kw, sweeps=PROGRAMS[n].iterate, march=m))
                               for n in COLUMN_CASCADES for shape, kw in HAZARD_SHAPES
                               for m in ("columns", "rings")]), hazard=True)
@@ -272,28 +274,29 @@ def test_a_cascade_launch_counts_its_march(gxx, monkeypatch, march):
     with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
         k({"t0": torch.from_numpy(x).as_subclass(_OnCard)}, {}, out={"t1": out})
     assert cuda.march_counts() == {"columns": int(march == "columns"),
-                                   "rings": int(march == "rings")}
+                                   "rings": int(march == "rings"),
+                                   "columns3d": 0, "rings3d": 0}
     (span,) = [e for e in prof.events() if e.name == "soda.kernel"]
     assert span.kwinputs["march"] == march
     gold = numpy_interp.run(REF["jacobi2d"], {"t0": x})["t1"]
     assert np.array_equal(out.as_subclass(torch.Tensor).numpy(), gold)
     cuda.reset_launches()
-    assert cuda.march_counts() == {"columns": 0, "rings": 0}
+    assert cuda.march_counts() == {"columns": 0, "rings": 0, "columns3d": 0, "rings3d": 0}
 
 
 # kernel 2's one-sweep sources that every rank-2 corpus program plans on
-# these grids, and the rank-3 sources of the benchmark cells' grids (kernel
-# 1; heat3d's cascade), as generated before the column march came: how many
-# and their sha256
+# these grids, and the rank-3 sources of the benchmark cells' grids that keep
+# the z-march's rings (kernel 1 on jacobi3d; denoise3d and heat3d's cascade
+# take the column z-march), as generated before the column march came: how
+# many and their sha256
 UNCHANGED = {
     "rank-2 one-sweep": (
         [(n, shape, {"sweeps": 1}) for n in RANK2_CORPUS
          for shape in ((7, 13), (37, 45), (64, 256), (2048, 4096), (16384, 16384))],
         110, "b5a7b4fe8ce66c759411c486cff90156ea356005a30a96ea87bca4acd2d5bb5b"),
     "rank-3 cells": (
-        [("jacobi3d", (512, 512, 512), {}), ("jacobi3d", (1026, 1026, 2048), {}),
-         ("denoise3d", (512, 512, 512), {}), ("heat3d", (512, 512, 512), {})],
-        4, "a8ab1bdfff125561d82add33c25f400ace3747cefb79aff04438a24a48ce9e10"),
+        [("jacobi3d", (512, 512, 512), {}), ("jacobi3d", (1026, 1026, 2048), {})],
+        2, "efd9aba52b7d7043b0990bc3891401060c3c6cd665a5066581980a38f242aafb"),
 }
 
 
@@ -334,6 +337,25 @@ def test_hazard_emulated_rank3_cascade_equals_oracle(built, shape, kw, nf, sync)
     assert g.kernel == "linebuffer3d" and g.sweeps == nf and g.sync == sync
     assert g.bz <= g.warm and max(g.levels.values()) == (nf if sync == "skew" else 1)
     assert g.load == ("vector" if shape[2] == 128 else "scalar")
+    gold = numpy_interp.run(REF["heat3d"], ins, ps)
+    for k in gold:
+        assert np.array_equal(_bits(got[k]), _bits(gold[k])), k
+
+
+@pytest.mark.parametrize("shape,kw", HAZARD_SHAPES_3D)
+@pytest.mark.parametrize("nf", [2, 4])
+def test_hazard_emulated_rank3_column_cascade_equals_oracle(built, shape, kw, nf):
+    """heat3d's cascade in the column z-march (`columns3d.py`): copy k a
+    plane ahead of copy k + 1, its in-plane neighbours through exchange
+    planes; copies land at issue and the CTA's threads take their turns in
+    reverse order, on chunks shorter than the warm-up."""
+    p = PROGRAMS["heat3d"]
+    ins, ps = rand_inputs(p, shape, np.random.default_rng(39))
+    got, pl = _emulate(p, shape, ins, ps, hazard=True, sweeps=nf, march="columns3d", **kw)
+    (g,) = pl.groups
+    assert (g.kernel, g.sweeps, g.march, g.tile, g.bz) == (
+        "linebuffer3d", nf, "columns3d", kw["tile"], kw["bz"])
+    assert g.leads == {s: nf - 1 - k for k, s in enumerate(g.stages)}
     gold = numpy_interp.run(REF["heat3d"], ins, ps)
     for k in gold:
         assert np.array_equal(_bits(got[k]), _bits(gold[k])), k
@@ -415,15 +437,26 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
 
 def test_fused_source_names_its_kernel_and_says_what_it_replaces():
     p3, p2 = PROGRAMS["heat3d"], PROGRAMS["jacobi2d"]
-    src3 = sweeps.kernel_source(p3, planner.plan(p3, (16, 24, 40), sweeps=4).groups[0])
+    src3 = sweeps.kernel_source(p3, pinned_plan(p3, (16, 24, 40), {
+        "sweeps": 4, "march": "rings3d"}).groups[0])
+    col3 = sweeps.kernel_source(p3, pinned_plan(p3, (16, 24, 40), {
+        "sweeps": 4, "march": "columns3d"}).groups[0])
     src2 = sweeps.kernel_source(p2, planner.plan(p2, (24, 40)).groups[0])
-    assert "soda_sw3d_kernel" in src3 and "soda_lb3d_kernel" not in src3
+    for src in (src3, col3):
+        assert "soda_sw3d_kernel" in src and "soda_lb3d_kernel" not in src
     assert "soda_sw2d_kernel" in src2 and "soda_lb2d_kernel" not in src2
-    for src in (src3, src2):
+    for src in (src3, col3, src2):
         assert "_build_strips_group_fn" in src and "3.35 TB/s" in src
     # copy k reads copy k-1 through its ring; the last copy writes the output
     assert ("// stage heat_out__it2 (ring, level 3)" in src3
             and "// outputs ['heat_out'] (level 4)" in src3)
+    # in the column z-march copy k leads the copy after it by a plane, and
+    # each copy but the last trades its in-plane neighbours through two
+    # exchange planes
+    assert '#include "columns3d.cuh"' in col3 and "column z-march" in col3
+    for k in range(3):
+        assert (f"// member heat_out__it{k}: span ((-{3 - k}, {3 - k}), (-{3 - k}, {3 - k}), "
+                f"(-{3 - k}, {3 - k})), lead {3 - k}, exchange buffer of 2 planes") in col3
     # the input rows of the first step, then of each next step
     assert src2.count("soda_fetch_rows_v<RB, t0_C, NT>(") == 2
 
@@ -435,7 +468,7 @@ def test_rings_are_sized_by_lag():
     # every copy's ring 2 + 1 + 1 = 4 planes; the input's planes are fed
     # by TMA 2 steps ahead (+2): 2 + 2 + 1 = 5, its own depth
     p = PROGRAMS["heat3d"]
-    g = planner.plan(p, (64, 64, 64), sweeps=4).groups[0]
+    g = pinned_plan(p, (64, 64, 64), {"sweeps": 4, "march": "rings3d"}).groups[0]
     assert g.sweeps == 4 and g.warm == 8 and g.sync == "skew"
     assert [r.name for r in g.rings] == ["heat_in", "heat_out__it0",
                                          "heat_out__it1", "heat_out__it2"]

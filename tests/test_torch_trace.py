@@ -199,7 +199,8 @@ def test_profile_prints_the_span_table(capsys, tmp_path):
     assert rows["soda.mesh.exchange"][0] == "1"
     # the counters of the run's launches: none on CPU shards
     assert "z-march stages on chip: 0" in table and "planned device-memory bytes: 0" in table
-    assert "rank-2 cascade launches by march: {'columns': 0, 'rings': 0}" in table
+    assert ("march launches (rank-2 cascades, z-march): "
+            "{'columns': 0, 'rings': 0, 'columns3d': 0, 'rings3d': 0}") in table
 
 
 @pytest.fixture
