@@ -39,7 +39,7 @@ if __name__ == "__main__":
 MODES = ("program", "control", "unchanged", "altered", "half", "no_exchange")
 # the control's precision, the one below the configuration's: the step that
 # would tempt a later change
-LOWER = {"float64": "float32", "float32": "bfloat16"}
+LOWER = {"float64": "float32", "float32": "bfloat16", "uint16": "uint8"}
 
 
 def lower_dtype(dtype: str):

@@ -12,7 +12,8 @@ A configuration may also name `fields`: inputs of the program held fixed
 through the run beside the state, in the configuration's `dtype`, each
 with its own `dist`, `low`, `high` and `slab_planes`.  A field is made the
 same way from a seed of its own, `field_seed(seed, name)`, so the check
-makes any of its planes again too.
+makes any of its planes again too.  A traffic that feeds a ring of frames
+makes frame k from `frame_seed(seed, k)`, derived the same way.
 """
 
 from __future__ import annotations
@@ -67,6 +68,11 @@ def field_seed(seed: int, name: str) -> int:
     """The seed the field `name` is made from, for a run of `seed`."""
     salt = int.from_bytes(hashlib.blake2b(name.encode(), digest_size=8).digest(), "little")
     return (seed * 1_000_033 ^ salt) & _MASK
+
+
+def frame_seed(seed: int, k: int) -> int:
+    """The seed frame k of a ring of input frames is made from."""
+    return field_seed(seed, f"frame.{k}")
 
 
 def slab_seed(seed: int, k: int) -> int:

@@ -1,13 +1,22 @@
 """The one general traffic generator: a closed loop with one caller.
 
 The caller enqueues `block_sweeps` calls of the system under test back to
-back, each call's output the next call's input, then synchronises every
-card the cell uses, and only then starts the next block.  A call runs the
-configuration's `iterate` sweeps, so `block_sweeps` counts calls.  The
-grid is made on the first card from the seed and stays on the cards
-throughout.  The state is the program's first input; the configuration's
-`fields`, made on the first card from the seed too, are its other inputs,
-held fixed and passed on every call.
+back, then synchronises every card the cell uses, and only then starts
+the next block.  A call runs the configuration's `iterate` sweeps, so
+`block_sweeps` counts calls.  The traffic's `feed` says what each call
+takes as the program's first input:
+
+    "state"   (the default) each call's output is the next call's input:
+              the grid is made on the first card from the seed and stays
+              on the cards throughout;
+    "frames"  a ring of `frames` grids made on the first card in set-up,
+              frame k from `inputs.frame_seed(seed, k)`; call k (counted
+              from the first call of set-up) takes frame k mod `frames`,
+              and no output is ever fed back, as a stream of new frames
+              would be read.
+
+The configuration's `fields`, made on the first card from the seed too,
+are the program's other inputs, held fixed and passed on every call.
 
 This is the only loop there is: a traffic file whose `loop` is not
 "closed" or whose `callers` is not 1 is refused, not run as this one.
@@ -25,11 +34,13 @@ themselves) and the peak to the window's close, beside the bytes the
 check then holds.  `memory_peak_bytes` is the largest peak of all.
 
 The check holds, by reference and without a copy, the output of the first
-call, the input and output of one sweep in each of `sampled_blocks`
-blocks drawn from the seed (a reservoir over the window's blocks, so the
-draw covers the whole window however long it is) and, with `last`, the
-window's last sweep.  Once the window has closed and the peak memory has
-been read, the system's own buffers are freed and check.py judges each.
+call (its input is made again from the seed alone), the input and output
+of one call in each of `sampled_blocks` blocks drawn from the seed (a
+reservoir over the window's blocks, so the draw covers the whole window
+however long it is) and, with `last`, the window's last call: under the
+frame feed each input is that call's frame.  Once the window has closed
+and the peak memory has been read, the system's own buffers are freed and
+check.py judges each.
 
 With `trace`, the window also holds one profiled slice of `profile_blocks`
 blocks (after `skip_blocks`), `kernel_sample` calls timed alone on the
@@ -49,6 +60,8 @@ import time
 import torch
 
 from . import check, devtrace, harness, inputs
+
+FEEDS = ("state", "frames")
 
 
 @dataclasses.dataclass
@@ -90,11 +103,41 @@ class Cell:
         if self.traffic["warm_blocks"] < 2:
             raise ValueError("warm_blocks: one block holding nothing, then at least one "
                              "holding the check's grids")
+        self.feed = self.traffic.get("feed", "state")
+        if self.feed not in FEEDS:
+            raise ValueError(f"traffic {self.traffic['name']!r}: feed {self.feed!r}; "
+                             f"loop.py feeds only {FEEDS}")
+        self.frames = self.traffic.get("frames") if self.feed == "frames" else None
+        if self.feed == "frames" and not (isinstance(self.frames, int) and self.frames >= 2):
+            raise ValueError(f"traffic {self.traffic['name']!r}: frames {self.frames!r}; "
+                             f"a ring of frames holds at least 2")
         self.inputs = inputs.Spec.of(self.config)
         self.fields = inputs.fields_of(self.config)
         self.grid = tuple(grid or self.config["grid"])
         self.devices = list(devices or [f"cuda:{i}" for i in range(self.config["chips"])])
         self.cells = math.prod(self.grid)
+
+
+class Feed:
+    """What each call takes as the program's first input: the last call's
+    output (`ring` None, the state feed), or the next frame of `ring`."""
+
+    def __init__(self, ring: list | None = None):
+        self.ring = ring
+        self.calls = 0
+
+    def after(self, y):
+        """The next call's input, once a call has returned `y`."""
+        self.calls += 1
+        return y if self.ring is None else self.ring[self.calls % len(self.ring)]
+
+
+def _step(sut, feed: Feed, box: list, keep_last: bool) -> None:
+    """One call of the profiled slice or the kernel sample: `box` holds the
+    next input and the last (input, output) pair, and is updated in place."""
+    y = sut.call(box[0])
+    box[1] = (box[0], y) if keep_last else None
+    box[0] = feed.after(y)
 
 
 def sync(devices) -> None:
@@ -124,10 +167,11 @@ def held_bytes(states) -> dict:
 
 
 def release(devices) -> None:
-    """Free what nothing refers to any more (the sharded fn's closures hold
-    their buffers in a reference cycle, which only the collector frees) and
-    return the allocator's free cached blocks to the cards, so a large freed
-    block is not split for the next, differently sized buffers."""
+    """Free what nothing refers to any more (the collector, for any cycle
+    that holds a buffer: the sharded fn holds none since it stopped calling
+    itself, but a program may) and return the allocator's free cached blocks
+    to the cards, so a large freed block is not split for the next,
+    differently sized buffers."""
     gc.collect()
     if any(d.type == "cuda" for d in devices):
         torch.cuda.empty_cache()
@@ -160,13 +204,23 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float, log)
 
     fields = {name: inputs.grid(cell.grid, inputs.field_seed(seed, name), spec, first)
               for name, spec in cell.fields.items()}
-    x = sut.load(inputs.grid(cell.grid, seed, cell.inputs, first), fields)
+    if cell.frames:
+        start_seed = inputs.frame_seed(seed, 0)
+        feed = Feed([sut.load(inputs.grid(cell.grid, inputs.frame_seed(seed, k), cell.inputs,
+                                          first), fields) for k in range(cell.frames)])
+        x = feed.ring[0]
+    else:
+        start_seed = seed
+        feed = Feed()
+        x = sut.load(inputs.grid(cell.grid, seed, cell.inputs, first), fields)
     del fields
     sync(cards)
-    release(cards)        # the grid as made, once laid out
-    stamp("grid made and laid out")
-    x = sut.call(x)                       # the first sweep, from the seed's grid
-    held = {"start": (None, x)}
+    release(cards)        # the grids as made, once laid out
+    stamp("grid made and laid out" if feed.ring is None else f"{cell.frames} frames made")
+    y = sut.call(x)                       # the first call, from the start seed's grid
+    held = {"start": (None, y)}
+    x = feed.after(y)
+    del y
     sync(cards)
     release(cards)        # the first layout's buffers, which no later call uses
     stamp("first call")
@@ -178,16 +232,18 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float, log)
     # others hold as many grids as the check will hold in the window, so
     # the allocator has cached every buffer the window needs
     for _ in range(per_block):
-        x = sut.call(x)
+        x = feed.after(sut.call(x))
     sync(cards)
     start_bytes = held_bytes([held["start"][1]])
     memory["loop"] = {k: v - start_bytes.get(k, 0) for k, v in peaks(cards).items()}
     spare = collections.deque(maxlen=2 * tr["check"]["sampled_blocks"]
                               + int(tr["check"]["last"]))
     for _ in range((tr["warm_blocks"] - 1) * per_block):
-        x = sut.call(x)
+        y = sut.call(x)
         if spare.maxlen:
-            spare.append(x)
+            spare.append(y)
+        x = feed.after(y)
+    y = None
     sync(cards)
     spare.clear()
     stamp("warm blocks")
@@ -196,7 +252,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float, log)
     want = tr["check"]["sampled_blocks"]
     samples: list = []
     keep_last = tr["check"]["last"]
-    prev = None
+    last = None                           # the last call's (input, output)
     window = harness.Window()
     t_set = trace and tr["trace"]
     prof_at = tr["trace"]["skip_blocks"] if t_set else -1
@@ -216,11 +272,11 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float, log)
                 if j < len(samples):
                     samples[j] = None      # freed before the new pair exists
         if b == prof_at:
-            box = [x, prev]
-            x = prev = None       # the slice holds the only references
-            got = _profiled(sut, box, tr["trace"]["profile_blocks"], per_block, cards,
+            box = [x, last]
+            x = last = None       # the slice holds the only references
+            got = _profiled(sut, feed, box, tr["trace"]["profile_blocks"], per_block, cards,
                             keep_last, log)
-            x, prev = box
+            x, last = box
             del box
             for k in ("busy_s", "window_s", "device_ops", "idle_gaps"):
                 setattr(tcell, k, got.get(k))
@@ -239,8 +295,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float, log)
             if pick and s == pick[1]:
                 pair = (x, y)
             if keep_last:
-                prev = x
-            x = y
+                last = (x, y)
+            x = feed.after(y)
         y = None
         sync(cards)
         t1 = time.perf_counter()
@@ -253,12 +309,12 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float, log)
             del pair
         b += 1
         if stages["profiled"] and not stages["sampled"]:
-            box = [x, prev]
-            x = prev = None
+            box = [x, last]
+            x = last = None
 
             def one():
-                box[1] = box[0] if keep_last else None
-                box[0] = sut.call(box[0])
+                box[1] = None     # only the input and the output live during a timed call
+                _step(sut, feed, box, keep_last)
 
             gc.disable()          # no collection inside a timed call
             try:
@@ -266,7 +322,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float, log)
                                                     tr["trace"]["kernel_sleeps"], log=log)
             finally:
                 gc.enable()
-            x, prev = box
+            x, last = box
             del box, one
             stages["sampled"] = True
         if t1 - window.start >= seconds and all(stages.values()):
@@ -278,28 +334,30 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float, log)
     peak = max((max(memory["set-up"][k], v) for k, v in memory["window"].items()), default=0)
     counters = sut.counters()
     if keep_last:
-        held["last"] = (prev, x)
+        held["last"] = last
     for entry in samples:
         if entry is not None:
             held[f"block_{entry[0]}.{entry[1]}"] = entry[2:]
     memory["check holds"] = held_bytes(s for pair in held.values() for s in pair)
     log(f"memory by card, B: {memory}; memory_peak_bytes {peak}")
-    del samples, prev, x
+    del samples, last, x, feed            # the ring, but for the frames the check holds
     sut_planes = sut.planes
     sut.close()
     release(cards)        # the program's own buffers, before the reference runs
-    checks = _judge(cell, seed, held, sut_planes, first, log)
+    checks = _judge(cell, seed, start_seed, held, sut_planes, first, log)
     return {"window": window, "setup_s": setup_s, "peak": peak, "checks": checks,
             "trace": tcell if trace else None, "cards": cards, "counters": counters,
             "memory": memory}
 
 
-def _profiled(sut, box: list, blocks: int, per_block: int, cards, keep_last: bool, log):
+def _profiled(sut, feed: Feed, box: list, blocks: int, per_block: int, cards,
+              keep_last: bool, log):
     """`blocks` blocks under one torch.profiler session (one a process:
     torch.profiler has been seen to drop kernel records over several), with
     spans around the window, each block and each synchronise only, so the
     host runs as it does untraced but for the profiler's own cost.  `box`
-    holds the state and the previous one, and is updated in place."""
+    holds the next input and the last (input, output) pair, and is updated
+    in place."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     on_cuda = [d for d in cards if d.type == "cuda"]
@@ -310,10 +368,7 @@ def _profiled(sut, box: list, blocks: int, per_block: int, cards, keep_last: boo
             for _ in range(blocks):
                 with record_function("portbench.block"):
                     for _ in range(per_block):
-                        y = sut.call(box[0])
-                        box[1] = box[0] if keep_last else None
-                        box[0] = y
-                        del y
+                        _step(sut, feed, box, keep_last)
                     with record_function("portbench.sync"):
                         sync(cards)
     log(f"profiled {blocks} blocks, {blocks * per_block} calls; counters {sut.counters()}")
@@ -324,7 +379,7 @@ def _profiled(sut, box: list, blocks: int, per_block: int, cards, keep_last: boo
     return red
 
 
-def _judge(cell: Cell, seed: int, held: dict, planes, device, log) -> dict:
+def _judge(cell: Cell, seed: int, start_seed: int, held: dict, planes, device, log) -> dict:
     n0, shape = cell.grid[0], cell.grid[1:]
     chunk = cell.traffic["check"]["chunk_planes"]
     fields = {name: lambda a, b, name=name, spec=spec: inputs.planes(
@@ -334,7 +389,7 @@ def _judge(cell: Cell, seed: int, held: dict, planes, device, log) -> dict:
     for name, (src, dst) in held.items():
         if src is None:
             def get_src(a, b):
-                return inputs.planes(cell.grid, seed, a, b, cell.inputs, device)
+                return inputs.planes(cell.grid, start_seed, a, b, cell.inputs, device)
         else:
             def get_src(a, b, src=src):
                 return planes(src, a, b, device)

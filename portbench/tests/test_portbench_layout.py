@@ -107,7 +107,11 @@ def test_an_added_file_is_found_without_editing(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("change,match", [({"loop": "open"}, "runs only loop 'closed'"),
                                           ({"callers": 4}, "runs only callers 1"),
-                                          ({"warm_blocks": 1}, "warm_blocks")])
+                                          ({"warm_blocks": 1}, "warm_blocks"),
+                                          ({"feed": "stream"}, "feeds only"),
+                                          ({"feed": "frames"}, "frames None"),
+                                          ({"feed": "frames", "frames": 1}, "at least 2"),
+                                          ({"feed": "frames", "frames": 2.5}, "frames 2.5")])
 def test_a_traffic_the_loop_does_not_run_is_refused(tmp_path, monkeypatch, change, match):
     root = tmp_path / "portbench"
     shutil.copytree(CHECKOUT / "portbench", root,
