@@ -1,13 +1,17 @@
-"""A multi-stage program on the mesh against the whole grid: denoise3d (u
-the state, rhs fixed) kept on the mesh's cards for a few calls through
-`parallel/mesh.py::build_sharded_fn`, each call's output gathered and held
-bit for bit against the benchmark's plain reference
-(`portbench/reference/denoise3d.py`, computed on the first card in blocks
+"""A multi-stage program on the mesh against the whole grid: a benchmark
+configuration's program (by default denoise3d: u the state, rhs fixed; or
+HPGMG-FV's smoother, x the state and five fixed fields, three read with a
+halo that crosses the shards) kept on the mesh's cards for a few calls
+through `parallel/mesh.py::build_sharded_fn`, each call's output gathered
+and held bit for bit against the benchmark's plain reference
+(`portbench/reference/<program>.py`, computed on the first card in blocks
 of 64 planes from the call's own input) and against the whole-grid
 `cuda.build_fn` on the first card, on the whole grid, its faces included.
+The inputs are drawn as the configuration's file says (dtype, ranges).
 
     python3 scripts/torch_mesh_exact.py            # 1024 x 1024 x 512 on [2, 2] and [4]
     python3 scripts/torch_mesh_exact.py --cpu      # a small grid on CPU shards
+    python3 scripts/torch_mesh_exact.py --config hpgmg-jacobi-512
 
 Shard i lies on `cuda:(i mod count)`; with one card every shard is on
 cuda:0.  Prints one line a call (cells off each way, ms a call by the host
@@ -28,7 +32,7 @@ if str(ROOT) not in sys.path:
 
 import torch  # noqa: E402
 
-from portbench import harness  # noqa: E402
+from portbench import check, harness, inputs  # noqa: E402
 from soda_tpu_torch.backend import cuda  # noqa: E402
 from soda_tpu_torch.frontend.parser import parse_file  # noqa: E402
 from soda_tpu_torch.parallel import mesh  # noqa: E402
@@ -38,22 +42,13 @@ LAYOUTS = (([2, 2], [0, 1]), ([4], [0]))
 CHUNK = 64
 
 
-def reference_off(ref, u, rhs, got) -> int:
+def reference_off(ref, x, fields, got) -> int:
     """Cells of `got` whose bits differ from one sweep of the reference
-    from `u` and `rhs`, computed in blocks of CHUNK planes."""
-    n0, h = u.shape[0], ref.HALO
-
-    def block(t, a, b):
-        out = torch.zeros((b - a, *t.shape[1:]), dtype=t.dtype, device=t.device)
-        out[max(a, 0) - a:min(b, n0) - a] = t[max(a, 0):min(b, n0)]
-        return out
-
-    off = 0
-    for z in range(0, n0, CHUNK):
-        z1 = min(z + CHUNK, n0)
-        want = ref.sweep_at(block(u, z - h, z1 + h), z - h, n0, block(rhs, z - h, z1 + h))
-        off += int((got[z:z1].view(torch.int32) != want.view(torch.int32)).sum())
-    return off
+    from `x` and the fixed `fields`, computed in blocks of CHUNK planes."""
+    return check.compare_sweep(
+        ref, lambda a, b: x[a:b], lambda a, b: got[a:b], x.shape[0], x.shape[1:], CHUNK,
+        x.dtype, x.device, {n: lambda a, b, t=t: t[a:b] for n, t in fields.items()}
+    )["cells_off"]
 
 
 def sync(devices) -> None:
@@ -65,6 +60,8 @@ def sync(devices) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu", action="store_true", help="CPU shards at a small grid")
+    ap.add_argument("--config", default="denoise3d-512",
+                    help="a configuration under portbench/configs/: program, dtype, inputs")
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--seed", type=int, default=18)
     args = ap.parse_args(argv)
@@ -77,31 +74,34 @@ def main(argv=None) -> int:
         grid, first = (1024, 1024, 512), torch.device("cuda", 0)
         devices = [torch.device("cuda", i % torch.cuda.device_count()) for i in range(4)]
         print(f"cards: {[torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]}")
-    ref = harness.load_module("reference", "denoise3d")
-    p = parse_file(harness.program_path("denoise3d"))
-    g = torch.Generator(device=first).manual_seed(args.seed)
-    u0 = torch.rand(grid, generator=g, device=first)
-    rhs = torch.rand(grid, generator=g, device=first)
+    cfg = harness.load_json("configs", args.config)
+    ref = harness.load_module("reference", cfg["reference"])
+    p = parse_file(harness.program_path(cfg["program"]))
+    src, dst = p.input_names[0], p.output_names[0]
+    x0 = inputs.grid(grid, args.seed, inputs.Spec.of(cfg), first)
+    fields = {n: inputs.grid(grid, inputs.field_seed(args.seed, n), spec, first)
+              for n, spec in inputs.fields_of(cfg).items()}
     whole = cuda.build_fn(p, grid_shape=grid)
     bad = 0
     for sizes, dims in LAYOUTS:
         m = mesh.make_mesh(sizes, devices=devices)
         cards = list(dict.fromkeys(m.devices.flat))
         fn = mesh.build_sharded_fn(p, m, grid_shape=grid, dims=dims)
-        state = {"u": shard_grid(u0, m, fn.dims), "rhs": shard_grid(rhs, m, fn.dims)}
-        u = u0
+        state = {n: shard_grid(t, m, fn.dims) for n, t in fields.items()}
+        state[src] = shard_grid(x0, m, fn.dims)
+        x = x0
         for c in range(args.calls):
             sync(cards)
             t0 = time.perf_counter()
-            state["u"] = fn(state, {})["unew"]
+            state[src] = fn(state, {})[dst]
             sync(cards)
             ms = (time.perf_counter() - t0) * 1e3
-            got = gather_grid(state["u"], first)
-            off_ref = reference_off(ref, u, rhs, got)
-            u = whole({"u": u, "rhs": rhs}, {})["unew"]
-            off_whole = int((got.view(torch.int32) != u.view(torch.int32)).sum())
+            got = gather_grid(state[src], first)
+            off_ref = reference_off(ref, x, fields, got)
+            x = whole({src: x, **fields}, {})[dst]
+            off_whole = int((check.bits(got) != check.bits(x)).sum())
             bad += off_ref + off_whole
-            print(f"denoise3d {grid} on {sizes} dims {dims} call {c}: {off_ref} cells off "
+            print(f"{p.name} {grid} on {sizes} dims {dims} call {c}: {off_ref} cells off "
                   f"the reference, {off_whole} off the whole grid, {ms:.3f} ms, "
                   f"{fn.stats['exchange_bytes']} B exchanged, shard {fn.shard_shape}",
                   flush=True)

@@ -86,17 +86,26 @@ def planned_bytes() -> int:
     return linebuffer.PLANNED_BYTES
 
 
+def tma_copies() -> dict[str, int]:
+    """The z-march's TMA plane copies since `reset_launches` and the bytes
+    they move, each launch its plan's (`GroupPlan.tma_copies`: every fed
+    ring's planes in every CTA, a whole box each), summed over the
+    launches (`linebuffer.TMA_COPIES`, `linebuffer.TMA_BYTES`)."""
+    return {"copies": linebuffer.TMA_COPIES, "bytes": linebuffer.TMA_BYTES}
+
+
 def reset_launches() -> None:
     """Set every kernel wrapper's launch count, the z-march's counts by
-    feed and by march and its stage count, the rank-2 cascades' counts by
-    march and the planned bytes to 0, and clear the timing spans and
-    device intervals (`utils/trace.py::reset`) with them."""
+    feed and by march, its stage count and its TMA copies, the rank-2
+    cascades' counts by march and the planned bytes to 0, and clear the
+    timing spans and device intervals (`utils/trace.py::reset`) with them."""
     for m in COUNTED.values():
         m.LAUNCHES = 0
     for counts in (linebuffer.FEED_LAUNCHES, linebuffer.MARCH_LAUNCHES):
         for key in counts:
             counts[key] = 0
     linebuffer.STAGES = linebuffer.PLANNED_BYTES = 0
+    linebuffer.TMA_COPIES = linebuffer.TMA_BYTES = 0
     trace.reset()
 
 

@@ -78,6 +78,10 @@ STAGES = 0
 # device-memory bytes planned for the launches of every kernel wrapper,
 # each launch its group's `GroupPlan.hbm_bytes_per_call`
 PLANNED_BYTES = 0
+# the z-march's TMA plane copies and the bytes they move, each launch its
+# plan's (`GroupPlan.tma_copies`)
+TMA_COPIES = 0
+TMA_BYTES = 0
 
 
 def _ctype_store(program: StencilProgram, name: str) -> str:
@@ -503,10 +507,11 @@ class GroupKernel:
     (unless `out` provides them) and launches on the current stream; it
     never falls back.  `LAUNCHES` counts the launches, `PLANNED_BYTES` adds
     their planned bytes and, for the z-march, `FEED_LAUNCHES`,
-    `MARCH_LAUNCHES` and `STAGES` their feed, march and stages.  On CUDA
-    tensors the call is the span `soda.kernel` (`utils/trace.py`), with the
-    group's stage count as its argument `stages` and, for the z-march, its
-    `march`.
+    `MARCH_LAUNCHES`, `STAGES`, `TMA_COPIES` and `TMA_BYTES` their feed,
+    march, stages and TMA plane copies.  On CUDA tensors the call is the
+    span `soda.kernel` (`utils/trace.py`), with the group's stage count as
+    its argument `stages` and, for the z-march, its `march` and its
+    TMA-fed rings `fed`.
 
     `linebuffer2d.GroupKernel` (kernel 2, rank 2), `sweeps.GroupKernel`
     (fused sweeps, ranks 2 and 3), `columns3d.GroupKernel` (kernel 1's
@@ -526,6 +531,8 @@ class GroupKernel:
         self._span_args = {"stages": len(g.stages)}
         if g.kernel == "linebuffer3d":
             self._span_args["march"] = g.march
+            self._span_args["fed"] = g.fed
+        self._copies = (None, 0, 0)   # a grid's shape and its launch's TMA copies
 
     def _generate(self) -> str:
         return kernel_source(self.program, self.group)
@@ -640,10 +647,14 @@ class GroupKernel:
                 self.launch(self._entry, values, params, outs,
                             torch.cuda.current_stream(device).cuda_stream)
             self._count()
-            global PLANNED_BYTES, STAGES
+            global PLANNED_BYTES, STAGES, TMA_COPIES, TMA_BYTES
             PLANNED_BYTES += g.hbm_bytes_per_call
             if g.kernel == "linebuffer3d":
                 FEED_LAUNCHES[g.feed] += 1
                 MARCH_LAUNCHES[g.march] += 1
                 STAGES += len(g.stages)
+                if self._copies[0] != shape:
+                    self._copies = (shape, *g.tma_copies(shape))
+                TMA_COPIES += self._copies[1]
+                TMA_BYTES += self._copies[2]
             return outs

@@ -689,7 +689,9 @@ def _trace_table(the_plan) -> list[str]:
     then the z-march's launches by feed (`cuda.feed_counts()`), the stages
     they computed on chip (`cuda.stage_count()`), the rank-2 cascades'
     launches by march (`cuda.march_counts()`), the bytes planned for every
-    launch (`cuda.planned_bytes()`) and each z-march group's feed."""
+    launch (`cuda.planned_bytes()`), the z-march's TMA plane copies and their
+    bytes (`cuda.tma_copies()`) and each z-march group's feed and TMA-fed
+    rings."""
     from ..backend import cuda
     from ..utils import trace
 
@@ -705,11 +707,12 @@ def _trace_table(the_plan) -> list[str]:
     lines.append(f"z-march stages on chip: {cuda.stage_count()}")
     lines.append(f"march launches (rank-2 cascades, z-march): {cuda.march_counts()}")
     lines.append(f"planned device-memory bytes: {cuda.planned_bytes()}")
+    lines.append(f"z-march TMA plane copies: {cuda.tma_copies()}")
     for i, g in enumerate(the_plan.groups):
         if g.kernel == "linebuffer3d":
             ahead = f", {g.ahead} step(s) ahead" if g.ahead else ""
             lines.append(f"group {i}: march {g.march}, feed {g.feed}{ahead}, "
-                         f"{g.ctas_per_sm} CTAs an SM, grid {g.grid}")
+                         f"fed {g.fed}, {g.ctas_per_sm} CTAs an SM, grid {g.grid}")
     return lines
 
 

@@ -118,6 +118,17 @@ inline int& soda_emu_fault() {
   static int f = 0;
   return f;
 }
+// the box copies started and the bytes they move (a box whole, zeros outside
+// the grid included), counted from the process's start; read through
+// `soda_emu_copies`
+inline uint64_t* soda_emu_counts() {
+  static uint64_t n[2] = {0, 0};
+  return n;
+}
+extern "C" void soda_emu_copies(uint64_t* out) {
+  out[0] = soda_emu_counts()[0];
+  out[1] = soda_emu_counts()[1];
+}
 inline void soda_box_land(const soda_box& b) {
   const soda_tmap& m = *b.map;
   const int row = m.box_c * m.elem;
@@ -208,7 +219,8 @@ SODA_BODY void soda_bar_init(uint64_t* bar, int n, int tid) {
 SODA_BODY void soda_tma_plane(void* dst, const soda_tmap& m, uint64_t* bar, int x, int y,
                               int z, unsigned bytes) {
 #ifdef SODA_HOST_EMULATION
-  (void)bytes;
+  soda_emu_counts()[0] += 1;
+  soda_emu_counts()[1] += bytes;
   // the card faults on a box whose first column is not 16-byte aligned
   if ((int64_t)x * m.elem % 16 != 0) soda_emu_fault() = 1;
   const soda_box b{static_cast<unsigned char*>(dst), &m, bar, x, y, z};

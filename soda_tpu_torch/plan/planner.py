@@ -356,6 +356,31 @@ class GroupPlan:
         return "tma" if self.ahead else "scalar"
 
     @property
+    def fed(self) -> int:
+        """The z-march's input rings fed by TMA (those with a pitch)."""
+        return sum(1 for r in self.rings if r.pitch)
+
+    def tma_copies(self, shape: tuple[int, ...]) -> tuple[int, int]:
+        """The plane copies the z-march's TMA feed makes in one launch over
+        a grid of `shape`, and the bytes they move: in each CTA, each fed
+        ring copies its chunk's planes and its span's along the marched axis,
+        a whole box each (zeros outside the grid included).  (0, 0) without
+        the TMA feed."""
+        if not self.ahead:
+            return 0, 0
+        d0, d1, d2 = shape
+        columns = -(-d1 // self.tile[0]) * -(-d2 // self.tile[1])
+        chunks = -(-d0 // self.bz)
+        copies = nbytes = 0
+        for r in self.rings:
+            if r.pitch:
+                (zlo, zhi) = r.span[0]
+                n = columns * (d0 + chunks * (zhi - zlo))
+                copies += n
+                nbytes += n * r.rows * r.cols * r.elem_bytes
+        return copies, nbytes
+
+    @property
     def ctas_per_sm(self) -> int:
         """CTAs one SM runs at once (`ctas_per_sm`)."""
         return ctas_per_sm(self.smem_bytes, self.threads, self.regs)

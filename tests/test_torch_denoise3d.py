@@ -12,10 +12,10 @@ bit on the whole grid, first and last planes included,
   vector math, which is not: 1 ulp off on about 0.7% of cells);
 and what a launch counts: one launch of the column z-march
 (`columns3d.py`), three stages and the plan's bytes a call for denoise3d,
-one launch of the rings and one stage for jacobi3d, the stage count and
-the march on the span `soda.kernel`.  Kernel 1 runs on a grid smaller than
-one tile and in chunks shorter than its warm-up too, under the host and
-the hazard emulation.  Besides, the plain namespace sets up MKL's vector math
+one launch of the rings and one stage for jacobi3d, the stage count, the
+march and the TMA-fed rings on the span `soda.kernel`.  Kernel 1 runs on
+a grid smaller than one tile and in chunks shorter than its warm-up too,
+under the host and the hazard emulation.  Besides, the plain namespace sets up MKL's vector math
 from one thread before its first CPU evaluation.
 
 This file imports neither jax nor soda_tpu.
@@ -193,7 +193,8 @@ def test_a_call_counts_one_launch_its_stages_and_its_planned_bytes(emulated_card
         "rings3d": 3 * (march == "rings3d")}
     assert trace.totals()["soda.kernel"].count == 3
     args = [e.kwinputs for e in prof.events() if e.name == "soda.kernel"]
-    assert args == [{"stages": stages, "march": march}] * 3
+    fed = {"denoise3d": 2, "jacobi3d": 1}[name]    # u and rhs; t0
+    assert args == [{"stages": stages, "march": march, "fed": fed}] * 3
 
 
 def test_the_plain_namespace_sets_up_vector_math_before_its_first_evaluation():
